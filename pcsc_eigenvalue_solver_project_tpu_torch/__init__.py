@@ -1,0 +1,46 @@
+"""pcsc_eigenvalue_solver_project_tpu_torch — the eigensolver on PyTorch and CUDA.
+
+The port of ``pcsc_eigenvalue_solver_project_tpu`` (JAX on a TPU) to
+PyTorch on an NVIDIA H100, under the same module tree and public names.
+This package holds the power-method path on dense, CSR/ELL and banded
+(DIA and interleaved DIA) operators; the banded SpMV runs as CUDA kernels
+written for Hopper (``csrc/``), built with nvcc at the first CUDA launch.
+On CPU tensors every operation runs its plain PyTorch version.
+
+Typical usage::
+
+    import torch
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+
+    A = eigsol.read_matrix_from_file("data/A.txt", dtype=torch.complex128,
+                                     device="cuda")
+    res = eigsol.power_method(A, eigsol.SolverOptions(tolerance=1e-8))
+    print(res.eigenvalue, int(res.iterations), bool(res.converged))
+"""
+
+from .core.options import SolverOptions
+from .core.results import EigenResult
+from .core.tolerance import is_close_relative
+from .matrix.dense import DenseMatrix
+from .matrix.dia import InterleavedDIA, SparseDIA
+from .matrix.protocol import AbstractMatrix
+from .matrix.sparse import SparseCSR, SparseELL
+from .io.reader import read_matrix_from_file, read_matrix_from_text
+from .solvers.power import power_method
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "AbstractMatrix",
+    "DenseMatrix",
+    "EigenResult",
+    "InterleavedDIA",
+    "SolverOptions",
+    "SparseCSR",
+    "SparseDIA",
+    "SparseELL",
+    "is_close_relative",
+    "power_method",
+    "read_matrix_from_file",
+    "read_matrix_from_text",
+]

@@ -1,0 +1,36 @@
+"""Solver results.
+
+Reference parity: ``EigenResult`` (eigenvalue, normalized eigenvector,
+iterations, converged; reference src/result/eigen_result.hpp:22-52).
+The ``iterations`` and ``converged`` fields are the reference's entire
+observability contract and are preserved exactly, including its quirk that
+power-family solvers report k+1 at the breaking iteration
+(power_method.hpp:87,95). Fields are tensors on the solver's device until the
+caller reads them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class EigenResult:
+    """Result of single-eigenpair solvers (power method)."""
+
+    eigenvalue: torch.Tensor   # 0-d
+    eigenvector: torch.Tensor
+    iterations: torch.Tensor   # 0-d int32
+    converged: torch.Tensor    # 0-d bool
+
+    def item_iterations(self) -> int:
+        return int(self.iterations)
+
+    def item_converged(self) -> bool:
+        return bool(self.converged)
+
+    def __repr__(self):
+        return (f"EigenResult(eigenvalue={complex(self.eigenvalue)}, "
+                f"iterations={int(self.iterations)}, converged={bool(self.converged)})")

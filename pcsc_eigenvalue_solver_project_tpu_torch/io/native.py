@@ -1,0 +1,123 @@
+"""ctypes bindings to the native C++ matrix parser (native/fast_reader.cpp).
+
+The same library as the JAX package's ``io/native.py``:
+``native/build/libfast_reader.so``, built with ``make -C native`` on first
+use. If the toolchain, the build or a symbol is missing, ``available()`` is
+False and reader.py parses with its pure-Python tokenizer, which implements
+the identical grammar and error messages.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+from ..core.dtypes import canonical_dtype, is_complex_dtype, numpy_dtype
+
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "native")
+_SO_PATH = os.path.join(_NATIVE_DIR, "build", "libfast_reader.so")
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+def _load():
+    global _lib, _tried
+    with _lock:
+        if _tried:
+            return _lib
+        _tried = True
+        try:
+            if not os.path.exists(_SO_PATH):
+                subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                               capture_output=True, timeout=120)
+            lib = ctypes.CDLL(_SO_PATH)
+            lib.eigsol_read_header.restype = ctypes.c_int
+            lib.eigsol_read_header.argtypes = [
+                ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
+                ctypes.POINTER(ctypes.c_long), ctypes.c_char_p, ctypes.c_int]
+            lib.eigsol_read_dense.restype = ctypes.c_int
+            lib.eigsol_read_dense.argtypes = [
+                ctypes.c_char_p, ctypes.c_int, ctypes.c_long, ctypes.c_long,
+                ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+                ctypes.c_char_p, ctypes.c_int]
+            lib.eigsol_read_sparse.restype = ctypes.c_int
+            lib.eigsol_read_sparse.argtypes = [
+                ctypes.c_char_p, ctypes.c_int, ctypes.c_long, ctypes.c_long,
+                ctypes.c_long, ctypes.POINTER(ctypes.c_long),
+                ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_double), ctypes.c_char_p, ctypes.c_int]
+            _lib = lib
+        except (OSError, AttributeError, subprocess.SubprocessError):
+            _lib = None
+        return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+_ERRLEN = 512
+
+
+def _dp(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def _lp(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_long))
+
+
+def read_matrix_from_file(filename, dtype, device=None):
+    """Native-parse a matrix file; raises ValueError with reference-parity
+    messages on malformed input. Returns DenseMatrix or SparseCSR."""
+    from ..matrix.dense import DenseMatrix
+    from ..matrix.sparse import SparseCSR
+
+    lib = _load()
+    if lib is None:
+        raise ImportError("native reader unavailable")
+    dtype = canonical_dtype(dtype)
+    np_dtype = numpy_dtype(dtype)
+    cx = is_complex_dtype(dtype)
+    path = os.fspath(filename).encode()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    storage = ctypes.c_int()
+    rows = ctypes.c_long()
+    cols = ctypes.c_long()
+    nnz = ctypes.c_long()
+    if lib.eigsol_read_header(path, ctypes.byref(storage), ctypes.byref(rows),
+                              ctypes.byref(cols), ctypes.byref(nnz), err, _ERRLEN):
+        raise ValueError(err.value.decode())
+
+    if storage.value == 0:
+        total = rows.value * cols.value
+        re = np.empty(total, np.float64)
+        im = np.empty(total, np.float64) if cx else np.empty(0, np.float64)
+        if lib.eigsol_read_dense(path, int(cx), rows.value, cols.value,
+                                 _dp(re), _dp(im), err, _ERRLEN):
+            raise ValueError(err.value.decode())
+        arr = (re + 1j * im) if cx else re
+        return DenseMatrix.from_array(
+            arr.reshape(rows.value, cols.value).astype(np_dtype), dtype=dtype,
+            device=device)
+
+    rr = np.empty(nnz.value, np.int64)
+    cc = np.empty(nnz.value, np.int64)
+    re = np.empty(nnz.value, np.float64)
+    im = np.empty(nnz.value, np.float64) if cx else np.empty(0, np.float64)
+    if lib.eigsol_read_sparse(path, int(cx), rows.value, cols.value, nnz.value,
+                              _lp(rr), _lp(cc), _dp(re), _dp(im), err, _ERRLEN):
+        raise ValueError(err.value.decode())
+    vals = (re + 1j * im) if cx else re
+    return SparseCSR.from_coo(rr, cc, vals.astype(np_dtype),
+                              (rows.value, cols.value), dtype=dtype,
+                              sum_duplicates=False, device=device)
+

@@ -1,0 +1,154 @@
+"""Power iteration — dominant eigenpair.
+
+Reference parity (reference src/power_method/power_method.hpp:47-148):
+
+    x_{k+1} = A x_k / ||A x_k||,   lambda_k = x_k^H (A x_k)
+
+with convergence when successive Rayleigh quotients satisfy
+``|l_new - l| <= tol * (1 + |l_new|)`` (power_method.hpp:83-91 via
+tolerance.hpp:29-33), breakdown (``||Ax|| == 0``) exiting with
+``converged=False`` (power_method.hpp:73-76), and ``iterations == k+1`` at
+the breaking iteration (power_method.hpp:87,95). As in the JAX package, the
+Rayleigh-quotient matvec ``A x_{k+1}`` is carried over as the next
+iteration's ``y``: one matvec per iteration.
+
+Loop structure: the JAX package runs the loop as one ``lax.while_loop``
+with the ``done`` flag on the device. Here the loop body runs eagerly on
+tensors, in blocks of ``BLOCK_ITERATIONS`` iterations. Every carry update is
+masked by ``done`` with ``torch.where``, so the iterations after ``done``
+inside a block change nothing, and the host reads the flag once per block,
+not once per matvec. The result and iteration count are exactly the
+while-loop's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.dtypes import check_scalar_type, real_dtype_of
+from ..core.options import SolverOptions
+from ..core.results import EigenResult
+from ..core.tolerance import is_close_relative
+from ..matrix.protocol import (AbstractMatrix, decode_result,
+                               require_nonempty, require_square)
+from ..utils.prng import default_generator, random_unit_vector
+
+# Iterations between two host reads of the convergence flag.
+BLOCK_ITERATIONS = 32
+
+
+def vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x^H y`` over all elements (``jnp.vdot``: flattens, conjugates x)."""
+    return torch.vdot(x.reshape(-1), y.reshape(-1))
+
+
+def norm(x: torch.Tensor) -> torch.Tensor:
+    """2-norm over all elements."""
+    return torch.linalg.vector_norm(x)
+
+
+def power_init_carry(matvec, x0: torch.Tensor):
+    """Initial loop carry: (k, x, z=A@x, lambda, initialized, converged,
+    used_iterations, done), all tensors on x0's device."""
+    def flag():
+        return torch.zeros((), dtype=torch.bool, device=x0.device)
+
+    def count():
+        return torch.zeros((), dtype=torch.int32, device=x0.device)
+
+    return (count(), x0, matvec(x0),
+            torch.zeros((), dtype=x0.dtype, device=x0.device),
+            flag(), flag(), count(), flag())
+
+
+def power_carry_loop(matvec, vdot, norm, carry, max_iterations: int, tol):
+    """Advance the power-iteration carry until ``k == max_iterations`` or
+    convergence/breakdown. Generic over the reduction primitives, like the
+    JAX package's. ``tol`` is a float or a 0-d tensor; the convergence test
+    is decided in float64."""
+    dtype = carry[1].dtype
+    rdt = real_dtype_of(dtype)
+    device = carry[1].device
+    tol = torch.as_tensor(tol, dtype=torch.float64, device=device)
+    one = torch.ones((), dtype=rdt, device=device)
+
+    def body(c):
+        k, x, z, lam, initialized, converged, used, done = c
+        y = z  # == A @ x, computed at the end of the previous iteration
+        norm_y = norm(y).to(rdt)
+        breakdown = norm_y == 0
+        safe = torch.where(breakdown, one, norm_y).to(dtype)
+        x_new = y / safe
+        z_new = matvec(x_new)
+        lam_new = vdot(x_new, z_new)  # x^H (A x): conjugates first arg like Eigen dot
+        conv_now = initialized & is_close_relative(lam_new, lam, tol) & ~breakdown
+        # An iteration after ``done`` changes nothing; breakdown keeps the
+        # last good x, z and lambda.
+        live = ~done
+        keep = live & ~breakdown
+        k_next = torch.where(live, k + 1, k)
+        return (
+            k_next,
+            torch.where(keep, x_new, x),
+            torch.where(keep, z_new, z),
+            torch.where(keep, lam_new, lam),
+            initialized | keep,
+            converged | (live & conv_now),
+            torch.where(live, k + 1, used),  # usedIters = k+1 (power_method.hpp:87,95)
+            done | breakdown | conv_now,
+        )
+
+    while True:
+        k, done = carry[0], carry[7]
+        k_host, done_host = (int(v) for v in torch.stack([k, done.to(k.dtype)]).tolist())
+        if done_host or k_host >= max_iterations:
+            return carry
+        for _ in range(min(BLOCK_ITERATIONS, max_iterations - k_host)):
+            carry = body(carry)
+
+
+def carry_to_result(carry) -> EigenResult:
+    k, x, z, lam, initialized, converged, used, done = carry
+    return EigenResult(eigenvalue=lam, eigenvector=x, iterations=used,
+                       converged=converged)
+
+
+def power_iteration_loop(matvec, vdot, norm, x0: torch.Tensor,
+                         max_iterations: int, tol) -> EigenResult:
+    """Run the full power iteration from a fresh start vector."""
+    carry = power_carry_loop(matvec, vdot, norm, power_init_carry(matvec, x0),
+                             max_iterations, tol)
+    return carry_to_result(carry)
+
+
+def power_method(M: AbstractMatrix, opts: SolverOptions = SolverOptions(), *,
+                 dtype=None, generator: torch.Generator | None = None,
+                 x0=None) -> EigenResult:
+    """Dominant-eigenpair power iteration on a dense or sparse matrix, on the
+    device where the matrix lives.
+
+    ``dtype`` is the ``Scalar`` template-parameter analogue: when given, a
+    mismatch with the stored dtype raises ``TypeError`` (parity with
+    power_method.hpp:137-139). ``generator``/``x0`` control the start vector.
+    """
+    if dtype is not None:
+        check_scalar_type(M.dtype, dtype, "power_method")
+    require_square(M, "power_method")
+    require_nonempty(M, "power_method")
+    # Iterate in at least f32 even when the operator stores bf16 diagonals:
+    # the banded matvec accumulates in f32 already.
+    vec_dt = torch.promote_types(M.dtype, torch.float32)
+    if x0 is None:
+        gen = generator if generator is not None else default_generator(M.device)
+        x0 = random_unit_vector(gen, M.shape[0], vec_dt, device=M.device)
+    else:
+        x0 = torch.as_tensor(x0).to(device=M.device, dtype=vec_dt)
+        nrm = norm(x0)
+        x0 = torch.where(nrm == 0, x0, x0 / torch.where(nrm == 0, 1, nrm).to(vec_dt))
+    # Solve in the operator's vector domain (identity for most kinds;
+    # lane-major interleaved for InterleavedDIA) — encode once, iterate
+    # domain-native, decode the eigenvector once.
+    x0 = M.encode_vec(x0)
+    r = power_iteration_loop(M.matvec, vdot, norm, x0, opts.max_iterations,
+                             opts.tolerance)
+    return decode_result(M, r)

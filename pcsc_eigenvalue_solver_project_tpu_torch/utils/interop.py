@@ -1,0 +1,79 @@
+"""Moving state across from numpy and from the JAX package.
+
+``to_tensor`` turns any array-like into a tensor (copying, so the tensor
+never aliases the caller's array). ``from_numpy_leaves`` rebuilds one of the
+port's matrices from the leaves and static fields of the JAX package's
+matrix of the same kind, so both sides compute on identical data. The leaves
+come in as numpy arrays (``np.asarray`` of each JAX leaf, in pytree order),
+so this module imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..core.dtypes import as_torch_dtype
+
+
+def to_tensor(a, dtype=None, device=None) -> torch.Tensor:
+    """A copy of ``a`` as a tensor on ``device`` (default: where ``a`` lies,
+    the CPU for host arrays), cast to ``dtype`` when given.
+
+    numpy ``bfloat16`` arrays (``ml_dtypes``, which ``torch.from_numpy``
+    rejects) move bit-exactly: viewed as int16, then as ``torch.bfloat16``.
+    """
+    if isinstance(a, torch.Tensor):
+        t = a.clone()
+    else:
+        arr = np.asarray(a)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+            t = t.view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(device=device, dtype=None if dtype is None else as_torch_dtype(dtype))
+
+
+# kind -> names of its tensor leaves, in the JAX pytree's order
+_LEAVES = {
+    "DenseMatrix": ("array",),
+    "SparseCSR": ("data", "indices", "rows", "indptr"),
+    "SparseELL": ("data", "indices"),
+    "SparseDIA": ("data",),
+    "InterleavedDIA": ("data_il",),
+}
+
+
+def from_numpy_leaves(kind: str, leaves: Sequence[np.ndarray], static: dict,
+                      device=None):
+    """Build the port's ``kind`` matrix from a JAX matrix's leaves.
+
+    ``kind`` is the class name (``"DenseMatrix"``, ``"SparseCSR"``,
+    ``"SparseELL"``, ``"SparseDIA"`` or ``"InterleavedDIA"``); ``leaves`` are
+    its array leaves in pytree order; ``static`` holds its static fields
+    (``shape``, ``offsets``, ``tile_s`` as the kind has them).
+    """
+    from ..matrix.dense import DenseMatrix
+    from ..matrix.dia import InterleavedDIA, SparseDIA
+    from ..matrix.sparse import SparseCSR, SparseELL
+
+    classes = {"DenseMatrix": DenseMatrix, "SparseCSR": SparseCSR,
+               "SparseELL": SparseELL, "SparseDIA": SparseDIA,
+               "InterleavedDIA": InterleavedDIA}
+    if kind not in classes:
+        raise ValueError(f"from_numpy_leaves: unknown matrix kind {kind!r}")
+    names = _LEAVES[kind]
+    if len(leaves) != len(names):
+        raise ValueError(f"from_numpy_leaves: {kind} has {len(names)} leaves, "
+                         f"got {len(leaves)}")
+    fields = {name: to_tensor(leaf, device=device)
+              for name, leaf in zip(names, leaves)}
+    for key in ("shape", "offsets"):
+        if key in static:
+            fields[key] = tuple(int(v) for v in static[key])
+    if "tile_s" in static:
+        fields["tile_s"] = int(static["tile_s"])
+    return classes[kind](**fields)
