@@ -15,12 +15,24 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    budget (held against the loop driven by the plain matvec) and on a
    converging operator (held against scipy's ``eigs`` in float64);
 5. the reference data files ``data/A.txt`` (dense) and ``data/B.txt``
-   (CSR), complex128 on the card, against ``numpy.linalg.eigvals``.
+   (CSR), complex128 on the card, against ``numpy.linalg.eigvals``;
+6. the dense QR kernels B7-B10 against their plain versions on the card:
+   Hessenberg (B7) and Householder QR (B9) at n = 512 in float32, complex64
+   and float64, the shifted Givens sweeps (B8) and the parity sweeps (B10)
+   with a budget of 10 sweeps at n = 128 in four dtypes and of a few sweeps
+   at n = 512 in the path's dtypes, each with its time beside the plain
+   version's;
+7. the QR path through the public API on CUDA tensors at n = 512: the
+   bench operand (symmetric, spectrum 0.9^i) in float32 and a complex64
+   operand with spectrum 0.9^i e^(i theta) in both modes, a real
+   non-symmetric matrix in accelerated mode against numpy in float64, and
+   the reference demo's QR section on ``data/A.txt``.
 
-The kernels' launch counts are zeroed just before phases 4-5 and read just
-after; each kernel must have run there. The script then prints one JSON
-line with each kernel's numbers, the card's name and power limit, and last
-the line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+The banded kernels' launch counts are zeroed just before phases 4-5 and
+read just after, the QR kernels' just before and after phase 7; each kernel
+must have run on its path. The script then prints one JSON line with each
+kernel's numbers, the card's name and power limit, and last the line
+``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +48,11 @@ N = 1_000_000
 BANDWIDTH = 16  # 33 diagonals: the operator of bench.py --n 1000000
 KERNEL_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/dia_spmv.cu"
 TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/dia_spmv.py"
+QR_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/qr_kernels.cu"
+QR_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/qr_kernels.py"
+QR_N = 512        # BASELINE.json configs[2]: 512 x 512 dense, all eigenvalues
+QR_SWEEP_N = 128  # B8/B10 against their plain versions (thousands of launches a sweep)
+QR_TOL = 3e-6     # bench.py's QR tolerance
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
@@ -78,13 +95,30 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timed_pair(kernel_fn, plain_fn):
+def time_events_ms(fn, reps: int = 3) -> float:
+    """Mean time per call over ``reps`` calls between two CUDA events, after
+    a warm-up: for work that reads the device from the host and so cannot
+    be captured in a graph."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_pair(kernel_fn, plain_fn, timer=time_ms):
     """Kernel and plain time per call, taken in turns (plain, kernel,
     kernel, plain); the lower of each pair."""
-    p1 = time_ms(plain_fn)
-    k1 = time_ms(kernel_fn)
-    k2 = time_ms(kernel_fn)
-    p2 = time_ms(plain_fn)
+    p1 = timer(plain_fn)
+    k1 = timer(kernel_fn)
+    k2 = timer(kernel_fn)
+    p2 = timer(plain_fn)
     return min(k1, k2), min(p1, p2)
 
 
@@ -129,6 +163,250 @@ def scipy_dominant(data: np.ndarray, offsets) -> complex:
     return complex(lam[0])
 
 
+def nearest_err(got, want) -> float:
+    """Max distance under greedy nearest-neighbour matching of two spectra."""
+    got, worst = list(np.asarray(got)), 0.0
+    for w in np.asarray(want):
+        j = int(np.argmin(np.abs(np.asarray(got) - w)))
+        worst = max(worst, abs(got[j] - w))
+        got.pop(j)
+    return float(worst)
+
+
+def unit_phase(z: np.ndarray) -> np.ndarray:
+    """z/|z| elementwise, 1 where z = 0 (signs for real z)."""
+    m = np.abs(z)
+    return np.where(m > 0, z / np.where(m > 0, m, 1), 1)
+
+
+def hessenberg_phases(h, hp) -> np.ndarray:
+    """The diagonal unitary D, with D[0] = 1, for which h = D^H hp D, read
+    off the subdiagonals. A Hessenberg form with Q e_1 = e_1 is unique up to
+    such a D (and then Q = Qp D), and so is the QR iterate of B10."""
+    r = unit_phase(hp.diagonal(-1).cpu().numpy()) / unit_phase(h.diagonal(-1).cpu().numpy())
+    return np.concatenate([[1], np.cumprod(r)])
+
+
+def triangular_phases(r, rp) -> np.ndarray:
+    """The diagonal unitary D for which R = D Rp (and then Q = Qp D^H): a QR
+    decomposition of a matrix of full rank is unique up to such a D."""
+    return unit_phase(r.diagonal().cpu().numpy()) / unit_phase(rp.diagonal().cpu().numpy())
+
+
+def qr_kernel_phase(dev, card_name, card_limit):
+    """Phase 6: B7-B10 against their plain versions on the card. Returns
+    {tag: max abs error} and {tag: (kernel ms, plain ms, unit)}."""
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+
+    rng = np.random.default_rng(10)
+    errors, timings = {}, {}
+
+    def gaussian(n, dt):
+        a = rng.standard_normal((n, n))
+        if dt.is_complex:
+            a = a + 1j * rng.standard_normal((n, n))
+        return a
+
+    def operand(n, dt):
+        return torch.from_numpy(gaussian(n, dt)).to(dev, dt)
+
+    def well_conditioned(n, dt):
+        """U diag(uniform[1, 2]) V^H with random unitary U and V: cond <= 2."""
+        u, _ = np.linalg.qr(gaussian(n, dt))
+        v, _ = np.linalg.qr(gaussian(n, dt))
+        return torch.from_numpy((u * rng.uniform(1, 2, n)) @ v.conj().T).to(dev, dt)
+
+    def rel(x, y, scale):
+        return float((x - y).abs().max()) / scale
+
+    # B7 and B9 at n = 512 on a well-conditioned operand. Limits relative to
+    # max|A| (Q: to 1), all one unit of 1e-6 * n in single precision (1e-14 * n
+    # in double). H, R and Q are unique only up to a diagonal unitary D (signs
+    # for real data); each entry of D is the phase of a pivot, which moves by
+    # about eps / |pivot| and so by up to ~1e-2 at one small pivot in complex64.
+    # The entries are held to one unit after D is divided out, and D to 1 within
+    # 0.2 (1e-6 in double), which still fails a wrong phase convention or sign.
+    for dt in (torch.float32, torch.complex64, torch.float64):
+        a = well_conditioned(QR_N, dt)
+        scale = float(a.abs().max())
+        double = dt == torch.float64
+        unit = (1e-14 if double else 1e-6) * QR_N
+        eye = torch.eye(QR_N, dtype=dt, device=dev)
+        h, q = qk.hessenberg_kernel(a, accumulate_q=True)
+        hp, qp = qk.hessenberg_plain(a, accumulate_q=True)
+        r, qq = qk.qr_decompose_kernel(a)
+        rp, qqp = qk.qr_decompose_plain(a)
+        torch.cuda.synchronize()
+        dh, dr = hessenberg_phases(h, hp), triangular_phases(r, rp)
+        dh_t, dr_t = (torch.from_numpy(d).to(dev, dt) for d in (dh, dr))
+        checks = {
+            "B7 H vs plain": (rel(h, dh_t.conj()[:, None] * hp * dh_t, scale), unit),
+            "B7 Q vs plain": (rel(q, qp * dh_t, 1.0), unit),
+            "B7 phases |D - 1|": (float(np.abs(dh - 1).max()), 1e-6 if double else 0.2),
+            "B7 |A - Q H Q^H|": (rel(q @ h @ q.conj().T, a, scale), unit),
+            "B7 |Q^H Q - I|": (rel(q.conj().T @ q, eye, 1.0), unit),
+            "B7 below subdiagonal": (float(torch.tril(h, -2).abs().max()) / scale, unit),
+            "B9 R vs plain": (rel(r, dr_t[:, None] * rp, scale), unit),
+            "B9 Q vs plain": (rel(qq, qqp * dr_t.conj(), 1.0), unit),
+            "B9 phases |D - 1|": (float(np.abs(dr - 1).max()), 1e-6 if double else 0.2),
+            "B9 |A - Q R|": (rel(qq @ r, a, scale), unit),
+            "B9 |Q^H Q - I|": (rel(qq.conj().T @ qq, eye, 1.0), unit),
+            "B9 below diagonal": (float(torch.tril(r, -1).abs().max()) / scale, unit)}
+        for label, (err, limit) in checks.items():
+            print(f"check {label} {dt} n={QR_N}: {err:.3e} (limit {limit:.1e})")
+            check(err <= limit, f"{label} {dt}: {err:.3e} above {limit:.1e}")
+        check(bool(torch.isfinite(h).all()) and bool(torch.isfinite(r).all()),
+              f"B7/B9 {dt}: non-finite output")
+        if dt == torch.float32:
+            errors["B7"] = float((h - dh_t.conj()[:, None] * hp * dh_t).abs().max())
+            errors["B9"] = float((r - dr_t[:, None] * rp).abs().max())
+        if dt != torch.float64:
+            timings[("B7", dt)] = timed_pair(lambda: qk.hessenberg_kernel(a),
+                                             lambda: qk.hessenberg_plain(a),
+                                             lambda fn: time_ms(fn, reps=3)) + ("call",)
+            timings[("B9", dt)] = timed_pair(lambda: qk.qr_decompose_kernel(a),
+                                             lambda: qk.qr_decompose_plain(a),
+                                             lambda fn: time_ms(fn, reps=3)) + ("call",)
+    # B8 and B10 with deflation off (tol 0), so that both versions run the same
+    # iterates: 10 sweeps at n = 128 in every dtype (timed there), and at the
+    # path's n = 512 in its dtypes, B8 for 3 sweeps and B10 for 7, which B10
+    # enqueues as two chunks (5 and 2 sweeps) with a host read of `done` between.
+    sweeps = 10
+    cases = [(QR_SWEEP_N, dt, sweeps, sweeps) for dt in
+             (torch.complex64, torch.float32, torch.complex128, torch.float64)]
+    cases += [(QR_N, torch.complex64, 3, 7), (QR_N, torch.float32, None, 7)]
+    for n, dt, b8_sweeps, b10_sweeps in cases:
+        h = qk.hessenberg_plain(operand(n, dt))
+        scale = float(h.abs().max())
+        unit = (1e-14 if dt in (torch.float64, torch.complex128) else 1e-6) * n
+        timed = n == QR_SWEEP_N and dt in (torch.float32, torch.complex64)
+        if dt.is_complex:
+            e, s, hi, t, q = qk.qr_eig_kernel(h, b8_sweeps, 0.0, accumulate_q=True)
+            ep, sp, hip, tp, _ = qk.qr_eig_plain(h, b8_sweeps, 0.0, accumulate_q=True)
+            torch.cuda.synchronize()
+            err, res = rel(t, tp, scale), rel(q @ t @ q.conj().T, h, scale)
+            print(f"check B8 {dt} n={n}, {b8_sweeps} sweeps: T vs plain {err:.3e} "
+                  f"(limit {10 * unit:.1e}), |H - Q T Q^H| {res:.3e} (limit {unit:.1e}), "
+                  f"sweeps {int(s)}/{int(sp)}, hi {int(hi)}/{int(hip)}")
+            check(int(s) == int(sp) == b8_sweeps and int(hi) == int(hip),
+                  f"B8 {dt} n={n}: counts differ")
+            check(err <= 10 * unit and res <= unit, f"B8 {dt} n={n}: off its plain version")
+            if timed:
+                errors["B8"] = float((e - ep).abs().max())
+                k_ms, p_ms = timed_pair(lambda: qk.qr_eig_kernel(h, sweeps, 0.0),
+                                        lambda: qk.qr_eig_plain(h, sweeps, 0.0),
+                                        lambda fn: time_events_ms(fn, reps=2))
+                timings[("B8", dt)] = (k_ms / sweeps, p_ms / sweeps, "sweep")
+        H, it, c, m = qk.qr_parity_kernel(h, b10_sweeps, 0.0)
+        Hp, itp, cp, mp = qk.qr_parity_plain(h, b10_sweeps, 0.0)
+        torch.cuda.synchronize()
+        err = rel(H, Hp, scale)
+        print(f"check B10 {dt} n={n}, {b10_sweeps} sweeps: H vs plain {err:.3e} "
+              f"(limit {10 * unit:.1e}), it {int(it)}/{int(itp)}, maxsub {float(m):.6e}/"
+              f"{float(mp):.6e}")
+        check(int(it) == int(itp) == b10_sweeps and not bool(c) and not bool(cp),
+              f"B10 {dt} n={n}: counts differ")
+        check(err <= 10 * unit, f"B10 {dt} n={n}: off its plain version")
+        if timed:
+            if dt == torch.float32:
+                errors["B10"] = float((H - Hp).abs().max())
+            k_ms, p_ms = timed_pair(lambda: qk.qr_parity_kernel(h, sweeps, 0.0),
+                                    lambda: qk.qr_parity_plain(h, sweeps, 0.0),
+                                    lambda fn: time_events_ms(fn, reps=2))
+            timings[("B10", dt)] = (k_ms / sweeps, p_ms / sweeps, "sweep")
+    # per-sweep kernel times at the path's size (the plain versions, held
+    # against the kernels above, are timed at n = 128 only)
+    h512 = qk.hessenberg_kernel(operand(QR_N, torch.complex64))
+    print(f"time B8 complex64 n={QR_N}: kernel "
+          f"{time_events_ms(lambda: qk.qr_eig_kernel(h512, sweeps, 0.0)) / sweeps:.3f} ms/sweep "
+          f"(full window) [{card_name}, {card_limit}]")
+    h512r = qk.hessenberg_kernel(operand(QR_N, torch.float32))
+    print(f"time B10 float32 n={QR_N}: kernel "
+          f"{time_events_ms(lambda: qk.qr_parity_kernel(h512r, sweeps, 0.0), 1) / sweeps:.3f}"
+          f" ms/sweep [{card_name}, {card_limit}]")
+    for (tag, dt), (k_ms, p_ms, unit) in timings.items():
+        n = QR_N if tag in ("B7", "B9") else QR_SWEEP_N
+        print(f"time {tag} {dt} n={n}: kernel {k_ms:.3f} ms/{unit}, plain {p_ms:.3f} ms/{unit} "
+              f"[{card_name}, {card_limit}]")
+    return errors, timings
+
+
+def qr_path_phase(eigsol, dev):
+    """Phase 7: the QR path through the public API on CUDA tensors. Every
+    check raises on failure."""
+    import math
+
+    import torch
+
+    n = QR_N
+    rng = np.random.default_rng(0)
+    d = 0.9 ** np.arange(n)
+    Qo, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    a32 = torch.from_numpy((Qo * d) @ Qo.T).to(dev, torch.float32)
+    rng = np.random.default_rng(1)
+    dc = d * np.exp(1j * rng.uniform(0, 2 * np.pi, n))
+    Qc, _ = np.linalg.qr(rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+    a64c = torch.from_numpy((Qc * dc) @ Qc.conj().T).to(dev, torch.complex64)
+    g = np.random.default_rng(2).uniform(-1, 1, (n, n))
+    g32 = torch.from_numpy(g).to(dev, torch.float32)
+    g_eigs = np.linalg.eigvals(g32.double().cpu().numpy())
+    accel = eigsol.QROptions(mode="accelerated", max_iterations=20 * n, tolerance=QR_TOL)
+    parity = eigsol.QROptions(mode="parity", tolerance=QR_TOL,
+                              max_iterations=max(40 * int(math.log(n) * 10), 2000))
+    # limits: f32 with tol 3e-6 on a spectrum in (0, 1]: 1e-4 absolute. The
+    # non-symmetric matrix deflates at ~3e-6 * (|h_ii| + |h_jj|) ~ 1e-4 and its
+    # eigenvalues have condition numbers of order sqrt(n): 5e-3 absolute
+    # against a spectral radius of ~13.
+    runs = {"(a) f32 symmetric accelerated": (a32, accel, d, 1e-4),
+            "(a) f32 symmetric parity": (a32, parity, d, 1e-4),
+            "(b) c64 normal accelerated": (a64c, accel, dc, 1e-4),
+            "(b) c64 normal parity": (a64c, parity, dc, 1e-4),
+            "(c) f32 non-symmetric accelerated": (g32, accel, g_eigs, 5e-3)}
+    A = eigsol.read_matrix_from_file("data/A.txt", torch.complex128, device=dev)
+    B = eigsol.read_matrix_from_file("data/B.txt", torch.complex128, device=dev)
+    torch.cuda.synchronize()
+    results, seconds = {}, {}
+    for name, (a, opts, _, _) in runs.items():
+        t0 = time.perf_counter()
+        results[name] = eigsol.qr_eigenvalues(eigsol.DenseMatrix(a), opts)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hA = eigsol.to_hessenberg(A)
+    qA, rA = eigsol.qr_decompose(A)
+    rA_eig = eigsol.qr_eigenvalues(A)
+    torch.cuda.synchronize()
+    seconds["(d)"] = time.perf_counter() - t0
+    try:
+        eigsol.qr_eigenvalues(B)
+        raise AssertionError("qr_eigenvalues(data/B.txt) did not raise")
+    except ValueError as err:
+        print(f"(d) qr_eigenvalues(data/B.txt) raised ValueError: {err}")
+    for name, (a, opts, want, limit) in runs.items():
+        r = results[name]
+        got = r.eigenvalues.cpu().numpy()
+        check(got.shape == (n,) and np.isfinite(got).all(), f"{name}: bad eigenvalues")
+        err = nearest_err(got, want)
+        print(f"QR {name}: max eigenvalue error {err:.3e} (limit {limit:.0e}), "
+              f"{int(r.iterations)} {'sweeps' if opts.mode == 'accelerated' else 'iterations'}, "
+              f"converged={bool(r.converged)}, {seconds[name]:.3f} s")
+        check(bool(r.converged), f"{name}: did not converge")
+        check(err <= limit, f"{name}: eigenvalue error {err:.3e} above {limit:.0e}")
+    a_np = A.to_dense().cpu().numpy()
+    h_np, q_np, r_np = hA.cpu().numpy(), qA.cpu().numpy(), rA.cpu().numpy()
+    ev_err = nearest_err(rA_eig.eigenvalues.cpu().numpy(), np.linalg.eigvals(a_np))
+    qr_err = float(np.abs(q_np @ r_np - a_np).max())
+    h_err = nearest_err(np.linalg.eigvals(h_np), np.linalg.eigvals(a_np))
+    print(f"(d) data/A.txt complex128: max|A - QR| {qr_err:.2e} (limit 1e-12), Hessenberg "
+          f"spectrum {h_err:.2e}, qr_eigenvalues {ev_err:.2e} from numpy (limit 1e-8), "
+          f"{int(rA_eig.iterations)} iterations, converged={bool(rA_eig.converged)}, "
+          f"{seconds['(d)']:.3f} s")
+    check(qr_err <= 1e-12 and h_err <= 1e-10, "data/A.txt: QR or Hessenberg off")
+    check(bool(rA_eig.converged) and ev_err <= 1e-8, "data/A.txt: eigenvalues off numpy")
+
+
 def main() -> None:
     import torch
 
@@ -136,6 +414,7 @@ def main() -> None:
     from pcsc_eigenvalue_solver_project_tpu_torch.models.generators import banded_full
     from pcsc_eigenvalue_solver_project_tpu_torch.ops import _build
     from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
     from pcsc_eigenvalue_solver_project_tpu_torch.solvers.power import (
         norm, power_iteration_loop, vdot)
 
@@ -267,6 +546,7 @@ def main() -> None:
     demo = eigsol.SolverOptions(max_iterations=1000, tolerance=1e-10)
     torch.cuda.synchronize()
 
+    t_main = time.perf_counter()
     ds.reset_launch_counts()
     results, seconds = {}, {}
     for name, (M, opts) in runs.items():
@@ -339,6 +619,24 @@ def main() -> None:
         check(bool(r.converged), f"data/{key}.txt: did not converge")
         check(err <= 1e-6, f"data/{key}.txt: eigenvalue off numpy by {err:.2e}")
 
+    print(f"phases 4-5: {time.perf_counter() - t_main:.1f} s")
+
+    # ---- 6. the QR kernels against their plain versions --------------------
+    t0 = time.perf_counter()
+    qr_errors, qr_timings = qr_kernel_phase(dev, card_name, card_limit)
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7. the QR path ----------------------------------------------------
+    t0 = time.perf_counter()
+    qk.reset_launch_counts()
+    qr_path_phase(eigsol, dev)
+    torch.cuda.synchronize()
+    qr_launches = {kernel.__name__: kernel.launches for kernel in qk.KERNELS}
+    print(f"QR-path launches: {qr_launches}")
+    for name, count in qr_launches.items():
+        check(count > 0, f"{name} was not launched by the QR path")
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
     # ---- report ------------------------------------------------------------
     rows = []
     for kernel, tag, line, dt in ((ds.dia_il_kernel, "B1", 390, torch.float32),
@@ -349,6 +647,15 @@ def main() -> None:
                      "replaces": f"{TPU_KERNELS}:{line}",
                      "launches": launches[kernel.__name__],
                      "max_abs_err": errors[tag], "ms": k_ms, "plain_ms": p_ms})
+    for kernel, tag, line, dt in ((qk.hessenberg_kernel, "B7", 55, torch.float32),
+                                  (qk.qr_eig_kernel, "B8", 293, torch.complex64),
+                                  (qk.qr_decompose_kernel, "B9", 756, torch.float32),
+                                  (qk.qr_parity_kernel, "B10", 797, torch.float32)):
+        k_ms, p_ms, _ = qr_timings[(tag, dt)]
+        rows.append({"name": kernel.__name__, "route": "cuda", "source": QR_SOURCE,
+                     "replaces": f"{QR_TPU_KERNELS}:{line}",
+                     "launches": qr_launches[kernel.__name__],
+                     "max_abs_err": qr_errors[tag], "ms": k_ms, "plain_ms": p_ms})
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 The port of ``pcsc_eigenvalue_solver_project_tpu`` (JAX on a TPU) to
 PyTorch on an NVIDIA H100, under the same module tree and public names.
 This package holds the power-method path on dense, CSR/ELL and banded
-(DIA and interleaved DIA) operators; the banded SpMV runs as CUDA kernels
-written for Hopper (``csrc/``), built with nvcc at the first CUDA launch.
+(DIA and interleaved DIA) operators, and the dense QR stack (Hessenberg
+reduction, QR decomposition, QR eigenvalues in parity and accelerated
+modes). The banded SpMV and the QR stack run as CUDA kernels written for
+Hopper (``csrc/``), built with nvcc at the first CUDA launch.
 On CPU tensors every operation runs its plain PyTorch version.
 
 Typical usage::
@@ -16,17 +18,21 @@ Typical usage::
                                      device="cuda")
     res = eigsol.power_method(A, eigsol.SolverOptions(tolerance=1e-8))
     print(res.eigenvalue, int(res.iterations), bool(res.converged))
+    qr = eigsol.qr_eigenvalues(A, eigsol.QROptions(mode="accelerated"))
 """
 
-from .core.options import SolverOptions
-from .core.results import EigenResult
+from .core.options import QROptions, SolverOptions
+from .core.results import EigenResult, QRResult
 from .core.tolerance import is_close_relative
 from .matrix.dense import DenseMatrix
 from .matrix.dia import InterleavedDIA, SparseDIA
 from .matrix.protocol import AbstractMatrix
 from .matrix.sparse import SparseCSR, SparseELL
 from .io.reader import read_matrix_from_file, read_matrix_from_text
+from .solvers.hessenberg import to_hessenberg
 from .solvers.power import power_method
+from .solvers.qr import qr_decompose
+from .solvers.qr_eigenvalues import qr_eigenvalues
 
 __version__ = "0.1.0"
 
@@ -35,12 +41,17 @@ __all__ = [
     "DenseMatrix",
     "EigenResult",
     "InterleavedDIA",
+    "QROptions",
+    "QRResult",
     "SolverOptions",
     "SparseCSR",
     "SparseDIA",
     "SparseELL",
     "is_close_relative",
     "power_method",
+    "qr_decompose",
+    "qr_eigenvalues",
     "read_matrix_from_file",
     "read_matrix_from_text",
+    "to_hessenberg",
 ]

@@ -1,13 +1,14 @@
 """Solver option structs.
 
 Reference parity: ``SolverOptions`` (maxIterations=1000, tolerance=1e-10;
-reference src/option/solver_option.hpp:14-20). The shifted and QR
-option structs come with their solvers.
+reference src/option/solver_option.hpp:14-20). ``QROptions`` adds the QR
+iteration's mode switch. The shifted option struct comes with its solver.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,3 +23,33 @@ class SolverOptions:
             raise ValueError("max_iterations must be non-negative")
         if self.tolerance < 0:
             raise ValueError("tolerance must be non-negative")
+
+
+@dataclasses.dataclass(frozen=True)
+class QROptions(SolverOptions):
+    """Options for the QR eigenvalue iteration.
+
+    ``mode="parity"`` reproduces the reference algorithm exactly: unshifted
+    QR sweeps on the Hessenberg form with the stopping rule
+    ``max|subdiag| <= tol*(1+||H||_F)`` (qr_eigenvalues.hpp:69-93).
+
+    ``mode="accelerated"``: Wilkinson-shifted QR sweeps with deflation, run
+    in complex arithmetic so conjugate eigenvalue pairs of real matrices
+    converge too (the reference's unshifted real iteration cannot separate
+    them — a documented limitation it inherits).
+    """
+
+    mode: str = "parity"  # "parity" | "accelerated"
+    deflation_tolerance: Optional[float] = None  # accelerated mode; default: tolerance
+    sweeps_per_check: int = 8  # accelerated mode: device sweeps between host checks
+    compute_vectors: bool = False  # accelerated mode: accumulate the Schur
+    # similarity and return eigenvectors (superset of the reference)
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.mode not in ("parity", "accelerated"):
+            raise ValueError(f"unknown QR mode: {self.mode!r}")
+        if self.compute_vectors and self.mode != "accelerated":
+            raise ValueError(
+                "compute_vectors requires mode='accelerated' (the parity "
+                "algorithm, like the reference, produces eigenvalues only)")

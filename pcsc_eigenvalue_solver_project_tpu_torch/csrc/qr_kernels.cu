@@ -1,0 +1,681 @@
+// The dense QR eigenvalue stack for NVIDIA Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of
+// pcsc_eigenvalue_solver_project_tpu/ops/pallas/qr_kernels.py:
+//   B7  _hessenberg_kernel (:55)    -> qr_hessenberg: reflector_kernel,
+//                                      left_update_kernel, right_update_kernel
+//   B8  _qr_eig_kernel (:293)       -> qr_eig_givens: qr_eig_kernel
+//   B9  _qr_decompose_kernel (:756) -> qr_householder: the B7 column step with
+//                                      pivot row k and the update on Q
+//   B10 _qr_parity_kernel (:797)    -> qr_parity_sweeps: the B9 steps,
+//                                      gemm_kernel (H := R Q), parity_end_kernel
+// for float, double, and complex float2/double2 ((re, im) in (.x, .y), the
+// four-FMA product). B8 runs in complex arithmetic only, as on the TPU.
+//
+// What bounds them, and what the design does about it:
+//  * B7/B9 (and B10's inner steps) are n column steps, each O(n^2) and bound
+//    by one read and write of the trailing matrix: ~1-4 MB per step at
+//    n = 512, which stays in the 50 MB L2. At that size a step is a few
+//    microseconds of memory work, so the chain of launches bounds it. Each
+//    column is three launches enqueued by the C entry with no host read:
+//    one block forms the reflector v and its factor (2, or 0 for the
+//    tail-zero and degenerate skips) on the device; the left update is
+//    column-parallel (a block owns 32 columns, forms w = v^H M for them and
+//    updates them: no grid-wide dependency); the right update is
+//    row-parallel (a warp owns a row, forms u = M v for it and updates it).
+//    A cooperative persistent kernel with grid-wide barriers would save the
+//    launch gaps; it is the next step once this version is measured.
+//  * B8's rotations depend on each other in sequence, so one block runs the
+//    whole solve, as the TPU kernel does. The left pass costs one barrier
+//    per rotation: the thread that owns column k+1 forms rotation k+1 from
+//    the value it has just written and puts it in shared memory. The right
+//    pass needs no barrier: each thread applies all rotations of the sweep
+//    to its own rows, carrying the rotated column in a register. H (2 MB
+//    at n = 512 in complex64) stays in L2. Latency of the dependent steps
+//    bounds it.
+//  * B10 is about a full QR plus an n^3 product per sweep over hundreds of
+//    sweeps, so it uses the whole card: the B9 steps as grid-wide kernels,
+//    a tiled shared-memory GEMM (full FMA, no tensor cores, so no TF32), and
+//    a one-block reduction for max|H[i,i-1]| and ||H||_F. The counter and
+//    the flags stay on the device; every launch returns at once when `done`
+//    is set, and the host reads `done` once per chunk of sweeps.
+// No out-of-range row or column is ever read: every loop is bounded by n.
+//
+// Plain C interface for ctypes: each entry point selects the device,
+// launches on the caller's stream and returns the first CUDA error (0 on
+// success), checked after every launch.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTileCols = 32;               // left update: columns per block
+constexpr int kTileRows = kThreads / 32;    // left update: row lanes per block
+constexpr int kEigThreads = 512;            // B8: the one block
+constexpr int kGemmTile = 32;
+constexpr int kReduceThreads = 1024;
+
+// B10 device state (doubles): sweeps done, converged, done, last maxsub.
+enum ParityState { kIt = 0, kConverged = 1, kDone = 2, kMaxsub = 3 };
+
+// ---- scalar arithmetic ----------------------------------------------------
+
+__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float dfma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double dfma(double a, double b, double c) { return fma(a, b, c); }
+
+template <typename R>
+struct RealOps {
+  using Real = R;
+  static __device__ __forceinline__ R zero() { return R(0); }
+  static __device__ __forceinline__ R one() { return R(1); }
+  static __device__ __forceinline__ R make(R re, R) { return re; }
+  static __device__ __forceinline__ R re(R a) { return a; }
+  static __device__ __forceinline__ R abs2(R a) { return a * a; }
+  static __device__ __forceinline__ R conj(R a) { return a; }
+  static __device__ __forceinline__ R sub(R a, R b) { return a - b; }
+  static __device__ __forceinline__ R scale(R a, R s) { return a * s; }
+  static __device__ __forceinline__ R divr(R a, R s) { return a / s; }
+  static __device__ __forceinline__ R madd(R acc, R a, R b) { return dfma(a, b, acc); }
+  static __device__ __forceinline__ R msub(R acc, R a, R b) { return dfma(-a, b, acc); }
+  static __device__ __forceinline__ R shfl_xor(R a, int m) {
+    return __shfl_xor_sync(0xffffffffu, a, m);
+  }
+};
+
+template <typename R, typename C>
+struct ComplexOps {
+  using Real = R;
+  static __device__ __forceinline__ C make(R re, R im) { C c; c.x = re; c.y = im; return c; }
+  static __device__ __forceinline__ C zero() { return make(R(0), R(0)); }
+  static __device__ __forceinline__ C one() { return make(R(1), R(0)); }
+  static __device__ __forceinline__ R re(C a) { return a.x; }
+  static __device__ __forceinline__ R abs2(C a) { return a.x * a.x + a.y * a.y; }
+  static __device__ __forceinline__ C conj(C a) { return make(a.x, -a.y); }
+  static __device__ __forceinline__ C sub(C a, C b) { return make(a.x - b.x, a.y - b.y); }
+  static __device__ __forceinline__ C scale(C a, R s) { return make(a.x * s, a.y * s); }
+  static __device__ __forceinline__ C divr(C a, R s) { return make(a.x / s, a.y / s); }
+  // acc + a * b
+  static __device__ __forceinline__ C madd(C acc, C a, C b) {
+    acc.x = dfma(a.x, b.x, acc.x);
+    acc.x = dfma(-a.y, b.y, acc.x);
+    acc.y = dfma(a.x, b.y, acc.y);
+    acc.y = dfma(a.y, b.x, acc.y);
+    return acc;
+  }
+  // acc - a * b
+  static __device__ __forceinline__ C msub(C acc, C a, C b) {
+    acc.x = dfma(-a.x, b.x, acc.x);
+    acc.x = dfma(a.y, b.y, acc.x);
+    acc.y = dfma(-a.x, b.y, acc.y);
+    acc.y = dfma(-a.y, b.x, acc.y);
+    return acc;
+  }
+  static __device__ __forceinline__ C shfl_xor(C a, int m) {
+    return make(__shfl_xor_sync(0xffffffffu, a.x, m), __shfl_xor_sync(0xffffffffu, a.y, m));
+  }
+};
+
+template <typename T> struct Ops;
+template <> struct Ops<float> : RealOps<float> {};
+template <> struct Ops<double> : RealOps<double> {};
+template <> struct Ops<float2> : ComplexOps<float, float2> {};
+template <> struct Ops<double2> : ComplexOps<double, double2> {};
+
+template <typename T>
+__device__ __forceinline__ T warp_allsum(T v) {
+  using O = Ops<T>;
+  for (int m = 16; m > 0; m >>= 1) v = O::madd(v, O::one(), O::shfl_xor(v, m));
+  return v;
+}
+
+// Block-wide sum (max when take_max) of a real; the result is valid in
+// thread 0. `shared` holds at least 32 values.
+template <typename R>
+__device__ R block_reduce(R v, R* shared, bool take_max) {
+  for (int m = 16; m > 0; m >>= 1) {
+    const R o = __shfl_xor_sync(0xffffffffu, v, m);
+    v = take_max ? (o > v ? o : v) : v + o;
+  }
+  __syncthreads();  // `shared` may still be read from a previous call
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) shared[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < static_cast<int>((blockDim.x + 31) >> 5) ? shared[lane] : R(0);
+    for (int m = 16; m > 0; m >>= 1) {
+      const R o = __shfl_xor_sync(0xffffffffu, v, m);
+      v = take_max ? (o > v ? o : v) : v + o;
+    }
+  }
+  return v;
+}
+
+__device__ __forceinline__ bool stopped(const double* state) {
+  return state != nullptr && state[kDone] != 0.0;
+}
+
+// ---- the Householder column step (B7, B9, B10) ----------------------------
+
+// From column k of the n x n matrix M with pivot row s (B7: s = k + 1,
+// B9: s = k): v[0..n) = the unit reflector, zero above row s, and
+// v[n] = its factor, 2, or 0 when the column is zero below the pivot
+// (tail-zero skip) or the reflector degenerates (||v|| = 0). The sign is
+// the pivot's phase x0/|x0|, 1 when x0 = 0 (qr_kernels.py:97-130).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+reflector_kernel(const T* __restrict__ M, int64_t n, int64_t k, int64_t s,
+                 T* __restrict__ v, const double* __restrict__ state) {
+  using O = Ops<T>;
+  using R = typename O::Real;
+  if (stopped(state)) return;
+  __shared__ R red[32];
+  __shared__ R s_vinv;
+  __shared__ T s_vs;
+  R nrm2 = 0, tail2 = 0;
+  for (int64_t i = s + threadIdx.x; i < n; i += blockDim.x) {
+    const R m = O::abs2(M[i * n + k]);
+    nrm2 += m;
+    if (i > s) tail2 += m;
+  }
+  nrm2 = block_reduce(nrm2, red, false);
+  tail2 = block_reduce(tail2, red, false);
+  if (threadIdx.x == 0) {
+    const T x0 = M[s * n + k];
+    const R m0 = dsqrt(O::abs2(x0));
+    const T sign = m0 > R(0) ? O::divr(x0, m0) : O::one();
+    const T vs = O::madd(x0, sign, O::make(dsqrt(nrm2), R(0)));  // x0 - alpha
+    const R vn2 = tail2 + O::abs2(vs);
+    const bool degenerate = vn2 == R(0);
+    s_vinv = R(1) / dsqrt(degenerate ? R(1) : vn2);
+    s_vs = vs;
+    v[n] = O::make(tail2 == R(0) || degenerate ? R(0) : R(2), R(0));
+  }
+  __syncthreads();
+  const R vinv = s_vinv;
+  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
+    const T x = i < s ? O::zero() : (i == s ? s_vs : M[i * n + k]);
+    v[i] = O::scale(x, vinv);
+  }
+}
+
+// M[i, j] -= f v[i] w[j] with w[j] = sum_i conj(v[i]) M[i, j], on rows >= s
+// (v is zero above) and columns >= k (qr_kernels.py:123, :141-142). A block
+// owns 32 columns and all their rows, so w needs no grid-wide step.
+// f v[i] w[j] == v[i] (f w[j]) exactly: f is 0 or 2.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+left_update_kernel(T* __restrict__ M, int64_t n, int64_t k, int64_t s,
+                   const T* __restrict__ v, const double* __restrict__ state) {
+  using O = Ops<T>;
+  if (stopped(state)) return;
+  __shared__ T part[kTileRows][kTileCols];
+  const int tx = threadIdx.x % kTileCols, ty = threadIdx.x / kTileCols;
+  const int64_t j = k + static_cast<int64_t>(blockIdx.x) * kTileCols + tx;
+  T w = O::zero();
+  if (j < n)
+    for (int64_t i = s + ty; i < n; i += kTileRows) w = O::madd(w, O::conj(v[i]), M[i * n + j]);
+  part[ty][tx] = w;
+  __syncthreads();
+  if (ty == 0) {
+    for (int r = 1; r < kTileRows; ++r) w = O::madd(w, O::one(), part[r][tx]);
+    part[0][tx] = O::scale(w, O::re(v[n]));
+  }
+  __syncthreads();
+  const T fw = part[0][tx];
+  if (j < n)
+    for (int64_t i = s + ty; i < n; i += kTileRows) M[i * n + j] = O::msub(M[i * n + j], v[i], fw);
+}
+
+// M[i, j] -= f u[i] conj(v[j]) with u[i] = sum_j M[i, j] v[j], on all rows
+// and columns >= s, for M = M0 and, when given, M1 (the accumulated Q).
+// A warp owns a row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+right_update_kernel(T* __restrict__ M0, T* __restrict__ M1, int64_t n, int64_t s,
+                    const T* __restrict__ v, const double* __restrict__ state) {
+  using O = Ops<T>;
+  if (stopped(state)) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + (threadIdx.x >> 5);
+  if (row >= (M1 != nullptr ? 2 * n : n)) return;
+  T* __restrict__ M = row < n ? M0 + row * n : M1 + (row - n) * n;
+  T u = O::zero();
+  for (int64_t j = s + lane; j < n; j += 32) u = O::madd(u, M[j], v[j]);
+  const T fu = O::scale(warp_allsum(u), O::re(v[n]));
+  for (int64_t j = s + lane; j < n; j += 32) M[j] = O::msub(M[j], fu, O::conj(v[j]));
+}
+
+template <typename T>
+__global__ void eye_kernel(T* __restrict__ Q, int64_t n) {
+  using O = Ops<T>;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e < n * n) Q[e] = e / n == e % n ? O::one() : O::zero();
+}
+
+unsigned blocks_for(int64_t count, int per_block) {
+  return static_cast<unsigned>((count + per_block - 1) / per_block);
+}
+
+int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+// One column step: reflector from column k with pivot row s, left update of
+// `left` (rows >= s, columns >= k), right update of `right0` (and `right1`)
+// on columns >= s.
+template <typename T>
+int column_step(T* left, T* right0, T* right1, int64_t n, int64_t k, int64_t s,
+                T* v, const double* state, cudaStream_t st) {
+  reflector_kernel<T><<<1, kThreads, 0, st>>>(left, n, k, s, v, state);
+  if (int rc = last_error()) return rc;
+  left_update_kernel<T><<<blocks_for(n - k, kTileCols), kThreads, 0, st>>>(left, n, k, s, v, state);
+  if (int rc = last_error()) return rc;
+  if (right0 == nullptr) return 0;
+  const int64_t rows = right1 != nullptr ? 2 * n : n;
+  right_update_kernel<T><<<blocks_for(rows, kThreads / 32), kThreads, 0, st>>>(
+      right0, right1, n, s, v, state);
+  return last_error();
+}
+
+// ---- B7 ------------------------------------------------------------------
+
+template <typename T>
+int run_hessenberg(const T* a, T* h, T* q, T* v, int64_t n, cudaStream_t st) {
+  cudaMemcpyAsync(h, a, n * n * sizeof(T), cudaMemcpyDeviceToDevice, st);
+  if (int rc = last_error()) return rc;
+  if (q != nullptr) {
+    eye_kernel<T><<<blocks_for(n * n, kThreads), kThreads, 0, st>>>(q, n);
+    if (int rc = last_error()) return rc;
+  }
+  for (int64_t k = 0; k + 2 < n; ++k)
+    if (int rc = column_step<T>(h, h, q, n, k, k + 1, v, nullptr, st)) return rc;
+  return 0;
+}
+
+// ---- B9 ------------------------------------------------------------------
+
+template <typename T>
+int run_householder(const T* a, T* r, T* q, T* v, int64_t n, int64_t kmax, cudaStream_t st) {
+  cudaMemcpyAsync(r, a, n * n * sizeof(T), cudaMemcpyDeviceToDevice, st);
+  if (int rc = last_error()) return rc;
+  eye_kernel<T><<<blocks_for(n * n, kThreads), kThreads, 0, st>>>(q, n);
+  if (int rc = last_error()) return rc;
+  for (int64_t k = 0; k < kmax; ++k)
+    if (int rc = column_step<T>(r, q, nullptr, n, k, k, v, nullptr, st)) return rc;
+  return 0;
+}
+
+// ---- B8 ------------------------------------------------------------------
+
+// |H[c+1, c]| <= tol * max(|H[c, c]| + |H[c+1, c+1]|, 1)
+template <typename T>
+__device__ __forceinline__ bool negligible(const T* H, int64_t n, int64_t c,
+                                           typename Ops<T>::Real tol) {
+  using O = Ops<T>;
+  using R = typename O::Real;
+  const R scale = dsqrt(O::abs2(H[c * n + c])) + dsqrt(O::abs2(H[(c + 1) * n + c + 1]));
+  return dsqrt(O::abs2(H[(c + 1) * n + c])) <= tol * (scale > R(1) ? scale : R(1));
+}
+
+// The window update of qr_kernels.py:339-351 (deflate_and_lo): on return
+// sh[0] + 2 is the new hi (2 + the last c < hi - 1 with a non-negligible
+// subdiagonal, 1 if none) and sh[1] + 1 is lo (1 + the last c < new hi - 1
+// with a negligible subdiagonal, 0 if none). Call with all threads after a
+// barrier; read sh before the next barrier-separated call.
+template <typename T>
+__device__ void deflate_and_lo(const T* H, int64_t n, int hi, typename Ops<T>::Real tol, int* sh) {
+  if (threadIdx.x == 0) sh[0] = sh[1] = -1;
+  __syncthreads();
+  int best = -1;
+  for (int c = threadIdx.x; c < hi - 1; c += blockDim.x)
+    if (!negligible(H, n, c, tol)) best = c;
+  if (best >= 0) atomicMax(&sh[0], best);
+  __syncthreads();
+  const int new_hi = sh[0] + 2;
+  best = -1;
+  for (int c = threadIdx.x; c < new_hi - 1; c += blockDim.x)
+    if (negligible(H, n, c, tol)) best = c;
+  if (best >= 0) atomicMax(&sh[1], best);
+  __syncthreads();
+}
+
+// Givens rotation zeroing b under a: g00 = conj(a)/r, g01 = conj(b)/r with
+// r = sqrt(|a|^2 + |b|^2); the identity when r = 0 (qr_kernels.py:405-415).
+template <typename T>
+__device__ __forceinline__ void givens(T a, T b, T* g) {
+  using O = Ops<T>;
+  using R = typename O::Real;
+  const R r2 = O::abs2(a) + O::abs2(b);
+  const bool zero = r2 == R(0);
+  const R rinv = R(1) / dsqrt(zero ? R(1) : r2);
+  g[0] = zero ? O::one() : O::scale(O::conj(a), rinv);
+  g[1] = zero ? O::zero() : O::scale(O::conj(b), rinv);
+}
+
+// Eigenvalue of the trailing active 2x2 [[a, b], [c, d]] nearest d, with
+// the complex square root and the pick of qr_kernels.py:366-385.
+template <typename T>
+__device__ T wilkinson_shift(const T* H, int64_t n, int hi) {
+  using O = Ops<T>;
+  using R = typename O::Real;
+  const T a = H[(hi - 2) * n + hi - 2], b = H[(hi - 2) * n + hi - 1];
+  const T c = H[(hi - 1) * n + hi - 2], d = H[(hi - 1) * n + hi - 1];
+  const R delr = (a.x - d.x) * R(0.5), deli = (a.y - d.y) * R(0.5);
+  const R zr = delr * delr - deli * deli + b.x * c.x - b.y * c.y;
+  const R zi = R(2) * delr * deli + b.x * c.y + b.y * c.x;
+  const R mz = dsqrt(zr * zr + zi * zi);
+  const R pr = (mz + zr) * R(0.5), pi = (mz - zr) * R(0.5);
+  const R sqr = dsqrt(pr > R(0) ? pr : R(0));
+  const R sqi_mag = dsqrt(pi > R(0) ? pi : R(0));
+  const R sqi = zi >= R(0) ? sqi_mag : -sqi_mag;
+  const T mu1 = O::make(d.x + delr + sqr, d.y + deli + sqi);
+  const T mu2 = O::make(d.x + delr - sqr, d.y + deli - sqi);
+  const R m1 = (mu1.x - d.x) * (mu1.x - d.x) + (mu1.y - d.y) * (mu1.y - d.y);
+  const R m2 = (mu2.x - d.x) * (mu2.x - d.x) + (mu2.y - d.y) * (mu2.y - d.y);
+  return m1 < m2 ? mu1 : mu2;
+}
+
+// Right rotations k in [lo, hi-1) on row `row` of M: columns k, k+1 become
+// conj(g00) c_k + conj(g01) c_k1 and -g01 c_k + g00 c_k1, in order, with the
+// rotated column k+1 carried in a register.
+template <typename T>
+__device__ __forceinline__ void rotate_row(T* row, const T* rot, int lo, int hi) {
+  using O = Ops<T>;
+  T ck = row[lo];
+  for (int k = lo; k < hi - 1; ++k) {
+    const T g00 = rot[2 * k], g01 = rot[2 * k + 1];
+    const T ck1 = row[k + 1];
+    row[k] = O::madd(O::madd(O::zero(), O::conj(g00), ck), O::conj(g01), ck1);
+    ck = O::msub(O::madd(O::zero(), g00, ck1), g01, ck);
+  }
+  row[hi - 1] = ck;
+}
+
+// The whole shifted Givens QR iteration on the complex Hessenberg H (n x n,
+// in place) in one block; Q (optional, starts as I) takes the right
+// rotations. Writes eig = diag(H) and state = {sweeps, hi}.
+template <typename T>
+__global__ void __launch_bounds__(kEigThreads)
+qr_eig_kernel(T* __restrict__ H, T* __restrict__ Q, T* __restrict__ rot, T* __restrict__ eig,
+              int* __restrict__ state, int64_t n, int max_sweeps, typename Ops<T>::Real tol) {
+  using O = Ops<T>;
+  __shared__ int sh[2];
+  __shared__ T s_g[2][2];  // rotations k (even/odd slot): g00, g01
+  __shared__ T s_mu;
+  const int t = threadIdx.x, nt = blockDim.x;
+  deflate_and_lo(H, n, static_cast<int>(n), tol, sh);
+  int hi = sh[0] + 2, lo = sh[1] + 1, sweeps = 0;
+  while (hi > 1 && sweeps < max_sweeps) {
+    if (t == 0) s_mu = wilkinson_shift(H, n, hi);
+    __syncthreads();
+    const T mu = s_mu;
+    for (int i = lo + t; i < hi; i += nt) H[i * n + i] = O::sub(H[i * n + i], mu);
+    __syncthreads();
+    // left pass: rows k, k+1 over all columns, k = lo .. hi-2
+    if (t == 0) {
+      givens(H[lo * n + lo], H[(lo + 1) * n + lo], s_g[lo & 1]);
+      rot[2 * lo] = s_g[lo & 1][0];
+      rot[2 * lo + 1] = s_g[lo & 1][1];
+    }
+    __syncthreads();
+    for (int k = lo; k < hi - 1; ++k) {
+      const T g00 = s_g[k & 1][0], g01 = s_g[k & 1][1];
+      for (int64_t j = t; j < n; j += nt) {
+        const T rk = H[k * n + j], rk1 = H[(k + 1) * n + j];
+        H[k * n + j] = O::madd(O::madd(O::zero(), g00, rk), g01, rk1);
+        const T nk1 = O::msub(O::madd(O::zero(), O::conj(g00), rk1), O::conj(g01), rk);
+        H[(k + 1) * n + j] = nk1;
+        if (j == k + 1 && k + 2 < hi) {  // the owner of column k+1 forms rotation k+1
+          T* g = s_g[(k + 1) & 1];
+          givens(nk1, H[(k + 2) * n + k + 1], g);
+          rot[2 * (k + 1)] = g[0];
+          rot[2 * (k + 1) + 1] = g[1];
+        }
+      }
+      __syncthreads();
+    }
+    // right pass: columns k, k+1 over all rows; rows are independent
+    for (int64_t i = t; i < n; i += nt) {
+      rotate_row(H + i * n, rot, lo, hi);
+      if (Q != nullptr) rotate_row(Q + i * n, rot, lo, hi);
+    }
+    __syncthreads();
+    for (int i = lo + t; i < hi; i += nt) H[i * n + i] = O::madd(H[i * n + i], O::one(), mu);
+    __syncthreads();
+    deflate_and_lo(H, n, hi, tol, sh);
+    hi = sh[0] + 2;
+    lo = sh[1] + 1;
+    ++sweeps;
+  }
+  for (int64_t i = t; i < n; i += nt) eig[i] = H[i * n + i];
+  if (t == 0) {
+    state[0] = sweeps;
+    state[1] = hi;
+  }
+}
+
+template <typename T>
+int run_eig(const T* h_in, T* h, T* q, T* rot, T* eig, int* state, int64_t n, int max_sweeps,
+            double tol, cudaStream_t st) {
+  cudaMemcpyAsync(h, h_in, n * n * sizeof(T), cudaMemcpyDeviceToDevice, st);
+  if (int rc = last_error()) return rc;
+  if (q != nullptr) {
+    eye_kernel<T><<<blocks_for(n * n, kThreads), kThreads, 0, st>>>(q, n);
+    if (int rc = last_error()) return rc;
+  }
+  using R = typename Ops<T>::Real;
+  qr_eig_kernel<T><<<1, kEigThreads, 0, st>>>(h, q, rot, eig, state, n, max_sweeps,
+                                              static_cast<R>(tol));
+  return last_error();
+}
+
+// ---- B10 -----------------------------------------------------------------
+
+template <typename T>
+__global__ void parity_begin_kernel(const T* __restrict__ H, T* __restrict__ R_, T* __restrict__ Q,
+                                    int64_t n, const double* __restrict__ state) {
+  using O = Ops<T>;
+  if (stopped(state)) return;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n * n) return;
+  R_[e] = H[e];
+  Q[e] = e / n == e % n ? O::one() : O::zero();
+}
+
+// C = A B for n x n row-major matrices: 32 x 32 output tiles, 32-deep
+// shared-memory tiles of A and B, four outputs per thread, FMA in the
+// working precision.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C, int64_t n,
+            const double* __restrict__ state) {
+  using O = Ops<T>;
+  if (stopped(state)) return;
+  __shared__ T As[kGemmTile][kGemmTile + 1];
+  __shared__ T Bs[kGemmTile][kGemmTile + 1];
+  constexpr int kRowsPerThread = kGemmTile / (kThreads / kGemmTile);
+  const int tx = threadIdx.x % kGemmTile, ty = threadIdx.x / kGemmTile;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kGemmTile;
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kGemmTile + tx;
+  T acc[kRowsPerThread];
+  for (int q = 0; q < kRowsPerThread; ++q) acc[q] = O::zero();
+  for (int64_t k0 = 0; k0 < n; k0 += kGemmTile) {
+    for (int r = ty; r < kGemmTile; r += kThreads / kGemmTile) {
+      const int64_t ar = row0 + r, ac = k0 + tx, br = k0 + r;
+      As[r][tx] = ar < n && ac < n ? A[ar * n + ac] : O::zero();
+      Bs[r][tx] = br < n && col < n ? B[br * n + col] : O::zero();
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kGemmTile; ++kk) {
+      const T b = Bs[kk][tx];
+      for (int q = 0; q < kRowsPerThread; ++q)
+        acc[q] = O::madd(acc[q], As[ty + q * (kThreads / kGemmTile)][kk], b);
+    }
+    __syncthreads();
+  }
+  for (int q = 0; q < kRowsPerThread; ++q) {
+    const int64_t row = row0 + ty + q * (kThreads / kGemmTile);
+    if (row < n && col < n) C[row * n + col] = acc[q];
+  }
+}
+
+// After a sweep: maxsub = max|H[i+1, i]|, fro = ||H||_F, converged when
+// maxsub <= tol (1 + fro) in the working precision (qr_kernels.py:850-853);
+// counts the sweep and sets done on convergence or at max_it.
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+parity_end_kernel(const T* __restrict__ H, int64_t n, double* __restrict__ state, int max_it,
+                  double tol) {
+  using O = Ops<T>;
+  using R = typename O::Real;
+  if (stopped(state)) return;
+  __shared__ R red[32];
+  R fro2 = 0, sub2 = 0;
+  for (int64_t e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const R m = O::abs2(H[e]);
+    fro2 += m;
+    if (e / n == e % n + 1 && m > sub2) sub2 = m;
+  }
+  fro2 = block_reduce(fro2, red, false);
+  sub2 = block_reduce(sub2, red, true);
+  if (threadIdx.x == 0) {
+    const R maxsub = dsqrt(sub2);
+    const bool conv = maxsub <= static_cast<R>(tol) * (R(1) + dsqrt(fro2));
+    const double it = state[kIt] + 1.0;
+    state[kIt] = it;
+    state[kConverged] = conv ? 1.0 : 0.0;
+    state[kDone] = conv || it >= max_it ? 1.0 : 0.0;
+    state[kMaxsub] = static_cast<double>(maxsub);
+  }
+}
+
+__global__ void parity_init_kernel(double* state, int max_it) {
+  state[kIt] = 0.0;
+  state[kConverged] = 0.0;
+  state[kDone] = max_it <= 0 ? 1.0 : 0.0;
+  state[kMaxsub] = 0.0;
+}
+
+template <typename T>
+int run_parity(const T* h_in, T* h, T* r, T* q, T* v, double* state, int64_t n, int max_it,
+               double tol, int chunk, cudaStream_t st) {
+  cudaMemcpyAsync(h, h_in, n * n * sizeof(T), cudaMemcpyDeviceToDevice, st);
+  if (int rc = last_error()) return rc;
+  parity_init_kernel<<<1, 1, 0, st>>>(state, max_it);
+  if (int rc = last_error()) return rc;
+  const dim3 gemm_grid(blocks_for(n, kGemmTile), blocks_for(n, kGemmTile));
+  for (int queued = 0; queued < max_it;) {
+    const int sweeps = chunk < max_it - queued ? chunk : max_it - queued;
+    for (int sw = 0; sw < sweeps; ++sw) {
+      parity_begin_kernel<T><<<blocks_for(n * n, kThreads), kThreads, 0, st>>>(h, r, q, n, state);
+      if (int rc = last_error()) return rc;
+      for (int64_t k = 0; k < n; ++k)
+        if (int rc = column_step<T>(r, q, nullptr, n, k, k, v, state, st)) return rc;
+      gemm_kernel<T><<<gemm_grid, kThreads, 0, st>>>(r, q, h, n, state);
+      if (int rc = last_error()) return rc;
+      parity_end_kernel<T><<<1, kReduceThreads, 0, st>>>(h, n, state, max_it, tol);
+      if (int rc = last_error()) return rc;
+    }
+    queued += sweeps;
+    double done = 0.0;
+    cudaMemcpyAsync(&done, state + kDone, sizeof(double), cudaMemcpyDeviceToHost, st);
+    if (int rc = last_error()) return rc;
+    if (int rc = static_cast<int>(cudaStreamSynchronize(st))) return rc;
+    if (done != 0.0) break;
+  }
+  return 0;
+}
+
+// Scalar-type codes shared with ops/qr_kernels.py (_DTYPE_CODES).
+enum DTypeCode { kF32 = 0, kF64 = 2, kC64 = 3, kC128 = 4 };
+
+}  // namespace
+
+extern "C" {
+
+// B7: h = Hessenberg form of the n x n matrix a; q (nullable) = the
+// accumulated unitary with a = q h q^H. scratch holds n + 1 scalars.
+int qr_hessenberg(int dtype, int device, const void* a, void* h, void* q, void* scratch,
+                  long long n, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define QR_ARGS(T) static_cast<const T*>(a), static_cast<T*>(h), static_cast<T*>(q), \
+                   static_cast<T*>(scratch), n, s
+  switch (dtype) {
+    case kF32: return run_hessenberg<float>(QR_ARGS(float));
+    case kF64: return run_hessenberg<double>(QR_ARGS(double));
+    case kC64: return run_hessenberg<float2>(QR_ARGS(float2));
+    case kC128: return run_hessenberg<double2>(QR_ARGS(double2));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef QR_ARGS
+}
+
+// B9: a = q r after kmax Householder column steps.
+int qr_householder(int dtype, int device, const void* a, void* r, void* q, void* scratch,
+                   long long n, long long kmax, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define QR_ARGS(T) static_cast<const T*>(a), static_cast<T*>(r), static_cast<T*>(q), \
+                   static_cast<T*>(scratch), n, kmax, s
+  switch (dtype) {
+    case kF32: return run_householder<float>(QR_ARGS(float));
+    case kF64: return run_householder<double>(QR_ARGS(double));
+    case kC64: return run_householder<float2>(QR_ARGS(float2));
+    case kC128: return run_householder<double2>(QR_ARGS(double2));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef QR_ARGS
+}
+
+// B8: shifted Givens QR of the complex Hessenberg h_in into h; eig = its
+// diagonal, state = {sweeps, hi} (int32), q (nullable) the Schur vectors.
+// rot holds 2 * max(n - 1, 1) scalars.
+int qr_eig_givens(int dtype, int device, const void* h_in, void* h, void* q, void* rot, void* eig,
+                  void* state, long long n, int max_sweeps, double tol, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define QR_ARGS(T) static_cast<const T*>(h_in), static_cast<T*>(h), static_cast<T*>(q), \
+                   static_cast<T*>(rot), static_cast<T*>(eig), static_cast<int*>(state), n, \
+                   max_sweeps, tol, s
+  switch (dtype) {
+    case kC64: return run_eig<float2>(QR_ARGS(float2));
+    case kC128: return run_eig<double2>(QR_ARGS(double2));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef QR_ARGS
+}
+
+// B10: the parity iteration from h_in into h; r and q are n x n scratch,
+// scratch n + 1 scalars, state 4 doubles {it, converged, done, maxsub}.
+// Enqueues `chunk` sweeps between two host reads of done.
+int qr_parity_sweeps(int dtype, int device, const void* h_in, void* h, void* r, void* q,
+                     void* scratch, void* state, long long n, int max_it, double tol, int chunk,
+                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+#define QR_ARGS(T) static_cast<const T*>(h_in), static_cast<T*>(h), static_cast<T*>(r), \
+                   static_cast<T*>(q), static_cast<T*>(scratch), static_cast<double*>(state), n, \
+                   max_it, tol, chunk, s
+  switch (dtype) {
+    case kF32: return run_parity<float>(QR_ARGS(float));
+    case kF64: return run_parity<double>(QR_ARGS(double));
+    case kC64: return run_parity<float2>(QR_ARGS(float2));
+    case kC128: return run_parity<double2>(QR_ARGS(double2));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef QR_ARGS
+}
+
+}  // extern "C"

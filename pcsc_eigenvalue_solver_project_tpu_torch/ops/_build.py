@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels at first use.
 
-The sources are ``csrc/*.cu``. They are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ctypes. Nothing happens at import: the first CUDA launch calls
-``load()``. The library's file name carries a hash of the sources and the
-flags, so an edited source is never served by a stale library. Builds go to
-``_build/`` inside the package (listed in ``.gitignore``).
+The sources are ``csrc/*.cu``. Each is compiled by its own ``nvcc`` for
+Hopper (``sm_90a``), all at once, and the objects are linked into one shared
+library with a plain C interface, which is loaded with ctypes. Nothing
+happens at import: the first CUDA launch calls ``load()``. The library's file
+name carries a hash of the sources and the flags, so an edited source is
+never served by a stale library. Builds go to ``_build/`` inside the package
+(listed in ``.gitignore``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -57,6 +58,20 @@ def find_nvcc() -> str:
                        f"nor at {candidate}")
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands at once; raise with the output of the first that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with exit code {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> str:
     """Compile the sources unless a library for them exists; return its path.
 
@@ -66,13 +81,17 @@ def build() -> str:
         return path
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: concurrent builders never see half a file
+    tmp = f"{path}.{os.getpid()}"
+    objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                  for src, obj in zip(sources(), objects)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.so", *objects]])
+        os.replace(f"{tmp}.so", path)  # atomic: concurrent builders never see half a file
+    finally:
+        for leftover in (*objects, f"{tmp}.so"):
+            if os.path.exists(leftover):
+                os.remove(leftover)
     return path
 
 
@@ -82,13 +101,28 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            ptr, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                                   ctypes.c_double)
             # dtype, device, vals, x, offsets, k, n, y, stream
             lib.dia_rowmajor_spmv.argtypes = [i32, i32, ptr, ptr, ptr, i32, i64, ptr, ptr]
             lib.dia_rowmajor_spmv.restype = i32
             # dtype, device, vals_il, w, offsets, k, pr, R*128, y, stream
             lib.dia_il_window_spmv.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i64, ptr, ptr]
             lib.dia_il_window_spmv.restype = i32
+            # dtype, device, a, h, q, scratch, n, stream
+            lib.qr_hessenberg.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, ptr]
+            lib.qr_hessenberg.restype = i32
+            # dtype, device, a, r, q, scratch, n, kmax, stream
+            lib.qr_householder.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, i64, ptr]
+            lib.qr_householder.restype = i32
+            # dtype, device, h_in, h, q, rot, eig, state, n, max_sweeps, tol, stream
+            lib.qr_eig_givens.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32,
+                                          f64, ptr]
+            lib.qr_eig_givens.restype = i32
+            # dtype, device, h_in, h, r, q, scratch, state, n, max_it, tol, chunk, stream
+            lib.qr_parity_sweeps.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32,
+                                             f64, i32, ptr]
+            lib.qr_parity_sweeps.restype = i32
             lib.dia_cuda_error_string.argtypes = [i32]
             lib.dia_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

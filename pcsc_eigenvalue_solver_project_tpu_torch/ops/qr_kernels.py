@@ -1,0 +1,416 @@
+"""Dense QR stack: CUDA kernels for the H100 and their plain versions.
+
+Counterpart of the JAX package's ``ops/pallas/qr_kernels.py``. Four kernels,
+all in ``csrc/qr_kernels.cu`` (see its header for the design):
+
+- ``hessenberg_kernel`` (B7): Householder Hessenberg reduction, optionally
+  accumulating ``Q`` with ``A = Q H Q^H``;
+- ``qr_eig_kernel`` (B8): the whole Wilkinson-shifted complex Givens QR
+  iteration with deflation on a Hessenberg matrix, in one launch;
+- ``qr_decompose_kernel`` (B9): square Householder QR with the full ``Q``;
+- ``qr_parity_kernel`` (B10): the reference's unshifted iteration (a full B9
+  QR of ``H`` each sweep, then ``H := R Q``) until
+  ``max|H[i,i-1]| <= tol * (1 + ||H||_F)``.
+
+The functions take native ``(n, n)`` tensors of float32, float64, complex64
+or complex128 (B8: complex only). The TPU's split re/im planes, its
+128-lane padding and its in-kernel transposes are TPU layout and have no
+counterpart here.
+
+Each kernel wrapper checks its input, allocates outputs and scratch, launches
+on the current stream, raises if the launch failed and counts its launches in
+``.launches``. The dispatchers (``hessenberg_reduce``, ``qr_eig_sweeps``,
+``householder_qr``, ``parity_sweeps``) run the plain PyTorch version when the
+tensor lies on the CPU and the kernel otherwise: a tensor on a CUDA device
+launches the kernel or raises. The plain versions port what the Pallas
+kernels compute (mask arithmetic, a 0 factor for skipped columns, ``rsqrt``
+normalisation, B8's ``[lo, hi)`` window), not the XLA solver loops of
+``solvers/``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+# Scalar-type codes of csrc/qr_kernels.cu (the codes of csrc/dia_spmv.cu).
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 2,
+                torch.complex64: 3, torch.complex128: 4}
+_COMPLEX_CODES = {torch.complex64: 3, torch.complex128: 4}
+# B10 enqueues sweeps in chunks of about this many launches and reads its
+# device-side ``done`` flag once per chunk.
+PARITY_LAUNCHES_PER_READ = 8192
+
+
+def _abs2(x: torch.Tensor) -> torch.Tensor:
+    """|x|^2 elementwise, as re^2 + im^2 for complex tensors."""
+    if x.is_complex():
+        return x.real.square() + x.imag.square()
+    return x.square()
+
+
+def _real_dtype(dtype: torch.dtype) -> torch.dtype:
+    return dtype.to_real() if dtype.is_complex else dtype
+
+
+def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions (what the Pallas kernels compute)
+# --------------------------------------------------------------------------
+
+def _reflector(col: torch.Tensor, s: int):
+    """The Householder column step of the Pallas kernels on column ``col``
+    with pivot row ``s`` (Hessenberg: s = k + 1; QR: s = k): the unit
+    reflector ``v`` (zero above row ``s``) and the update factor, 2 or 0.
+
+    The factor is 0 when the column is already zero below the pivot (the
+    tail-zero skip) or the reflector degenerates (``||v|| = 0``). The sign
+    is the phase ``x0/|x0|`` of the pivot, 1 when it is 0
+    (qr_kernels.py:97-130, :676-702)."""
+    n = col.shape[0]
+    rows = torch.arange(n, device=col.device)
+    x = torch.where(rows >= s, col, 0)
+    norm_x = _abs2(x).sum().sqrt()
+    tail_zero = _abs2(col[s + 1:]).sum() == 0
+    x0 = col[s]
+    m0 = _abs2(x0).sqrt()
+    has0 = m0 > 0
+    sign = torch.where(has0, x0 / torch.where(has0, m0, 1), 1)
+    v = x + (sign * norm_x) * (rows == s)
+    vn2 = _abs2(v).sum()
+    degenerate = vn2 == 0
+    v = v * torch.rsqrt(torch.where(degenerate, 1, vn2))
+    factor = torch.where(tail_zero | degenerate, 0.0, 2.0).to(_real_dtype(col.dtype))
+    return v, factor
+
+
+def hessenberg_plain(a: torch.Tensor, accumulate_q: bool = False):
+    """B7's plain version: ``H`` (and ``Q`` with ``A = Q H Q^H`` when
+    ``accumulate_q``). The left update is restricted to columns >= k."""
+    n = a.shape[0]
+    H = a.clone()
+    Q = _eye(n, a) if accumulate_q else None
+    cols = torch.arange(n, device=a.device)
+    for k in range(n - 2):
+        v, f = _reflector(H[:, k], k + 1)
+        w = torch.where(cols >= k, v.conj() @ H, 0)
+        H = H - f * torch.outer(v, w)
+        H = H - f * torch.outer(H @ v, v.conj())
+        if accumulate_q:
+            Q = Q - f * torch.outer(Q @ v, v.conj())
+    return (H, Q) if accumulate_q else H
+
+
+def _qr_step(R: torch.Tensor, Q: torch.Tensor, k: int):
+    """One Householder column step of ``A = Q R`` (qr_kernels.py:653-753)."""
+    v, f = _reflector(R[:, k], k)
+    cols = torch.arange(R.shape[1], device=R.device)
+    w = torch.where(cols >= k, v.conj() @ R, 0)
+    return R - f * torch.outer(v, w), Q - f * torch.outer(Q @ v, v.conj())
+
+
+def qr_decompose_plain(a: torch.Tensor, kmax: int | None = None):
+    """B9's plain version: ``(R, Q)`` with ``A = Q R`` after ``kmax``
+    column steps (default n)."""
+    n = a.shape[0]
+    R, Q = a.clone(), _eye(n, a)
+    for k in range(n if kmax is None else kmax):
+        R, Q = _qr_step(R, Q, k)
+    return R, Q
+
+
+def _wilkinson_shift(a, b, c, d):
+    """Eigenvalue of ``[[a, b], [c, d]]`` nearest ``d``, in the plane
+    arithmetic of the Pallas kernel (qr_kernels.py:366-385)."""
+    delr, deli = (a.real - d.real) * 0.5, (a.imag - d.imag) * 0.5
+    zr = delr * delr - deli * deli + b.real * c.real - b.imag * c.imag
+    zi = 2.0 * delr * deli + b.real * c.imag + b.imag * c.real
+    mz = torch.sqrt(zr * zr + zi * zi)
+    sqr = torch.sqrt(torch.clamp((mz + zr) * 0.5, min=0.0))
+    sqi_mag = torch.sqrt(torch.clamp((mz - zr) * 0.5, min=0.0))
+    sqi = torch.where(zi >= 0.0, sqi_mag, -sqi_mag)
+    mu1r, mu1i = d.real + delr + sqr, d.imag + deli + sqi
+    mu2r, mu2i = d.real + delr - sqr, d.imag + deli - sqi
+    m1 = (mu1r - d.real) ** 2 + (mu1i - d.imag) ** 2
+    m2 = (mu2r - d.real) ** 2 + (mu2i - d.imag) ** 2
+    pick1 = m1 < m2
+    return torch.complex(torch.where(pick1, mu1r, mu2r), torch.where(pick1, mu1i, mu2i))
+
+
+def _deflate_and_lo(H: torch.Tensor, hi: int, tol: torch.Tensor):
+    """The Pallas kernel's window update (qr_kernels.py:339-351): the new
+    ``hi`` is 2 + the last c < hi - 1 whose subdiagonal ``H[c+1, c]`` is not
+    negligible (1 if none); ``lo`` is 1 + the last c < new hi - 1 whose
+    subdiagonal is negligible (0 if none). Negligible:
+    ``|H[c+1,c]| <= tol * max(|H[c,c]| + |H[c+1,c+1]|, 1)``."""
+    n = H.shape[0]
+    if n < 2:
+        return 1, 0
+    smag = _abs2(H.diagonal(-1)).sqrt()
+    dmag = _abs2(H.diagonal()).sqrt()
+    neg = smag <= tol * torch.clamp(dmag[:-1] + dmag[1:], min=1.0)
+    c = torch.arange(n - 1, device=H.device)
+    new_hi = int(torch.where((c < hi - 1) & ~neg, c, -1).max()) + 2
+    lo = int(torch.where((c < new_hi - 1) & neg, c, -1).max()) + 1
+    return new_hi, lo
+
+
+def qr_eig_plain(h: torch.Tensor, max_sweeps: int, tol: float,
+                 accumulate_q: bool = False):
+    """B8's plain version on a complex Hessenberg ``h``. Returns
+    ``(eigenvalues, sweeps, hi)`` (converged when ``hi <= 1``), plus the
+    final ``T`` and ``Q`` with ``h = Q T Q^H`` when ``accumulate_q``.
+
+    Each sweep: the shift from the trailing active 2x2, ``H - mu I`` on the
+    window ``[lo, hi)``, left rotations of rows k, k+1 for k in
+    ``[lo, hi-1)`` over all columns, right rotations of columns k, k+1 over
+    all rows, ``+ mu I``, and the new ``hi`` and ``lo``."""
+    n = h.shape[0]
+    H = h.clone()
+    Q = _eye(n, h) if accumulate_q else None
+    tol_t = torch.tensor(tol, dtype=_real_dtype(h.dtype), device=h.device)
+    one = torch.ones((), dtype=h.dtype, device=h.device)
+    hi, lo = _deflate_and_lo(H, n, tol_t)
+    sweeps = 0
+    while hi > 1 and sweeps < max_sweeps:
+        mu = _wilkinson_shift(H[hi - 2, hi - 2], H[hi - 2, hi - 1],
+                              H[hi - 1, hi - 2], H[hi - 1, hi - 1])
+        win = torch.arange(lo, hi, device=h.device)
+        H[win, win] -= mu
+        rotations = []
+        for k in range(lo, hi - 1):
+            x, y = H[k, k], H[k + 1, k]
+            r2 = _abs2(x) + _abs2(y)
+            zero = r2 == 0
+            rinv = torch.rsqrt(torch.where(zero, 1, r2))
+            g00 = torch.where(zero, one, x.conj() * rinv)
+            g01 = torch.where(zero, 0, y.conj() * rinv)
+            rk, rk1 = H[k].clone(), H[k + 1].clone()
+            H[k] = g00 * rk + g01 * rk1
+            H[k + 1] = -g01.conj() * rk + g00.conj() * rk1
+            rotations.append((k, g00, g01))
+        for M in (H, Q) if accumulate_q else (H,):
+            for k, g00, g01 in rotations:
+                ck, ck1 = M[:, k].clone(), M[:, k + 1].clone()
+                M[:, k] = g00.conj() * ck + g01.conj() * ck1
+                M[:, k + 1] = -g01 * ck + g00 * ck1
+        H[win, win] += mu
+        hi, lo = _deflate_and_lo(H, hi, tol_t)
+        sweeps += 1
+    out = (H.diagonal().clone(), torch.tensor(sweeps, dtype=torch.int32),
+           torch.tensor(hi, dtype=torch.int32))
+    return out + (H, Q) if accumulate_q else out
+
+
+def qr_parity_plain(h: torch.Tensor, max_iterations: int, tol: float):
+    """B10's plain version: unshifted sweeps ``H := R Q`` with ``H = Q R``
+    from n Householder steps, until ``max|H[i,i-1]| <= tol * (1 + ||H||_F)``
+    or ``max_iterations`` sweeps. Returns ``(H, it, converged, maxsub)``;
+    the caller applies the reference's iteration-count quirk."""
+    n = h.shape[0]
+    tol_t = torch.tensor(tol, dtype=_real_dtype(h.dtype), device=h.device)
+    H = h.clone()
+    maxsub = torch.zeros((), dtype=tol_t.dtype, device=h.device)
+    it, converged = 0, False
+    while it < max_iterations and not converged:
+        R, Q = qr_decompose_plain(H)
+        H = R @ Q
+        mag2 = _abs2(H)
+        maxsub = mag2.diagonal(-1).max().sqrt() if n > 1 else torch.zeros_like(maxsub)
+        converged = bool(maxsub <= tol_t * (1.0 + mag2.sum().sqrt()))
+        it += 1
+    return (H, torch.tensor(it, dtype=torch.int32), torch.tensor(converged),
+            maxsub)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+def _check_square(name: str, a: torch.Tensor, codes: dict) -> int:
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: matrix on {a.device}, expected a CUDA device")
+    if a.dtype not in codes:
+        raise TypeError(f"{name}: unsupported dtype {a.dtype} "
+                        f"(takes {', '.join(str(d) for d in codes)})")
+    if a.ndim != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError(f"{name}: expected a square (n, n) matrix, got {tuple(a.shape)}")
+    if not a.is_contiguous():
+        raise ValueError(f"{name}: matrix must be contiguous")
+    return codes[a.dtype]
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on_error(name: str, lib, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}): "
+                           f"{lib.dia_cuda_error_string(rc).decode()}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def hessenberg_kernel(a: torch.Tensor, accumulate_q: bool = False):
+    """B7 on the card: ``H`` (and ``Q``) of a square CUDA matrix."""
+    code = _check_square("hessenberg_kernel", a, _DTYPE_CODES)
+    n = a.shape[0]
+    lib = _build.load()
+    h = torch.empty_like(a)
+    q = torch.empty_like(a) if accumulate_q else None
+    scratch = torch.empty(n + 1, dtype=a.dtype, device=a.device)
+    rc = lib.qr_hessenberg(code, a.device.index, a.data_ptr(), h.data_ptr(), _ptr(q),
+                           scratch.data_ptr(), n, _stream(a))
+    _raise_on_error("hessenberg_kernel", lib, rc)
+    hessenberg_kernel.launches += 1
+    return (h, q) if accumulate_q else h
+
+
+hessenberg_kernel.launches = 0
+
+
+def qr_eig_kernel(h: torch.Tensor, max_sweeps: int, tol: float,
+                  accumulate_q: bool = False):
+    """B8 on the card: the shifted Givens iteration on a complex64 or
+    complex128 Hessenberg matrix. Returns ``(eigenvalues, sweeps, hi)`` as
+    device tensors, plus ``(T, Q)`` when ``accumulate_q``."""
+    code = _check_square("qr_eig_kernel", h, _COMPLEX_CODES)
+    n = h.shape[0]
+    if not 0 <= max_sweeps < 2 ** 31:
+        raise ValueError(f"qr_eig_kernel: max_sweeps {max_sweeps} out of int32 range")
+    lib = _build.load()
+    t = torch.empty_like(h)
+    q = torch.empty_like(h) if accumulate_q else None
+    rot = torch.empty(2 * max(n - 1, 1), dtype=h.dtype, device=h.device)
+    eig = torch.empty(n, dtype=h.dtype, device=h.device)
+    state = torch.empty(2, dtype=torch.int32, device=h.device)
+    rc = lib.qr_eig_givens(code, h.device.index, h.data_ptr(), t.data_ptr(), _ptr(q),
+                           rot.data_ptr(), eig.data_ptr(), state.data_ptr(), n,
+                           int(max_sweeps), float(tol), _stream(h))
+    _raise_on_error("qr_eig_kernel", lib, rc)
+    qr_eig_kernel.launches += 1
+    out = (eig, state[0], state[1])
+    return out + (t, q) if accumulate_q else out
+
+
+qr_eig_kernel.launches = 0
+
+
+def qr_decompose_kernel(a: torch.Tensor, kmax: int | None = None):
+    """B9 on the card: ``(R, Q)`` with ``A = Q R`` of a square CUDA matrix
+    after ``kmax`` column steps (default n)."""
+    code = _check_square("qr_decompose_kernel", a, _DTYPE_CODES)
+    n = a.shape[0]
+    kmax = n if kmax is None else int(kmax)
+    if not 0 <= kmax <= n:
+        raise ValueError(f"qr_decompose_kernel: kmax {kmax} outside [0, {n}]")
+    lib = _build.load()
+    r, q = torch.empty_like(a), torch.empty_like(a)
+    scratch = torch.empty(n + 1, dtype=a.dtype, device=a.device)
+    rc = lib.qr_householder(code, a.device.index, a.data_ptr(), r.data_ptr(), q.data_ptr(),
+                            scratch.data_ptr(), n, kmax, _stream(a))
+    _raise_on_error("qr_decompose_kernel", lib, rc)
+    qr_decompose_kernel.launches += 1
+    return r, q
+
+
+qr_decompose_kernel.launches = 0
+
+
+def qr_parity_kernel(h: torch.Tensor, max_iterations: int, tol: float):
+    """B10 on the card: the unshifted parity iteration. Returns
+    ``(H, it, converged, maxsub)`` as device tensors. The iteration counter
+    and the flags live on the device; the host reads ``done`` once per chunk
+    of about ``PARITY_LAUNCHES_PER_READ`` launches."""
+    code = _check_square("qr_parity_kernel", h, _DTYPE_CODES)
+    n = h.shape[0]
+    if not 0 <= max_iterations < 2 ** 31:
+        raise ValueError(f"qr_parity_kernel: max_iterations {max_iterations} "
+                         f"out of int32 range")
+    lib = _build.load()
+    out, r, q = torch.empty_like(h), torch.empty_like(h), torch.empty_like(h)
+    scratch = torch.empty(n + 1, dtype=h.dtype, device=h.device)
+    state = torch.empty(4, dtype=torch.float64, device=h.device)  # it, converged, done, maxsub
+    chunk = max(1, PARITY_LAUNCHES_PER_READ // (3 * n + 3))
+    rc = lib.qr_parity_sweeps(code, h.device.index, h.data_ptr(), out.data_ptr(),
+                              r.data_ptr(), q.data_ptr(), scratch.data_ptr(),
+                              state.data_ptr(), n, int(max_iterations), float(tol),
+                              chunk, _stream(h))
+    _raise_on_error("qr_parity_kernel", lib, rc)
+    qr_parity_kernel.launches += 1
+    return (out, state[0].to(torch.int32), state[1] != 0,
+            state[3].to(_real_dtype(h.dtype)))
+
+
+qr_parity_kernel.launches = 0
+
+KERNELS = (hessenberg_kernel, qr_eig_kernel, qr_decompose_kernel, qr_parity_kernel)
+
+
+def reset_launch_counts() -> None:
+    for kernel in KERNELS:
+        kernel.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Dispatchers
+# --------------------------------------------------------------------------
+
+def hessenberg_reduce(a: torch.Tensor, accumulate_q: bool = False):
+    """Householder Hessenberg reduction (B7)."""
+    if a.device.type == "cpu":
+        return hessenberg_plain(a, accumulate_q)
+    return hessenberg_kernel(a, accumulate_q)
+
+
+def qr_eig_sweeps(h: torch.Tensor, max_sweeps: int, tol: float,
+                  accumulate_q: bool = False):
+    """Shifted Givens QR iteration on a complex Hessenberg matrix (B8)."""
+    if h.device.type == "cpu":
+        return qr_eig_plain(h, max_sweeps, tol, accumulate_q)
+    return qr_eig_kernel(h, max_sweeps, tol, accumulate_q)
+
+
+def householder_qr(a: torch.Tensor, kmax: int | None = None):
+    """Square Householder QR (B9): ``(R, Q)``."""
+    if a.device.type == "cpu":
+        return qr_decompose_plain(a, kmax)
+    return qr_decompose_kernel(a, kmax)
+
+
+def parity_sweeps(h: torch.Tensor, max_iterations: int, tol: float):
+    """The reference's unshifted QR iteration (B10)."""
+    if h.device.type == "cpu":
+        return qr_parity_plain(h, max_iterations, tol)
+    return qr_parity_kernel(h, max_iterations, tol)
+
+
+def accelerated_eigenvalues(a: torch.Tensor, max_sweeps: int, tol: float):
+    """Counterpart of ``qr_eigenvalues_pallas`` (eigenvalues only): B7 then
+    B8. A real matrix reduces in its real dtype and is widened to the
+    complex dtype of its precision for B8. Returns ``(eigenvalues, sweeps,
+    converged)`` with ``converged = hi <= 1``."""
+    h = hessenberg_reduce(a)
+    if not h.is_complex():
+        h = h.to(h.dtype.to_complex())
+    eig, sweeps, hi = qr_eig_sweeps(h, max_sweeps, tol)
+    return eig, int(sweeps), int(hi) <= 1
+
+
+def parity_eigenvalues(a: torch.Tensor, max_iterations: int, tol: float):
+    """Counterpart of ``qr_parity_pallas``: B7 then B10. Returns
+    ``(eigenvalues, iterations, converged, maxsub)`` with the reference's
+    count: ``iterations`` is the converging sweep's ``it``, else
+    ``max_iterations + 1`` (qr_eigenvalues.hpp:69,104). Real input keeps
+    its real dtype (no planes here to widen)."""
+    h, it, conv, maxsub = parity_sweeps(hessenberg_reduce(a), max_iterations, tol)
+    conv = bool(conv)
+    iterations = int(it) if conv else max_iterations + 1
+    return h.diagonal().clone(), iterations, conv, float(maxsub)

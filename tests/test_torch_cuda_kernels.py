@@ -6,10 +6,21 @@ with an H100 (no JAX needed there):
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
 ``--noconftest`` skips the suite's conftest, which imports JAX. The first
-test builds the kernels with nvcc. Errors are measured relative to
+test builds the kernels with nvcc. SpMV errors are measured relative to
 ``max|y|``: 1e-5 for float32, bfloat16 (both sides read the same bf16
 values and accumulate in float32) and complex64; 1e-12 for float64 and
 complex128. The sums differ from the plain versions only in FMA rounding.
+
+The QR kernels (B7-B10) are held against their plain versions relative to
+max|A|, in units of ``QR_TOL`` per row (single and double precision). The
+residuals ``||A - Q H Q^H||``, ``||A - Q R||`` and ``||Q^H Q - I||``, and B8's
+and B10's iterates after a fixed budget, differ only in rounding and are
+held to one unit (ten for the iterates). B7 and B9 run on a well-conditioned
+operand (cond <= 2), whose H, R and Q are held entry by entry to one unit
+once the diagonal unitary D that they are unique up to is divided out: each
+entry of D is the phase of a pivot, which moves by about eps / |pivot|, so
+by up to ~1e-2 at a small pivot in single-precision complex. D itself is
+held to 1 within ``PHASE_TOL``, which a wrong phase convention still fails.
 """
 
 import numpy as np
@@ -17,6 +28,7 @@ import pytest
 import torch
 
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +151,193 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         ds.dia_kernel(vals[:2].contiguous(), (-1, 0, 1), x)
     with pytest.raises(TypeError, match="dia_complex_kernel"):
         ds.dia_kernel(vals.to(torch.complex64), (-1, 0, 1), x.to(torch.complex64))
+
+
+# --------------------------------------------------------------------------
+# Dense QR kernels B7-B10
+# --------------------------------------------------------------------------
+
+QR_DTYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
+# per unit of n: single precision, double precision
+QR_TOL = {False: 1e-6, True: 1e-14}
+PHASE_TOL = {False: 0.2, True: 1e-6}
+
+
+def is_double(dtype):
+    return dtype in (torch.float64, torch.complex128)
+
+
+def qr_tol(dtype, n):
+    return QR_TOL[is_double(dtype)] * max(n, 8)
+
+
+def gaussian(rng, n, dtype):
+    a = rng.standard_normal((n, n))
+    if dtype.is_complex:
+        a = a + 1j * rng.standard_normal((n, n))
+    return a
+
+
+def dense(n, dtype, seed, device):
+    return torch.from_numpy(gaussian(np.random.default_rng(seed), n, dtype)).to(
+        device=device, dtype=dtype)
+
+
+def well_conditioned(n, dtype, seed, device):
+    """U diag(uniform[1, 2]) V^H with random unitary U and V: cond <= 2."""
+    rng = np.random.default_rng(seed)
+    u, _ = np.linalg.qr(gaussian(rng, n, dtype))
+    v, _ = np.linalg.qr(gaussian(rng, n, dtype))
+    a = (u * rng.uniform(1, 2, n)) @ v.conj().T
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def unit_phase(z):
+    m = z.abs()
+    return torch.where(m > 0, z / torch.where(m > 0, m, 1), 1)
+
+
+def hessenberg_phases(h, hp):
+    """D with h = D^H hp D and D[0] = 1, from the subdiagonals."""
+    r = (unit_phase(hp.diagonal(-1)) / unit_phase(h.diagonal(-1))).cpu().numpy()
+    return torch.from_numpy(np.concatenate([[1], np.cumprod(r)])).to(h.device, h.dtype)
+
+
+def rel_to(x, y, scale):
+    return float((x - y).abs().max()) / scale
+
+
+def matched_err(got, want):
+    """Max distance between two spectra under a one-to-one matching."""
+    from scipy.optimize import linear_sum_assignment
+    cost = np.abs(np.asarray(got)[:, None] - np.asarray(want)[None, :])
+    rows, cols = linear_sum_assignment(cost)
+    return float(cost[rows, cols].max())
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 5, 33, 128, 512])
+def test_hessenberg_and_qr_kernels_match_plain(cuda, n, dtype):
+    a = well_conditioned(n, dtype, seed=n, device=cuda)
+    scale = float(a.abs().max())
+    eye = torch.eye(n, dtype=dtype, device=cuda)
+    before = (qk.hessenberg_kernel.launches, qk.qr_decompose_kernel.launches)
+    h, q = qk.hessenberg_reduce(a, accumulate_q=True)
+    r, qq = qk.householder_qr(a)
+    torch.cuda.synchronize()
+    assert (qk.hessenberg_kernel.launches, qk.qr_decompose_kernel.launches) == \
+        (before[0] + 1, before[1] + 1)
+    hp, qp = qk.hessenberg_plain(a, accumulate_q=True)
+    rp, qqp = qk.qr_decompose_plain(a)
+    tol, phase_tol = qr_tol(dtype, n), PHASE_TOL[is_double(dtype)]
+    # entries up to the diagonal unitary D: see the module docstring
+    d = hessenberg_phases(h, hp)
+    assert float((d - 1).abs().max()) <= phase_tol
+    assert rel_to(h, d.conj()[:, None] * hp * d, scale) <= tol
+    assert rel_to(q, qp * d, 1.0) <= tol
+    assert rel_to(q @ h @ q.conj().T, a, scale) <= tol
+    assert rel_to(q.conj().T @ q, eye, 1.0) <= tol
+    if n > 2:
+        assert float(torch.tril(h, -2).abs().max()) <= tol * scale
+    d = unit_phase(r.diagonal()) / unit_phase(rp.diagonal())
+    assert float((d - 1).abs().max()) <= phase_tol
+    assert rel_to(r, d[:, None] * rp, scale) <= tol
+    assert rel_to(qq, qqp * d.conj(), 1.0) <= tol
+    assert rel_to(qq @ r, a, scale) <= tol
+    assert rel_to(qq.conj().T @ qq, eye, 1.0) <= tol
+    if n > 1:
+        assert float(torch.tril(r, -1).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n", [1, 2, 5, 33, 128, 512])
+def test_qr_eig_kernel_matches_plain(cuda, n, dtype):
+    h = qk.hessenberg_plain(dense(n, dtype, seed=100 + n, device=cuda))
+    scale = float(h.abs().max())
+    tol = qr_tol(dtype, n)
+    # a fixed budget of 10 sweeps with deflation off (n <= 2 converges at
+    # once, and deflating at exact zero would race the rounding): the same iterates
+    budget_tol = 0.0 if n > 2 else 1e-6
+    e, s, hi, t, q = qk.qr_eig_kernel(h, 10, budget_tol, accumulate_q=True)
+    ep, sp, hip, tp, qp = qk.qr_eig_plain(h, 10, budget_tol, accumulate_q=True)
+    torch.cuda.synchronize()
+    assert (int(s), int(hi)) == (int(sp), int(hip))
+    assert rel_to(e, ep, scale) <= 10 * tol and rel_to(t, tp, scale) <= 10 * tol
+    assert rel_to(q @ t @ q.conj().T, h, scale) <= tol
+    # to convergence: the same spectrum
+    e, s, hi = qk.qr_eig_kernel(h, 60 * max(n, 1), 1e-6 if dtype == torch.complex64 else 1e-12)
+    assert int(hi) <= 1
+    ev = np.linalg.eigvals(h.cpu().numpy().astype(np.complex128))
+    limit = 1e-9 if dtype == torch.complex128 else 1e-3  # eigenvalue conditioning
+    assert matched_err(e.cpu().numpy(), ev) <= limit * scale
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 5, 33, 64, 512])
+def test_qr_parity_kernel_matches_plain(cuda, n, dtype):
+    h = qk.hessenberg_plain(dense(n, dtype, seed=200 + n, device=cuda))
+    scale = float(h.abs().max())
+    before = qk.qr_parity_kernel.launches
+    # 7 sweeps: at n = 512 two chunks (5 and 2) between host reads of `done`
+    H, it, c, m = qk.parity_sweeps(h, 7, 0.0)
+    torch.cuda.synchronize()
+    assert qk.qr_parity_kernel.launches == before + 1
+    Hp, itp, cp, mp = qk.qr_parity_plain(h, 7, 0.0)
+    assert int(it) == int(itp) and bool(c) == bool(cp)
+    assert rel_to(H, Hp, scale) <= 10 * qr_tol(dtype, n)
+    assert abs(float(m) - float(mp)) <= 10 * qr_tol(dtype, n) * scale
+
+
+def test_qr_parity_kernel_converges_with_the_reference_count(cuda):
+    rng = np.random.default_rng(0)
+    Qo, _ = np.linalg.qr(rng.standard_normal((64, 64)))
+    d = 0.8 ** np.arange(64)
+    a = torch.from_numpy((Qo * d) @ Qo.T).to(cuda)
+    eig, iterations, conv, _ = qk.parity_eigenvalues(a, 2000, 1e-10)
+    _, iterations_p, conv_p, _ = qk.parity_eigenvalues(a.cpu(), 2000, 1e-10)
+    assert conv and conv_p and iterations == iterations_p
+    np.testing.assert_allclose(np.sort(eig.cpu().numpy()), np.sort(d), atol=1e-8)
+    _, it3, conv3, _ = qk.parity_eigenvalues(a, 3, 1e-10)
+    assert not conv3 and it3 == 4  # max_iterations + 1
+
+
+def test_qr_kernels_reject_what_they_do_not_take(cuda):
+    a = dense(8, torch.float32, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        qk.hessenberg_kernel(a.cpu())
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        qk.qr_eig_kernel(a, 10, 1e-6)  # B8 takes complex only
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        qk.qr_decompose_kernel(a.half())
+    with pytest.raises(ValueError, match="square"):
+        qk.qr_parity_kernel(a[:, :4].contiguous(), 10, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        qk.hessenberg_kernel(a.T)
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+def test_public_qr_functions_on_the_card(cuda, dtype):
+    # the public entry points on a CUDA tensor: kernels only, every dtype
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    n = 24
+    a = dense(n, dtype, seed=7, device=cuda)
+    M = eigsol.DenseMatrix(a)
+    double = dtype in (torch.float64, torch.complex128)
+    qk.reset_launch_counts()
+    h = eigsol.to_hessenberg(M)
+    q, r = eigsol.qr_decompose(M)
+    accel = eigsol.qr_eigenvalues(M, eigsol.QROptions(
+        mode="accelerated", tolerance=1e-12 if double else 1e-6, max_iterations=60 * n))
+    parity = eigsol.qr_eigenvalues(M, eigsol.QROptions(mode="parity", max_iterations=5))
+    torch.cuda.synchronize()
+    assert [k.launches for k in qk.KERNELS] == [3, 1, 1, 1]
+    assert h.device.type == q.device.type == accel.eigenvalues.device.type == "cuda"
+    assert accel.eigenvalues.dtype == (dtype if dtype.is_complex else dtype.to_complex())
+    assert parity.eigenvalues.dtype == dtype
+    assert not bool(parity.converged) and int(parity.iterations) == 6
+    scale = float(a.abs().max())
+    assert rel_to(q @ r, a, scale) <= qr_tol(dtype, n)
+    assert bool(accel.converged)
+    ev = np.linalg.eigvals(a.cpu().numpy().astype(np.complex128))
+    limit = 1e-9 if double else 1e-4  # deflation at tol * |h_ii|, times conditioning
+    assert matched_err(accel.eigenvalues.cpu().numpy(), ev) <= limit * scale

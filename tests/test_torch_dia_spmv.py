@@ -234,11 +234,26 @@ class TestDispatch:
         with pytest.raises(RuntimeError, match="nvcc is neither on PATH"):
             _build.find_nvcc()
 
+    def test_failed_build_raises_and_leaves_no_files(self, monkeypatch, tmp_path):
+        # an nvcc that writes the file it is asked for, then fails on one source
+        nvcc = tmp_path / "nvcc"
+        nvcc.write_text('#!/bin/sh\nprev=""\nfor a in "$@"; do\n'
+                        '  [ "$prev" = "-o" ] && : > "$a"\n  prev="$a"\ndone\n'
+                        'case "$*" in *qr_kernels.cu*) echo "qr_kernels.cu: error"; exit 1;; esac\n')
+        nvcc.chmod(0o755)
+        build_dir = tmp_path / "build"
+        monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+        monkeypatch.setattr(_build, "BUILD_DIR", str(build_dir))
+        with pytest.raises(RuntimeError, match="qr_kernels.cu: error"):
+            _build.build()
+        assert os.listdir(build_dir) == []
+
     def test_library_name_tracks_the_sources(self):
         path = _build.library_path()
         assert path == _build.library_path()
         assert os.path.dirname(path) == _build.BUILD_DIR
-        assert [os.path.basename(s) for s in _build.sources()] == ["dia_spmv.cu"]
+        assert [os.path.basename(s) for s in _build.sources()] == ["dia_spmv.cu",
+                                                                   "qr_kernels.cu"]
 
     def test_import_builds_nothing_and_imports_no_jax(self):
         code = ("import sys\n"

@@ -1,0 +1,287 @@
+"""The QR kernels' plain versions (B7-B10) against the JAX Pallas kernels.
+
+The same numpy inputs go through the Pallas kernels of
+``ops/pallas/qr_kernels.py`` in interpret mode (as tests/test_qr_kernels.py
+runs them) and through the port's dispatchers in ``ops/qr_kernels.py``,
+which on CPU tensors run the plain versions. Both sides compute in float32
+(complex64); only the summation order differs.
+
+Tolerances, relative to max|A|:
+- B7 Hessenberg ``H``: 3e-6 * n. The reduction is backward stable, but a
+  single entry of ``H`` moves by up to ~n * eps * ||A|| when the sums are
+  taken in another order (measured up to 4.8e-5 at n = 33 in complex64).
+  ``Q``, and B9's ``R`` and ``Q``: 1e-6 * n.
+- B8 eigenvalues: 5e-5 (nearest-neighbour matching). The sweep counts agree
+  within 2: a deflation decision taken at the f32 rounding level may fall one
+  sweep apart.
+- B10: sweep counts and flags equal; ``H`` and eigenvalues to 1e-4 and
+  ``maxsub`` to 1e-3 relative, after up to hundreds of f32 sweeps.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pcsc_eigenvalue_solver_project_tpu.ops.pallas import qr_kernels as jq
+from pcsc_eigenvalue_solver_project_tpu_torch import DenseMatrix, QROptions
+from pcsc_eigenvalue_solver_project_tpu_torch import qr_decompose, qr_eigenvalues, to_hessenberg
+from pcsc_eigenvalue_solver_project_tpu_torch.ops import _build
+from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as tq
+from pcsc_eigenvalue_solver_project_tpu_torch.solvers.qr_eigenvalues import qr_dispatch
+
+
+def random_matrix(n, complex_values, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n))
+    if complex_values:
+        return (a + 1j * rng.standard_normal((n, n))).astype(np.complex64)
+    return a.astype(np.float32)
+
+
+def geometric_symmetric(n, ratio, seed):
+    """Q diag(ratio**i) Q^T: the unshifted iteration converges on it."""
+    rng = np.random.default_rng(seed)
+    Qo, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return ((Qo * ratio ** np.arange(n)) @ Qo.T).astype(np.float32)
+
+
+def to_planes(a):
+    if np.iscomplexobj(a):
+        return jnp.asarray(np.stack([a.real, a.imag]).astype(np.float32))
+    return jnp.asarray(a[None])
+
+
+def from_planes(p):
+    p = np.asarray(p)
+    return p[0] + 1j * p[1] if p.shape[0] == 2 else p[0]
+
+
+def match_err(expected, got):
+    """Max distance under optimal one-to-one matching, relative to max|expected|."""
+    from scipy.optimize import linear_sum_assignment
+    C = np.abs(np.asarray(expected)[:, None] - np.asarray(got)[None, :])
+    r, c = linear_sum_assignment(C)
+    return C[r, c].max() / max(np.abs(expected).max(), 1.0)
+
+
+def rel(got, want, scale):
+    return np.abs(np.asarray(got) - np.asarray(want)).max() / scale
+
+
+SIZES = [2, 5, 16, 33]
+KINDS = [False, True]  # complex values
+
+
+class TestHessenbergB7:
+    @pytest.mark.parametrize("complex_values", KINDS)
+    @pytest.mark.parametrize("n", SIZES)
+    def test_matches_pallas(self, n, complex_values):
+        a = random_matrix(n, complex_values, seed=n)
+        hj, qj = jq.hessenberg_planes(to_planes(a), n, interpret=True, accumulate_q=True)
+        h, q = tq.hessenberg_reduce(torch.from_numpy(a), accumulate_q=True)
+        scale = np.abs(a).max()
+        assert rel(h.numpy(), from_planes(hj), scale) <= 3e-6 * n
+        assert rel(q.numpy(), from_planes(qj), 1.0) <= 1e-6 * n
+        assert torch.equal(tq.hessenberg_reduce(torch.from_numpy(a)), h)
+        # and the similarity A = Q H Q^H holds
+        res = q.numpy().astype(np.complex128) @ h.numpy() @ q.numpy().conj().T - a
+        assert np.abs(res).max() <= 1e-6 * n * scale
+
+    @pytest.mark.parametrize("complex_values", KINDS)
+    def test_already_hessenberg_passes_unchanged(self, complex_values):
+        # the tail-zero skip (to_hessenberg.hpp:46-48): factor 0 on every column
+        a = np.triu(random_matrix(9, complex_values, seed=1), -1)
+        h, q = tq.hessenberg_reduce(torch.from_numpy(a), accumulate_q=True)
+        np.testing.assert_array_equal(h.numpy(), a)
+        np.testing.assert_array_equal(q.numpy(), np.eye(9))
+        hj = from_planes(jq.hessenberg_planes(to_planes(a), 9, interpret=True))
+        np.testing.assert_array_equal(hj, a)
+
+
+class TestQRDecomposeB9:
+    @pytest.mark.parametrize("complex_values", KINDS)
+    @pytest.mark.parametrize("n", SIZES)
+    def test_matches_pallas(self, n, complex_values):
+        a = random_matrix(n, complex_values, seed=50 + n)
+        rj, qj = jq.qr_decompose_planes(to_planes(a), n, interpret=True)
+        r, q = tq.householder_qr(torch.from_numpy(a))
+        scale = np.abs(a).max()
+        assert rel(r.numpy(), from_planes(rj), scale) <= 1e-6 * n
+        assert rel(q.numpy(), from_planes(qj), 1.0) <= 1e-6 * n
+        assert rel(q.numpy() @ r.numpy(), a, scale) <= 1e-6 * n
+
+    def test_kmax_steps(self):
+        a = random_matrix(8, False, seed=3)
+        rj, qj = jq.qr_decompose_planes(to_planes(a), 3, interpret=True)
+        r, q = tq.householder_qr(torch.from_numpy(a), kmax=3)
+        assert rel(r.numpy(), from_planes(rj), np.abs(a).max()) <= 1e-5
+        assert rel(q.numpy(), from_planes(qj), 1.0) <= 1e-5
+        assert np.abs(np.tril(r.numpy()[:, :3], -1)).max() <= 1e-6  # 3 columns eliminated
+        assert np.abs(np.tril(r.numpy()[:, 3:], -1)).max() > 1e-2   # the rest untouched
+
+
+def hessenberg_of(a):
+    return tq.hessenberg_plain(torch.from_numpy(a)).numpy()
+
+
+def eig_both(h, max_sweeps, tol, **kw):
+    """B8 on the complex Hessenberg h: (Pallas eig, sweeps, hi), (port ...)."""
+    hc = h.astype(np.complex64)  # real input widens to two planes, as on the TPU
+    out_j = jq.qr_hessenberg_eig_planes(to_planes(hc), h.shape[0], max_sweeps, tol,
+                                        interpret=True, **kw)
+    return out_j, tq.qr_eig_sweeps(torch.from_numpy(hc), max_sweeps, tol, **kw)
+
+
+class TestQREigB8:
+    @pytest.mark.parametrize("complex_values", KINDS)
+    @pytest.mark.parametrize("n", SIZES)
+    def test_matches_pallas(self, n, complex_values):
+        h = hessenberg_of(random_matrix(n, complex_values, seed=100 + n))
+        (ej, sj, hij), (e, s, hi) = eig_both(h, 60 * n, 1e-6)
+        assert int(hij) <= 1 and int(hi) <= 1
+        assert abs(int(s) - int(sj)) <= 2
+        assert match_err(from_planes(ej), e.numpy()) <= 5e-5
+        assert match_err(np.linalg.eigvals(h.astype(np.complex128)), e.numpy()) <= 5e-5
+
+    def test_symmetric(self):
+        b = random_matrix(12, False, seed=7)
+        h = hessenberg_of((b + b.T) / 2)
+        (ej, sj, hij), (e, s, hi) = eig_both(h, 600, 1e-6)
+        assert int(hi) <= 1 and abs(int(s) - int(sj)) <= 2
+        assert np.abs(e.numpy().imag).max() < 1e-4
+        np.testing.assert_allclose(np.sort(e.numpy().real), np.sort(from_planes(ej).real),
+                                   atol=5e-5 * np.abs(b).max())
+
+    @pytest.mark.parametrize("complex_values", KINDS)
+    def test_max_sweeps_cap(self, complex_values):
+        # a budget of 2 sweeps: both stop there, unconverged, with the same
+        # window and the same diagonal to rounding
+        h = hessenberg_of(random_matrix(8, complex_values, seed=5))
+        (ej, sj, hij), (e, s, hi) = eig_both(h, 2, 1e-12)
+        assert int(s) == int(sj) == 2
+        assert int(hi) == int(hij) > 1
+        assert rel(e.numpy(), from_planes(ej), np.abs(h).max()) <= 1e-5
+
+    def test_schur_vectors_match_pallas(self):
+        # accumulate_q: h = Q T Q^H, after a fixed budget of 6 sweeps
+        h = hessenberg_of(random_matrix(10, True, seed=9))
+        (ej, sj, hij, tj, qj), (e, s, hi, t, q) = eig_both(h, 6, 1e-12, accumulate_q=True)
+        scale = np.abs(h).max()
+        assert int(s) == int(sj) == 6
+        assert rel(t.numpy(), from_planes(tj), scale) <= 1e-5
+        assert rel(q.numpy(), from_planes(qj), 1.0) <= 1e-5
+        assert rel(q.numpy() @ t.numpy() @ q.numpy().conj().T, h, scale) <= 1e-5
+
+    def test_window_sweeps_from_lo(self):
+        # a negligible subdiagonal in the middle splits the window: the kernel
+        # sweeps only the trailing block [lo, hi), rows above stay untouched
+        h = hessenberg_of(random_matrix(8, False, seed=11)).astype(np.complex64)
+        h[4, 3] = 0
+        (ej, sj, hij), (e, s, hi) = eig_both(h, 1, 1e-6)
+        assert int(s) == int(sj) == 1
+        np.testing.assert_array_equal(e.numpy()[:4], np.diagonal(h)[:4])
+        assert rel(e.numpy(), from_planes(ej), np.abs(h).max()) <= 1e-5
+
+
+class TestParityB10:
+    @pytest.mark.parametrize("n", [5, 8])
+    def test_converges_like_pallas(self, n):
+        h = hessenberg_of(geometric_symmetric(n, 0.8, seed=n))
+        hj, itj, cj, mj = jq.qr_parity_planes(to_planes(h), n, 2000, 1e-5, interpret=True)
+        H, it, c, m = tq.parity_sweeps(torch.from_numpy(h), 2000, 1e-5)
+        assert bool(c) and bool(cj)
+        assert int(it) == int(itj)
+        assert rel(H.numpy(), from_planes(hj), 1.0) <= 1e-4
+        assert abs(float(m) - float(mj)) <= 1e-3 * max(float(mj), 1e-30) + 1e-7
+
+    @pytest.mark.parametrize("complex_values", KINDS)
+    def test_budget_without_convergence(self, complex_values):
+        h = hessenberg_of(random_matrix(6, complex_values, seed=2))
+        hj, itj, cj, mj = jq.qr_parity_planes(to_planes(h), 6, 3, 1e-12, interpret=True)
+        H, it, c, m = tq.parity_sweeps(torch.from_numpy(h), 3, 1e-12)
+        assert int(it) == int(itj) == 3 and not bool(c) and not bool(cj)
+        assert rel(H.numpy(), from_planes(hj), np.abs(h).max()) <= 1e-5
+        assert abs(float(m) - float(mj)) <= 1e-4 * float(mj)
+
+    def test_zero_budget(self):
+        h = hessenberg_of(random_matrix(4, False, seed=0))
+        H, it, c, m = tq.parity_sweeps(torch.from_numpy(h), 0, 1e-6)
+        assert int(it) == 0 and not bool(c) and float(m) == 0.0
+        np.testing.assert_array_equal(H.numpy(), h)
+
+
+class TestWholeStack:
+    """``accelerated_eigenvalues`` and ``parity_eigenvalues`` against
+    ``qr_eigenvalues_pallas`` and ``qr_parity_pallas``."""
+
+    @pytest.mark.parametrize("complex_values", KINDS)
+    @pytest.mark.parametrize("n", [5, 16])
+    def test_accelerated(self, n, complex_values):
+        a = random_matrix(n, complex_values, seed=200 + n)
+        ej, sj, cj = jq.qr_eigenvalues_pallas(a, 60 * n, 1e-6, interpret=True)
+        e, s, c = tq.accelerated_eigenvalues(torch.from_numpy(a), 60 * n, 1e-6)
+        assert c and cj and abs(s - sj) <= 2
+        assert e.dtype == torch.complex64
+        assert match_err(ej, e.numpy()) <= 5e-5
+
+    def test_accelerated_max_sweeps(self):
+        a = random_matrix(8, False, seed=5)
+        _, sj, cj = jq.qr_eigenvalues_pallas(a, 2, 1e-12, interpret=True)
+        _, s, c = tq.accelerated_eigenvalues(torch.from_numpy(a), 2, 1e-12)
+        assert s == sj == 2 and not c and not cj
+
+    @pytest.mark.parametrize("complex_values", KINDS)
+    def test_parity(self, complex_values):
+        a = geometric_symmetric(6, 0.7, seed=1)
+        if complex_values:
+            a = a.astype(np.complex64)
+        ej, ij, cj, mj = jq.qr_parity_pallas(a, 2000, 1e-5, interpret=True)
+        e, i, c, m = tq.parity_eigenvalues(torch.from_numpy(a), 2000, 1e-5)
+        assert c and cj and i == ij
+        assert e.dtype == torch.from_numpy(a).dtype  # real input keeps its dtype
+        np.testing.assert_allclose(np.sort(e.numpy().real), np.sort(ej.real), atol=1e-4)
+        np.testing.assert_allclose(np.sort(e.numpy().real), np.sort(0.7 ** np.arange(6)),
+                                   atol=1e-4)
+
+    def test_parity_nonconvergence_reports_max_plus_one(self):
+        # reference quirk: iterations == max_iterations + 1 (qr_eigenvalues.hpp:69,104)
+        a = random_matrix(6, False, seed=2)
+        _, ij, cj, _ = jq.qr_parity_pallas(a, 3, 1e-12, interpret=True)
+        _, i, c, _ = tq.parity_eigenvalues(torch.from_numpy(a), 3, 1e-12)
+        assert i == ij == 4 and not c and not cj
+
+
+class TestDispatch:
+    """The plain versions run only for CPU tensors; anything else goes to a
+    kernel wrapper, which launches or raises."""
+
+    def test_non_cpu_tensors_never_take_the_plain_path(self):
+        a = torch.empty((8, 8), device="meta")
+        c = torch.empty((8, 8), dtype=torch.complex64, device="meta")
+        calls = [lambda: tq.hessenberg_reduce(a), lambda: tq.hessenberg_reduce(a, True),
+                 lambda: tq.qr_eig_sweeps(c, 10, 1e-6), lambda: tq.householder_qr(a),
+                 lambda: tq.parity_sweeps(a, 10, 1e-6),
+                 lambda: tq.accelerated_eigenvalues(a, 10, 1e-6),
+                 lambda: tq.parity_eigenvalues(c, 10, 1e-6),
+                 lambda: to_hessenberg(DenseMatrix(a)),
+                 lambda: qr_decompose(DenseMatrix(c)),
+                 lambda: qr_eigenvalues(DenseMatrix(a), QROptions(mode="accelerated")),
+                 lambda: qr_eigenvalues(DenseMatrix(c), QROptions(mode="parity"))]
+        for call in calls:
+            with pytest.raises(ValueError, match="expected a CUDA device"):
+                call()
+        assert _build._lib is None  # rejected before any build
+        assert all(k.launches == 0 for k in tq.KERNELS)
+
+    def test_dispatch_table(self):
+        assert qr_dispatch(512, "cpu") == "torch"
+        for n in (1, 512, 4096, 65536):  # no size cap on the unblocked kernels yet
+            assert qr_dispatch(n, torch.device("cuda")) == "cuda_unblocked"
+
+    def test_reset_launch_counts(self):
+        for k in tq.KERNELS:
+            k.launches = 3
+        tq.reset_launch_counts()
+        assert [k.launches for k in tq.KERNELS] == [0, 0, 0, 0]
