@@ -26,13 +26,36 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    bench operand (symmetric, spectrum 0.9^i) in float32 and a complex64
    operand with spectrum 0.9^i e^(i theta) in both modes, a real
    non-symmetric matrix in accelerated mode against numpy in float64, and
-   the reference demo's QR section on ``data/A.txt``.
+   the reference demo's QR section on ``data/A.txt``;
+8. the blocked Hessenberg kernel B11 (B12 on complex data) and the
+   triangular-eigenvector kernel B14 against their plain versions: B11 with
+   Q at n = 4096 float32, 2048 complex64 and 1024 float64 on a
+   well-conditioned operand (H and Q entry by entry with the pivot phases
+   divided out, ``||A - Q H Q^H||``, ``||Q^H Q - I||``) and against B7 at
+   512; B14 at n = 512 and 2048 in complex64 and complex128 on the Schur
+   factor of the eigenpair path and on a triangle with one repeated
+   eigenvalue; each with its time beside the plain version's;
+9. the sweep of B7 against B11 (float32 and complex64, n = 256 ... 4096)
+   from which ``HESSENBERG_BLOCKED_MIN_N`` was set, B11's panel widths at
+   4096, a torch.profiler breakdown of one B11 call, B9 beside
+   ``torch.linalg.qr(mode="complete")`` and B8 beside ``torch.linalg.eigvals``;
+10. the eigenpair path through the public API on CUDA tensors:
+    ``qr_eigenvalues(A, QROptions(mode="accelerated", compute_vectors=True))``
+    on (a) the bench operand at 512 in float32, (b) the complex64 operand of
+    phase 7, (c) the non-symmetric float32 matrix of phase 7 and (e) the
+    bench operand's construction at 2048, each held to its spectrum and to
+    the residual ``max_k ||A v_k - lambda_k v_k|| / ||A||``;
+11. ``to_hessenberg`` through the public API at n = 4096 float32 and at
+    n = 2048 complex64 (the blocked kernel on real and on complex data).
 
 The banded kernels' launch counts are zeroed just before phases 4-5 and
-read just after, the QR kernels' just before and after phase 7; each kernel
-must have run on its path. The script then prints one JSON line with each
-kernel's numbers, the card's name and power limit, and last the line
-``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+read just after, the QR kernels' just before and after phase 7, 10 and each
+run of phase 11; each kernel must have run on its path. The script then
+prints one JSON line with each kernel's numbers (time, plain time, the
+least time the card could take for the same work, the library call's time
+where one PyTorch call computes the same function), the card's name and
+power limit, and last the line ``{"ok": true, "device": {...}}``. It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -53,7 +76,15 @@ QR_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/qr_kernels.py"
 QR_N = 512        # BASELINE.json configs[2]: 512 x 512 dense, all eigenvalues
 QR_SWEEP_N = 128  # B8/B10 against their plain versions (thousands of launches a sweep)
 QR_TOL = 3e-6     # bench.py's QR tolerance
+HB_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/hessenberg_blocked.cu"
+HB_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/hessenberg_blocked.py"
+TRI_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/trisolve_vec.cu"
+TRI_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/trisolve_vec.py"
+SWEEP_SIZES = (256, 512, 1024, 2048, 4096)  # B7 against B11
+FULL_N = 4096   # B11's row, its panel widths, to_hessenberg in float32
+LARGE_N = 2048  # B12's row, B14's second size, eigenpair run (e)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}  # H100 SXM data sheet, outside the tensor cores
 
 
 def check(cond, message: str) -> None:
@@ -112,14 +143,63 @@ def time_events_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timed_pair(kernel_fn, plain_fn, timer=time_ms):
+def timed_pair(kernel_fn, plain_fn, timer=time_ms, plain_timer=None):
     """Kernel and plain time per call, taken in turns (plain, kernel,
-    kernel, plain); the lower of each pair."""
-    p1 = timer(plain_fn)
+    kernel, plain); the lower of each pair. ``plain_timer`` (default
+    ``timer``) times the plain version."""
+    plain_timer = plain_timer or timer
+    p1 = plain_timer(plain_fn)
     k1 = timer(kernel_fn)
     k2 = timer(kernel_fn)
-    p2 = timer(plain_fn)
+    p2 = plain_timer(plain_fn)
     return min(k1, k2), min(p1, p2)
+
+
+def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS["f32"]):
+    """The least time the card could take (ms) and what bounds it: the bytes
+    moved (each input read once, each output written once) over the memory
+    rate, or the operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_operand(rng, n, dt, dev, kind):
+    """numpy-seeded operands built on the card: ``"gaussian"``;
+    ``"well_conditioned"``, U diag(uniform[1, 2]) V^H with random unitary U
+    and V (cond <= 2); ``"geometric"``, bench.py's (Q * 0.9^i) Q^T (complex:
+    Q diag(0.9^i e^(i theta)) Q^H). Returns (matrix, planted spectrum)."""
+    import torch
+
+    def gaussian():
+        g = rng.standard_normal((n, n))
+        if dt.is_complex:
+            g = g + 1j * rng.standard_normal((n, n))
+        return torch.from_numpy(g).to(dev)
+
+    if kind == "gaussian":
+        return gaussian().to(dt), None
+    u, _ = torch.linalg.qr(gaussian())
+    if kind == "well_conditioned":
+        v, _ = torch.linalg.qr(gaussian())
+        s = torch.from_numpy(rng.uniform(1, 2, n)).to(dev)
+        return ((u * s) @ v.conj().T).to(dt), None
+    d = 0.9 ** np.arange(n)
+    if dt.is_complex:
+        d = d * np.exp(1j * rng.uniform(0, 2 * np.pi, n))
+    return ((u * torch.from_numpy(d).to(dev)) @ u.conj().T).to(dt), d
+
+
+def band_csr(vals, offsets):
+    """The CSR form of the row-indexed DIA band (y[i] = sum_d vals[d, i]
+    x[i + off_d]), for the library SpMV."""
+    import torch
+    k, n = vals.shape
+    rows = torch.arange(n, device=vals.device)
+    cols = rows[:, None] + torch.tensor(offsets, device=vals.device)[None, :]  # (n, k)
+    keep = (cols >= 0) & (cols < n)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=vals.device)
+    crow[1:] = keep.sum(1).cumsum(0)
+    return torch.sparse_csr_tensor(crow, cols[keep], vals.T[keep], (n, n))
 
 
 def planted_band(n, dtype, seed):
@@ -333,6 +413,291 @@ def qr_kernel_phase(dev, card_name, card_limit):
     return errors, timings
 
 
+def blocked_kernel_phase(dev, card_name, card_limit):
+    """Phase 8: B11 (B12 on complex data) and B14 against their plain
+    versions on the card. Returns {tag: max abs error} and
+    {tag: (kernel ms, plain ms, n, dtype)} for the kernel rows."""
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import hessenberg_blocked as hb
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import trisolve_vec as tv
+
+    rng = np.random.default_rng(20)
+    errors, timings = {}, {}
+
+    def report(label, err, limit):
+        print(f"check {label}: {err:.3e} (limit {limit:.1e})")
+        check(err <= limit, f"{label}: {err:.3e} above {limit:.1e}")
+
+    def hold_reduction(tag, a, h, q, hp, qp, units=1.0):
+        """h, q against hp, qp with the pivot phases D divided out; limits
+        in units of 1e-6 n (1e-14 n in double) relative to max|A| (Q: 1).
+        The phase convention is held by the median over the pivots of the
+        phase ratio r_k (D = cumprod r): |r_k - 1| <= 1e-2 (1e-9 in double).
+        Each r_k is 1 to rounding but for a few late pivots, whose phases
+        single-precision complex leaves O(0.1) apart (B7 in complex64 against
+        complex128 on the CPU: up to 0.17 at n = 1024), so D itself drifts
+        from 1 at large n; a wrong convention moves most r_k by O(1)."""
+        n, dt = a.shape[0], a.dtype
+        double = dt in (torch.float64, torch.complex128)
+        unit = (1e-14 if double else 1e-6) * n
+        scale = float(a.abs().max())
+        eye = torch.eye(n, dtype=dt, device=dev)
+        d = hessenberg_phases(h, hp)
+        d_t = torch.from_numpy(d).to(dev, dt)
+        h_err = float((h - d_t.conj()[:, None] * hp * d_t).abs().max())
+        ratio = np.abs(d[1:] / np.concatenate([[1], d[1:-1]]) - 1) if n > 2 else np.zeros(1)
+        print(f"{tag} {dt} n={n}: max |D - 1| {np.abs(d - 1).max():.3e}, "
+              f"max |r_k - 1| {ratio.max():.3e}")
+        checks = {"H vs reference": (h_err / scale, units * unit),
+                  "Q vs reference": (float((q - qp * d_t).abs().max()), units * unit),
+                  "median pivot phase |r_k - 1|": (float(np.median(ratio)),
+                                                   1e-9 if double else 1e-2),
+                  "|A - Q H Q^H|": (float((q @ h @ q.conj().T - a).abs().max()) / scale, unit),
+                  "|Q^H Q - I|": (float((q.conj().T @ q - eye).abs().max()), unit),
+                  "below subdiagonal": (float(torch.tril(h, -2).abs().max()), 0.0)}
+        for label, (err, limit) in checks.items():
+            report(f"{tag} {label} {dt} n={n}", err, limit)
+        check(bool(torch.isfinite(h).all()) and bool(torch.isfinite(q).all()),
+              f"{tag} {dt} n={n}: non-finite output")
+        return h_err
+
+    # B11 with Q against its plain version (run once: it is a long chain of
+    # small PyTorch operations); float32 at 4096 is the B11 row, complex64 at
+    # 2048 (beyond the TPU's 1024-row two-plane limit) the B12 row
+    for tag, n, dt in (("B11", FULL_N, torch.float32), ("B12", LARGE_N, torch.complex64),
+                       ("B11", FULL_N // 4, torch.float64)):
+        a, _ = device_operand(rng, n, dt, dev, "well_conditioned")
+        torch.cuda.synchronize()
+        k_ms = time_ms(lambda: hb.hessenberg_blocked_kernel(a, accumulate_q=True), reps=2)
+        h, q = hb.hessenberg_blocked_kernel(a, accumulate_q=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        hp, qp = hb.hessenberg_blocked_plain(a, accumulate_q=True)
+        end.record()
+        end.synchronize()
+        p_ms = start.elapsed_time(end)
+        err = hold_reduction(tag, a, h, q, hp, qp)
+        h_only_ms = time_ms(lambda: hb.hessenberg_blocked_kernel(a), reps=2)
+        print(f"time {tag} {dt} n={n} with Q: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+              f"(one call); without Q: kernel {h_only_ms:.3f} ms [{card_name}, {card_limit}]")
+        if dt != torch.float64:
+            errors[tag] = err
+            timings[tag] = (k_ms, p_ms, n, dt)
+        del h, q, hp, qp
+    # B11 against the unblocked B7 at 512: the same reflectors, summed in
+    # another order (three units)
+    for dt in (torch.float32, torch.complex64):
+        a, _ = device_operand(rng, QR_N, dt, dev, "well_conditioned")
+        h, q = hb.hessenberg_blocked_kernel(a, accumulate_q=True)
+        h7, q7 = qk.hessenberg_kernel(a, accumulate_q=True)
+        torch.cuda.synchronize()
+        hold_reduction("B11 vs B7", a, h, q, h7, q7, units=3.0)
+
+    # B14 on the Schur factor of the eigenpair path (B7/B11 and B8 with Q on
+    # the bench operand's construction) and on a triangle with one repeated
+    # eigenvalue (every pivot clamped, the 1e18 rescale on every column).
+    # Normalised columns against the plain version: 1e-5 in complex64 (the
+    # recurrence amplifies the summation order where eigenvalues cluster;
+    # 6e-7 measured at 2048), 1e-12 in complex128; the residual
+    # |T y - lambda y| of the normalised columns to 1e-4 (1e-10 in complex128)
+    # of max(max|T|, 1).
+    for n in (QR_N, LARGE_N):
+        for real_dt in (torch.float32, torch.float64):
+            cdt = real_dt.to_complex()
+            double = real_dt == torch.float64
+            a, _ = device_operand(rng, n, real_dt, dev, "geometric")
+            h, _ = qk.hessenberg_reduce(a, accumulate_q=True)
+            tol = 1e-12 if double else QR_TOL
+            _, sweeps, hi, t_schur, _ = qk.qr_eig_sweeps(h.to(cdt), 20 * n, tol, accumulate_q=True)
+            check(int(hi) <= 1, f"B14 input {cdt} n={n}: the sweeps did not converge")
+            tri = np.triu(0.3 * rng.standard_normal((n, n)), 1) + 2.0 * np.eye(n)
+            eps_schur = torch.finfo(real_dt).eps * max(float(t_schur.abs().max()), 1.0)
+            for kind, T in (("Schur factor", t_schur),
+                            ("repeated eigenvalue", torch.from_numpy(tri).to(dev, cdt))):
+                scale = max(float(T.abs().max()), 1.0)
+                eps = torch.finfo(real_dt).eps * scale
+                y = tv.triangular_eigenvectors_kernel(T, eps)
+                yp = tv.triangular_eigenvectors_plain(T, eps)
+                torch.cuda.synchronize()
+                yn = y / y.abs().square().sum(0).sqrt().clamp_min(1e-30)
+                ypn = yp / yp.abs().square().sum(0).sqrt().clamp_min(1e-30)
+                err = float((yn - ypn).abs().max())
+                check(bool(torch.isfinite(y).all()), f"B14 {cdt} n={n} {kind}: non-finite Y")
+                report(f"B14 {kind} {cdt} n={n} Y vs plain (normalised)", err,
+                       1e-12 if double else 1e-5)
+                if kind == "Schur factor":
+                    res = float((T @ yn - yn * T.diagonal()[None, :]).abs().max()) / scale
+                    report(f"B14 {kind} {cdt} n={n} |T y - lambda y|", res,
+                           1e-10 if double else 1e-4)
+                    if cdt == torch.complex64 and n == QR_N:  # Y's scale is arbitrary
+                        errors["B14"] = err
+            if not double:
+                def kernel():
+                    return tv.triangular_eigenvectors_kernel(t_schur, eps_schur)
+
+                def plain():
+                    return tv.triangular_eigenvectors_plain(t_schur, eps_schur)
+
+                if n == QR_N:  # the plain version reads the host: CUDA events, no graph
+                    k_ms, p_ms = timed_pair(kernel, plain, lambda fn: time_ms(fn, reps=3),
+                                            lambda fn: time_events_ms(fn, 2))
+                    timings["B14"] = (k_ms, p_ms, n, cdt)
+                else:
+                    k_ms, p_ms = time_ms(kernel, reps=3), time_events_ms(plain, 1)
+                print(f"time B14 {cdt} n={n}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+                      f"[{card_name}, {card_limit}]")
+    return errors, timings
+
+
+def profile_breakdown(label, fn, top=8):
+    """Device time by kernel name over one call of ``fn`` (torch.profiler).
+    A breakdown only: a profiler that records nothing is reported, not
+    failed on."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+    if not rows:
+        print(f"profile {label}: no device time recorded (not measured)")
+    total = sum(ms for _, ms, _ in rows)
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
+        print(f"profile {label}: {ms:.3f} ms of {total:.3f} ms device time in {count} "
+              f"launches of {key[:90]}")
+
+
+def boundary_sweep_phase(dev, card_name, card_limit):
+    """Phase 9: B7 against B11 (the ``HESSENBERG_BLOCKED_MIN_N`` sweep),
+    B11's panel widths, B9 beside ``torch.linalg.qr``, and the library calls
+    of the kernel rows. Returns {tag: library ms}."""
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import hessenberg_blocked as hb
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers import hessenberg as hs
+
+    rng = np.random.default_rng(30)
+    library = {}
+    print(f"sweep (ms per call, one CUDA-event loop per point) [{card_name}, {card_limit}]")
+    print("dtype n B7 B11 B9 torch.linalg.qr(complete)")
+    for dt in (torch.float32, torch.complex64):
+        faster_from = None
+        for n in SWEEP_SIZES:
+            a, _ = device_operand(rng, n, dt, dev, "gaussian")
+            b7 = time_events_ms(lambda: qk.hessenberg_kernel(a), 1)
+            b11 = time_events_ms(lambda: hb.hessenberg_blocked_kernel(a), 1)
+            b9 = time_events_ms(lambda: qk.qr_decompose_kernel(a), 1)
+            lib = time_events_ms(lambda: torch.linalg.qr(a, mode="complete"), 1)
+            print(f"sweep {dt} {n} {b7:.3f} {b11:.3f} {b9:.3f} {lib:.3f}")
+            faster_from = (faster_from or n) if b11 < b7 else None
+            if n == QR_N and dt == torch.float32:
+                library["B9"] = lib
+        print(f"sweep {dt}: B11 faster than B7 from n = {faster_from} on; "
+              f"HESSENBERG_BLOCKED_MIN_N = {hs.HESSENBERG_BLOCKED_MIN_N}")
+    a, _ = device_operand(rng, FULL_N, torch.float32, dev, "gaussian")
+    for nb in (16, 32, 64):
+        ms = time_events_ms(lambda: hb.hessenberg_blocked_kernel(a, nb=nb), 1)
+        print(f"panel width {nb}: B11 float32 n={FULL_N} {ms:.3f} ms [{card_name}, {card_limit}]")
+    profile_breakdown("B11 float32 n=%d" % FULL_N, lambda: hb.hessenberg_blocked_kernel(a))
+    h = qk.hessenberg_plain(device_operand(rng, QR_SWEEP_N, torch.complex64, dev, "gaussian")[0])
+    library["B8"] = time_events_ms(lambda: torch.linalg.eigvals(h), 3)
+    full = time_events_ms(lambda: qk.qr_eig_kernel(h, 60 * QR_SWEEP_N, 1e-6), 3)
+    print(f"time B8 complex64 n={QR_SWEEP_N} to convergence: kernel {full:.3f} ms, "
+          f"torch.linalg.eigvals {library['B8']:.3f} ms [{card_name}, {card_limit}]")
+    return library
+
+
+def eigenpair_path_phase(eigsol, dev):
+    """Phase 10: ``qr_eigenvalues(compute_vectors=True)`` through the public
+    API on CUDA tensors. Every check raises on failure."""
+    import torch
+
+    rng = np.random.default_rng(40)
+    a32, d = device_operand(np.random.default_rng(0), QR_N, torch.float32, dev, "geometric")
+    a64c, dc = device_operand(np.random.default_rng(1), QR_N, torch.complex64, dev, "geometric")
+    g = np.random.default_rng(2).uniform(-1, 1, (QR_N, QR_N))
+    g32 = torch.from_numpy(g).to(dev, torch.float32)
+    g_eigs = np.linalg.eigvals(g32.double().cpu().numpy())
+    a_large, d_large = device_operand(rng, LARGE_N, torch.float32, dev, "geometric")
+    # eigenvalue limits as in phase 7; the residual is backward stable: one
+    # unit, 1e-6 n, of ||A||_2; unit columns to 1e-5
+    runs = {"(a) f32 symmetric 512": (a32, d, 1e-4),
+            "(b) c64 normal 512": (a64c, dc, 1e-4),
+            "(c) f32 non-symmetric 512": (g32, g_eigs, 5e-3),
+            f"(e) f32 symmetric {LARGE_N}": (a_large, d_large, 1e-4)}
+    torch.cuda.synchronize()
+    results, seconds = {}, {}
+    for name, (a, _, _) in runs.items():
+        opts = eigsol.QROptions(mode="accelerated", compute_vectors=True,
+                                max_iterations=20 * a.shape[0], tolerance=QR_TOL)
+        t0 = time.perf_counter()
+        results[name] = eigsol.qr_eigenvalues(eigsol.DenseMatrix(a), opts)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    for name, (a, want, limit) in runs.items():
+        r = results[name]
+        n = a.shape[0]
+        lam, V = r.eigenvalues, r.eigenvectors
+        check(V is not None and V.shape == (n, n) and V.device == a.device,
+              f"{name}: no eigenvectors beside the matrix")
+        check(bool(torch.isfinite(V).all()) and bool(torch.isfinite(lam).all()),
+              f"{name}: non-finite eigenpairs")
+        err = nearest_err(lam.cpu().numpy(), want)
+        ac = a.to(lam.dtype)
+        res = float((ac @ V - V * lam[None, :]).abs().square().sum(0).sqrt().max()) / \
+            float(torch.linalg.matrix_norm(ac, 2))
+        norm_err = float((V.abs().square().sum(0).sqrt() - 1).abs().max())
+        print(f"eigenpairs {name}: max eigenvalue error {err:.3e} (limit {limit:.0e}), "
+              f"max_k |A v_k - lambda_k v_k| / |A| {res:.3e} (limit {1e-6 * n:.1e}), "
+              f"| |v_k| - 1 | {norm_err:.1e}, {int(r.iterations)} sweeps, "
+              f"converged={bool(r.converged)}, {seconds[name]:.3f} s")
+        check(bool(r.converged), f"{name}: did not converge")
+        check(err <= limit, f"{name}: eigenvalue error {err:.3e} above {limit:.0e}")
+        check(res <= 1e-6 * n, f"{name}: residual {res:.3e} above {1e-6 * n:.1e}")
+        check(norm_err <= 1e-5, f"{name}: columns not of unit norm ({norm_err:.1e})")
+
+
+def to_hessenberg_phase(eigsol, dev, qk, hb):
+    """Phase 11: ``to_hessenberg`` through the public API at n = 4096 float32
+    and 2048 complex64. The launch counts are zeroed before and read after
+    each run; returns {tag: B11 launches}. The reduction is a unitary
+    similarity: exact zeros below the subdiagonal and ||H||_F = ||A||_F to
+    one unit (1e-6 n)."""
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers.hessenberg import (
+        HESSENBERG_BLOCKED_MIN_N)
+
+    rng = np.random.default_rng(50)
+    launches = {}
+    n_complex = max(LARGE_N, HESSENBERG_BLOCKED_MIN_N)
+    for tag, n, dt in (("B11", FULL_N, torch.float32), ("B12", n_complex, torch.complex64)):
+        a, _ = device_operand(rng, n, dt, dev, "gaussian")
+        torch.cuda.synchronize()
+        qk.reset_launch_counts()
+        t0 = time.perf_counter()
+        h = eigsol.to_hessenberg(eigsol.DenseMatrix(a))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[tag] = hb.hessenberg_blocked_kernel.launches
+        fro = abs(float(torch.linalg.matrix_norm(h.to(torch.complex128))) /
+                  float(torch.linalg.matrix_norm(a.to(torch.complex128))) - 1)
+        below = float(torch.tril(h, -2).abs().max())
+        print(f"to_hessenberg {dt} n={n}: {seconds:.3f} s, |H|_F / |A|_F - 1 = {fro:.2e} "
+              f"(limit {1e-6 * n:.1e}), max below subdiagonal {below}, launches "
+              f"{ {k.__name__: k.launches for k in qk.KERNELS} }")
+        check(launches[tag] == 1 and qk.hessenberg_kernel.launches == 0,
+              f"to_hessenberg {dt} n={n} did not run the blocked kernel")
+        check(below == 0.0 and fro <= 1e-6 * n, f"to_hessenberg {dt} n={n}: not a reduction")
+    return launches
+
+
 def qr_path_phase(eigsol, dev):
     """Phase 7: the QR path through the public API on CUDA tensors. Every
     check raises on failure."""
@@ -414,7 +779,10 @@ def main() -> None:
     from pcsc_eigenvalue_solver_project_tpu_torch.models.generators import banded_full
     from pcsc_eigenvalue_solver_project_tpu_torch.ops import _build
     from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import hessenberg_blocked as hb
     from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers.hessenberg import (
+        HESSENBERG_BLOCKED_MIN_N)
     from pcsc_eigenvalue_solver_project_tpu_torch.solvers.power import (
         norm, power_iteration_loop, vdot)
 
@@ -513,6 +881,17 @@ def main() -> None:
         print(f"launches in phase 3: {kernel.__name__} = {kernel.launches}")
         check(kernel.launches > 0, f"{kernel.__name__} never launched")
     card_name, card_limit = (s.strip() for s in card.splitlines()[0].split(","))
+    # the library call computing the same product: torch.sparse.mm on the
+    # band's CSR form (timed here only; the port never calls it)
+    library = {}
+    for tags, vals, x in ((("B1", "B2"), op32.data, x32), (("B3",), op64c.data, xc)):
+        csr = band_csr(vals, offs)
+        y_lib = torch.sparse.mm(csr, x[:, None])[:, 0]
+        print(f"library torch.sparse.mm (CSR) {vals.dtype} n={N}: rel err against the plain "
+              f"version {rel_err(y_lib, ds.dia_matvec_plain(vals, offs, x)):.2e}")
+        lib_ms = time_events_ms(lambda: torch.sparse.mm(csr, x[:, None]), reps=20)
+        library.update({tag: lib_ms for tag in tags})
+        del csr, y_lib
     for (kernel, dt), (k_ms, p_ms, nbytes) in timings.items():
         print(f"time {kernel} {dt} {N}x33: kernel {k_ms * 1e3:.1f} us "
               f"({nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s, "
@@ -633,29 +1012,89 @@ def main() -> None:
     torch.cuda.synchronize()
     qr_launches = {kernel.__name__: kernel.launches for kernel in qk.KERNELS}
     print(f"QR-path launches: {qr_launches}")
-    for name, count in qr_launches.items():
-        check(count > 0, f"{name} was not launched by the QR path")
+    for kernel in (qk.hessenberg_kernel, qk.qr_eig_kernel, qk.qr_decompose_kernel,
+                   qk.qr_parity_kernel):  # the eigenvalue path at 512 (B11, B14: phases 10-11)
+        check(kernel.launches > 0, f"{kernel.__name__} was not launched by the QR path")
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8. the blocked Hessenberg and eigenvector kernels -----------------
+    t0 = time.perf_counter()
+    blk_errors, blk_timings = blocked_kernel_phase(dev, card_name, card_limit)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 9. the boundary sweep and the library calls -----------------------
+    t0 = time.perf_counter()
+    library.update(boundary_sweep_phase(dev, card_name, card_limit))
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10. the eigenpair path --------------------------------------------
+    t0 = time.perf_counter()
+    qk.reset_launch_counts()
+    eigenpair_path_phase(eigsol, dev)
+    torch.cuda.synchronize()
+    pair_launches = {kernel.__name__: kernel.launches for kernel in qk.KERNELS}
+    print(f"eigenpair-path launches: {pair_launches}")
+    check(pair_launches["hessenberg_kernel"] + pair_launches["hessenberg_blocked_kernel"] > 0,
+          "no Hessenberg kernel was launched by the eigenpair path")
+    for name in ("qr_eig_kernel", "triangular_eigenvectors_kernel"):
+        check(pair_launches[name] > 0, f"{name} was not launched by the eigenpair path")
+    if HESSENBERG_BLOCKED_MIN_N <= LARGE_N:  # run (e)
+        check(pair_launches["hessenberg_blocked_kernel"] > 0,
+              "hessenberg_blocked_kernel was not launched by the eigenpair path")
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11. to_hessenberg on the blocked kernel ---------------------------
+    t0 = time.perf_counter()
+    hess_launches = to_hessenberg_phase(eigsol, dev, qk, hb)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
     # ---- report ------------------------------------------------------------
     rows = []
-    for kernel, tag, line, dt in ((ds.dia_il_kernel, "B1", 390, torch.float32),
-                                  (ds.dia_kernel, "B2", 36, torch.float32),
-                                  (ds.dia_complex_kernel, "B3", 73, torch.complex64)):
-        k_ms, p_ms, _ = timings[(tag, dt)]
-        rows.append({"name": kernel.__name__, "route": "cuda", "source": KERNEL_SOURCE,
-                     "replaces": f"{TPU_KERNELS}:{line}",
-                     "launches": launches[kernel.__name__],
-                     "max_abs_err": errors[tag], "ms": k_ms, "plain_ms": p_ms})
-    for kernel, tag, line, dt in ((qk.hessenberg_kernel, "B7", 55, torch.float32),
-                                  (qk.qr_eig_kernel, "B8", 293, torch.complex64),
-                                  (qk.qr_decompose_kernel, "B9", 756, torch.float32),
-                                  (qk.qr_parity_kernel, "B10", 797, torch.float32)):
+
+    def add_row(name, source, replaces, launch_count, err, k_ms, p_ms, nbytes, flops, tag):
+        bound_ms, bound_by = bound(nbytes, flops)
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launch_count, "max_abs_err": err, "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library.get(tag)})
+
+    nnz = len(offs) * N
+    for kernel, tag, line, dt, flops in ((ds.dia_il_kernel, "B1", 390, torch.float32, 2 * nnz),
+                                         (ds.dia_kernel, "B2", 36, torch.float32, 2 * nnz),
+                                         (ds.dia_complex_kernel, "B3", 73, torch.complex64,
+                                          8 * nnz)):
+        k_ms, p_ms, nbytes = timings[(tag, dt)]
+        add_row(kernel.__name__, KERNEL_SOURCE, f"{TPU_KERNELS}:{line}",
+                launches[kernel.__name__], errors[tag], k_ms, p_ms, nbytes, flops, tag)
+    # B7/B9 per call at 512 float32; B8 (complex64) and B10 (float32) per sweep
+    # at 128 (a call of 10 sweeps reads H once and writes it once)
+    n, m = QR_N, QR_SWEEP_N
+    for kernel, tag, line, dt, nbytes, flops in (
+            (qk.hessenberg_kernel, "B7", 55, torch.float32, 2 * 4 * n * n, 10 / 3 * n ** 3),
+            (qk.qr_eig_kernel, "B8", 293, torch.complex64, 2 * 8 * m * m / 10, 32 * m * m),
+            (qk.qr_decompose_kernel, "B9", 756, torch.float32, 3 * 4 * n * n, 8 / 3 * n ** 3),
+            (qk.qr_parity_kernel, "B10", 797, torch.float32, 2 * 4 * m * m / 10,
+             14 / 3 * m ** 3)):
         k_ms, p_ms, _ = qr_timings[(tag, dt)]
-        rows.append({"name": kernel.__name__, "route": "cuda", "source": QR_SOURCE,
-                     "replaces": f"{QR_TPU_KERNELS}:{line}",
-                     "launches": qr_launches[kernel.__name__],
-                     "max_abs_err": qr_errors[tag], "ms": k_ms, "plain_ms": p_ms})
+        add_row(kernel.__name__, QR_SOURCE, f"{QR_TPU_KERNELS}:{line}",
+                qr_launches[kernel.__name__], qr_errors[tag], k_ms, p_ms, nbytes, flops, tag)
+    # B11/B12 per call with Q (A read; H and Q written; 10/3 n^3 + 4/3 n^3
+    # real flops, four times that in complex); B14 per call (T read, Y
+    # written; n^3 / 6 complex multiply-adds)
+    for name, tag, source, replaces in (
+            ("hessenberg_blocked_kernel", "B11", HB_SOURCE, f"{HB_TPU_KERNELS}:97"),
+            ("hessenberg_blocked_kernel<complex64>", "B12", HB_SOURCE, f"{HB_TPU_KERNELS}:963"),
+            ("triangular_eigenvectors_kernel", "B14", TRI_SOURCE, f"{TRI_TPU_KERNELS}:72")):
+        k_ms, p_ms, n, dt = blk_timings[tag]
+        size, per_madd = (8, 8) if dt.is_complex else (4, 2)
+        if tag == "B14":
+            nbytes, flops = 2 * size * n * n, per_madd * n ** 3 / 6
+            launch_count = pair_launches["triangular_eigenvectors_kernel"]
+        else:
+            nbytes, flops = 3 * size * n * n, per_madd / 2 * 14 / 3 * n ** 3
+            launch_count = hess_launches[tag]
+        add_row(name, source, replaces, launch_count, blk_errors[tag], k_ms, p_ms, nbytes,
+                flops, tag)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -42,8 +42,10 @@ class QRResult:
     """Result of QR-based eigenvalue solvers (reference
     src/result/qr_result.hpp:23-44): all eigenvalues, the iteration count
     (``max_iterations + 1`` when the parity iteration never converges,
-    qr_eigenvalues.hpp:69,104) and the flag. ``eigenvectors`` stays None:
-    the reference's QRResult carries none."""
+    qr_eigenvalues.hpp:69,104) and the flag. ``eigenvectors`` (n x n,
+    unit columns, column k paired with ``eigenvalues[k]``) is set only by
+    ``QROptions(mode="accelerated", compute_vectors=True)``; the reference's
+    QRResult carries none."""
 
     eigenvalues: torch.Tensor  # (n,)
     iterations: torch.Tensor   # 0-d int32

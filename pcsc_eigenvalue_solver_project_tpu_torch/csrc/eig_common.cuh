@@ -1,0 +1,130 @@
+// Scalar arithmetic and small helpers shared by the dense kernels
+// (qr_kernels.cu, hessenberg_blocked.cu, trisolve_vec.cu).
+//
+// Each kernel is templated on float, double, float2 and double2: complex
+// values are (re, im) in (.x, .y), and a complex multiply-add is four FMAs
+// in the working precision (no tensor cores, so no TF32).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// Scalar-type codes shared with ops/_common.py (DTYPE_CODES).
+enum DTypeCode { kF32 = 0, kF64 = 2, kC64 = 3, kC128 = 4 };
+
+__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float dfma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double dfma(double a, double b, double c) { return fma(a, b, c); }
+
+template <typename R>
+struct RealOps {
+  using Real = R;
+  static __device__ __forceinline__ R zero() { return R(0); }
+  static __device__ __forceinline__ R one() { return R(1); }
+  static __device__ __forceinline__ R make(R re, R) { return re; }
+  static __device__ __forceinline__ R re(R a) { return a; }
+  static __device__ __forceinline__ R im(R) { return R(0); }
+  static __device__ __forceinline__ R abs2(R a) { return a * a; }
+  static __device__ __forceinline__ R conj(R a) { return a; }
+  static __device__ __forceinline__ R add(R a, R b) { return a + b; }
+  static __device__ __forceinline__ R sub(R a, R b) { return a - b; }
+  static __device__ __forceinline__ R scale(R a, R s) { return a * s; }
+  static __device__ __forceinline__ R divr(R a, R s) { return a / s; }
+  static __device__ __forceinline__ R madd(R acc, R a, R b) { return dfma(a, b, acc); }
+  static __device__ __forceinline__ R msub(R acc, R a, R b) { return dfma(-a, b, acc); }
+  static __device__ __forceinline__ R shfl_xor(R a, int m) {
+    return __shfl_xor_sync(0xffffffffu, a, m);
+  }
+};
+
+template <typename R, typename C>
+struct ComplexOps {
+  using Real = R;
+  static __device__ __forceinline__ C make(R re, R im) { C c; c.x = re; c.y = im; return c; }
+  static __device__ __forceinline__ C zero() { return make(R(0), R(0)); }
+  static __device__ __forceinline__ C one() { return make(R(1), R(0)); }
+  static __device__ __forceinline__ R re(C a) { return a.x; }
+  static __device__ __forceinline__ R im(C a) { return a.y; }
+  static __device__ __forceinline__ R abs2(C a) { return a.x * a.x + a.y * a.y; }
+  static __device__ __forceinline__ C conj(C a) { return make(a.x, -a.y); }
+  static __device__ __forceinline__ C add(C a, C b) { return make(a.x + b.x, a.y + b.y); }
+  static __device__ __forceinline__ C sub(C a, C b) { return make(a.x - b.x, a.y - b.y); }
+  static __device__ __forceinline__ C scale(C a, R s) { return make(a.x * s, a.y * s); }
+  static __device__ __forceinline__ C divr(C a, R s) { return make(a.x / s, a.y / s); }
+  // acc + a * b
+  static __device__ __forceinline__ C madd(C acc, C a, C b) {
+    acc.x = dfma(a.x, b.x, acc.x);
+    acc.x = dfma(-a.y, b.y, acc.x);
+    acc.y = dfma(a.x, b.y, acc.y);
+    acc.y = dfma(a.y, b.x, acc.y);
+    return acc;
+  }
+  // acc - a * b
+  static __device__ __forceinline__ C msub(C acc, C a, C b) {
+    acc.x = dfma(-a.x, b.x, acc.x);
+    acc.x = dfma(a.y, b.y, acc.x);
+    acc.y = dfma(-a.x, b.y, acc.y);
+    acc.y = dfma(-a.y, b.x, acc.y);
+    return acc;
+  }
+  static __device__ __forceinline__ C shfl_xor(C a, int m) {
+    return make(__shfl_xor_sync(0xffffffffu, a.x, m), __shfl_xor_sync(0xffffffffu, a.y, m));
+  }
+};
+
+template <typename T> struct Ops;
+template <> struct Ops<float> : RealOps<float> {};
+template <> struct Ops<double> : RealOps<double> {};
+template <> struct Ops<float2> : ComplexOps<float, float2> {};
+template <> struct Ops<double2> : ComplexOps<double, double2> {};
+
+template <typename T>
+__device__ __forceinline__ T warp_allsum(T v) {
+  using O = Ops<T>;
+  for (int m = 16; m > 0; m >>= 1) v = O::add(v, O::shfl_xor(v, m));
+  return v;
+}
+
+// Block-wide sum (max when take_max) of a real; the result is valid in
+// thread 0. `shared` holds at least 32 values.
+template <typename R>
+__device__ R block_reduce(R v, R* shared, bool take_max) {
+  for (int m = 16; m > 0; m >>= 1) {
+    const R o = __shfl_xor_sync(0xffffffffu, v, m);
+    v = take_max ? (o > v ? o : v) : v + o;
+  }
+  __syncthreads();  // `shared` may still be read from a previous call
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) shared[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < static_cast<int>((blockDim.x + 31) >> 5) ? shared[lane] : R(0);
+    for (int m = 16; m > 0; m >>= 1) {
+      const R o = __shfl_xor_sync(0xffffffffu, v, m);
+      v = take_max ? (o > v ? o : v) : v + o;
+    }
+  }
+  return v;
+}
+
+template <typename T>
+__global__ void eye_kernel(T* __restrict__ Q, int64_t n) {
+  using O = Ops<T>;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e < n * n) Q[e] = e / n == e % n ? O::one() : O::zero();
+}
+
+inline unsigned blocks_for(int64_t count, int per_block) {
+  return static_cast<unsigned>((count + per_block - 1) / per_block);
+}
+
+inline int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+}  // namespace

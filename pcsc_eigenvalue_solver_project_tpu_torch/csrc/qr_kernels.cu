@@ -45,13 +45,10 @@
 // launches on the caller's stream and returns the first CUDA error (0 on
 // success), checked after every launch.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "eig_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kTileCols = 32;               // left update: columns per block
 constexpr int kTileRows = kThreads / 32;    // left update: row lanes per block
 constexpr int kEigThreads = 512;            // B8: the one block
@@ -60,100 +57,6 @@ constexpr int kReduceThreads = 1024;
 
 // B10 device state (doubles): sweeps done, converged, done, last maxsub.
 enum ParityState { kIt = 0, kConverged = 1, kDone = 2, kMaxsub = 3 };
-
-// ---- scalar arithmetic ----------------------------------------------------
-
-__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float dfma(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double dfma(double a, double b, double c) { return fma(a, b, c); }
-
-template <typename R>
-struct RealOps {
-  using Real = R;
-  static __device__ __forceinline__ R zero() { return R(0); }
-  static __device__ __forceinline__ R one() { return R(1); }
-  static __device__ __forceinline__ R make(R re, R) { return re; }
-  static __device__ __forceinline__ R re(R a) { return a; }
-  static __device__ __forceinline__ R abs2(R a) { return a * a; }
-  static __device__ __forceinline__ R conj(R a) { return a; }
-  static __device__ __forceinline__ R sub(R a, R b) { return a - b; }
-  static __device__ __forceinline__ R scale(R a, R s) { return a * s; }
-  static __device__ __forceinline__ R divr(R a, R s) { return a / s; }
-  static __device__ __forceinline__ R madd(R acc, R a, R b) { return dfma(a, b, acc); }
-  static __device__ __forceinline__ R msub(R acc, R a, R b) { return dfma(-a, b, acc); }
-  static __device__ __forceinline__ R shfl_xor(R a, int m) {
-    return __shfl_xor_sync(0xffffffffu, a, m);
-  }
-};
-
-template <typename R, typename C>
-struct ComplexOps {
-  using Real = R;
-  static __device__ __forceinline__ C make(R re, R im) { C c; c.x = re; c.y = im; return c; }
-  static __device__ __forceinline__ C zero() { return make(R(0), R(0)); }
-  static __device__ __forceinline__ C one() { return make(R(1), R(0)); }
-  static __device__ __forceinline__ R re(C a) { return a.x; }
-  static __device__ __forceinline__ R abs2(C a) { return a.x * a.x + a.y * a.y; }
-  static __device__ __forceinline__ C conj(C a) { return make(a.x, -a.y); }
-  static __device__ __forceinline__ C sub(C a, C b) { return make(a.x - b.x, a.y - b.y); }
-  static __device__ __forceinline__ C scale(C a, R s) { return make(a.x * s, a.y * s); }
-  static __device__ __forceinline__ C divr(C a, R s) { return make(a.x / s, a.y / s); }
-  // acc + a * b
-  static __device__ __forceinline__ C madd(C acc, C a, C b) {
-    acc.x = dfma(a.x, b.x, acc.x);
-    acc.x = dfma(-a.y, b.y, acc.x);
-    acc.y = dfma(a.x, b.y, acc.y);
-    acc.y = dfma(a.y, b.x, acc.y);
-    return acc;
-  }
-  // acc - a * b
-  static __device__ __forceinline__ C msub(C acc, C a, C b) {
-    acc.x = dfma(-a.x, b.x, acc.x);
-    acc.x = dfma(a.y, b.y, acc.x);
-    acc.y = dfma(-a.x, b.y, acc.y);
-    acc.y = dfma(-a.y, b.x, acc.y);
-    return acc;
-  }
-  static __device__ __forceinline__ C shfl_xor(C a, int m) {
-    return make(__shfl_xor_sync(0xffffffffu, a.x, m), __shfl_xor_sync(0xffffffffu, a.y, m));
-  }
-};
-
-template <typename T> struct Ops;
-template <> struct Ops<float> : RealOps<float> {};
-template <> struct Ops<double> : RealOps<double> {};
-template <> struct Ops<float2> : ComplexOps<float, float2> {};
-template <> struct Ops<double2> : ComplexOps<double, double2> {};
-
-template <typename T>
-__device__ __forceinline__ T warp_allsum(T v) {
-  using O = Ops<T>;
-  for (int m = 16; m > 0; m >>= 1) v = O::madd(v, O::one(), O::shfl_xor(v, m));
-  return v;
-}
-
-// Block-wide sum (max when take_max) of a real; the result is valid in
-// thread 0. `shared` holds at least 32 values.
-template <typename R>
-__device__ R block_reduce(R v, R* shared, bool take_max) {
-  for (int m = 16; m > 0; m >>= 1) {
-    const R o = __shfl_xor_sync(0xffffffffu, v, m);
-    v = take_max ? (o > v ? o : v) : v + o;
-  }
-  __syncthreads();  // `shared` may still be read from a previous call
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) shared[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < static_cast<int>((blockDim.x + 31) >> 5) ? shared[lane] : R(0);
-    for (int m = 16; m > 0; m >>= 1) {
-      const R o = __shfl_xor_sync(0xffffffffu, v, m);
-      v = take_max ? (o > v ? o : v) : v + o;
-    }
-  }
-  return v;
-}
 
 __device__ __forceinline__ bool stopped(const double* state) {
   return state != nullptr && state[kDone] != 0.0;
@@ -249,19 +152,6 @@ right_update_kernel(T* __restrict__ M0, T* __restrict__ M1, int64_t n, int64_t s
   const T fu = O::scale(warp_allsum(u), O::re(v[n]));
   for (int64_t j = s + lane; j < n; j += 32) M[j] = O::msub(M[j], fu, O::conj(v[j]));
 }
-
-template <typename T>
-__global__ void eye_kernel(T* __restrict__ Q, int64_t n) {
-  using O = Ops<T>;
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e < n * n) Q[e] = e / n == e % n ? O::one() : O::zero();
-}
-
-unsigned blocks_for(int64_t count, int per_block) {
-  return static_cast<unsigned>((count + per_block - 1) / per_block);
-}
-
-int last_error() { return static_cast<int>(cudaGetLastError()); }
 
 // One column step: reflector from column k with pivot row s, left update of
 // `left` (rows >= s, columns >= k), right update of `right0` (and `right1`)
@@ -588,9 +478,6 @@ int run_parity(const T* h_in, T* h, T* r, T* q, T* v, double* state, int64_t n, 
   }
   return 0;
 }
-
-// Scalar-type codes shared with ops/qr_kernels.py (_DTYPE_CODES).
-enum DTypeCode { kF32 = 0, kF64 = 2, kC64 = 3, kC128 = 4 };
 
 }  // namespace
 

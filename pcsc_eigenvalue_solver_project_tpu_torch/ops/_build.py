@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels at first use.
 
-The sources are ``csrc/*.cu``. Each is compiled by its own ``nvcc`` for
-Hopper (``sm_90a``), all at once, and the objects are linked into one shared
+The sources are ``csrc/*.cu`` and the headers they include,
+``csrc/*.cuh``. Each ``.cu`` is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared
 library with a plain C interface, which is loaded with ctypes. Nothing
 happens at import: the first CUDA launch calls ``load()``. The library's file
 name carries a hash of the sources and the flags, so an edited source is
@@ -30,8 +31,14 @@ _lib = None
 
 
 def sources() -> list:
+    """Every file the library is built from: the ``.cu`` files and headers."""
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
                   + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def compiled_sources() -> list:
+    """The ``.cu`` files, one nvcc each; headers enter through them."""
+    return [path for path in sources() if path.endswith(".cu")]
 
 
 def library_path() -> str:
@@ -82,10 +89,10 @@ def build() -> str:
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}"
-    objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    objects = [f"{tmp}.{os.path.basename(src)}.o" for src in compiled_sources()]
     try:
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
-                  for src, obj in zip(sources(), objects)])
+                  for src, obj in zip(compiled_sources(), objects)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.so", *objects]])
         os.replace(f"{tmp}.so", path)  # atomic: concurrent builders never see half a file
     finally:
@@ -123,6 +130,12 @@ def load() -> ctypes.CDLL:
             lib.qr_parity_sweeps.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32,
                                              f64, i32, ptr]
             lib.qr_parity_sweeps.restype = i32
+            # dtype, device, a, h, q, scratch, n, nb, stream
+            lib.hessenberg_blocked.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, i32, ptr]
+            lib.hessenberg_blocked.restype = i32
+            # dtype, device, t, y, racc, counts, n, eps, stream
+            lib.trisolve_eigenvectors.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, f64, ptr]
+            lib.trisolve_eigenvectors.restype = i32
             lib.dia_cuda_error_string.argtypes = [i32]
             lib.dia_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

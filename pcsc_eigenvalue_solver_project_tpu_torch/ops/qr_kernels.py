@@ -12,6 +12,10 @@ all in ``csrc/qr_kernels.cu`` (see its header for the design):
   QR of ``H`` each sweep, then ``H := R Q``) until
   ``max|H[i,i-1]| <= tol * (1 + ||H||_F)``.
 
+The blocked Hessenberg reduction B11 (``ops/hessenberg_blocked.py``) and the
+triangular eigenvectors B14 (``ops/trisolve_vec.py``) have modules of their
+own; ``KERNELS`` lists all six.
+
 The functions take native ``(n, n)`` tensors of float32, float64, complex64
 or complex128 (B8: complex only). The TPU's split re/im planes, its
 128-lane padding and its in-kernel transposes are TPU layout and have no
@@ -30,73 +34,33 @@ normalisation, B8's ``[lo, hi)`` window), not the XLA solver loops of
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
+from ._common import (COMPLEX_CODES, DTYPE_CODES, abs2, check_square, eye, ptr,
+                      raise_on_error, real_dtype, reflector, stream)
+from .hessenberg_blocked import hessenberg_blocked, hessenberg_blocked_kernel
+from .trisolve_vec import triangular_eigenvectors_device, triangular_eigenvectors_kernel
 
-# Scalar-type codes of csrc/qr_kernels.cu (the codes of csrc/dia_spmv.cu).
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 2,
-                torch.complex64: 3, torch.complex128: 4}
-_COMPLEX_CODES = {torch.complex64: 3, torch.complex128: 4}
 # B10 enqueues sweeps in chunks of about this many launches and reads its
 # device-side ``done`` flag once per chunk.
 PARITY_LAUNCHES_PER_READ = 8192
-
-
-def _abs2(x: torch.Tensor) -> torch.Tensor:
-    """|x|^2 elementwise, as re^2 + im^2 for complex tensors."""
-    if x.is_complex():
-        return x.real.square() + x.imag.square()
-    return x.square()
-
-
-def _real_dtype(dtype: torch.dtype) -> torch.dtype:
-    return dtype.to_real() if dtype.is_complex else dtype
-
-
-def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
 # --------------------------------------------------------------------------
 # Plain PyTorch versions (what the Pallas kernels compute)
 # --------------------------------------------------------------------------
 
-def _reflector(col: torch.Tensor, s: int):
-    """The Householder column step of the Pallas kernels on column ``col``
-    with pivot row ``s`` (Hessenberg: s = k + 1; QR: s = k): the unit
-    reflector ``v`` (zero above row ``s``) and the update factor, 2 or 0.
-
-    The factor is 0 when the column is already zero below the pivot (the
-    tail-zero skip) or the reflector degenerates (``||v|| = 0``). The sign
-    is the phase ``x0/|x0|`` of the pivot, 1 when it is 0
-    (qr_kernels.py:97-130, :676-702)."""
-    n = col.shape[0]
-    rows = torch.arange(n, device=col.device)
-    x = torch.where(rows >= s, col, 0)
-    norm_x = _abs2(x).sum().sqrt()
-    tail_zero = _abs2(col[s + 1:]).sum() == 0
-    x0 = col[s]
-    m0 = _abs2(x0).sqrt()
-    has0 = m0 > 0
-    sign = torch.where(has0, x0 / torch.where(has0, m0, 1), 1)
-    v = x + (sign * norm_x) * (rows == s)
-    vn2 = _abs2(v).sum()
-    degenerate = vn2 == 0
-    v = v * torch.rsqrt(torch.where(degenerate, 1, vn2))
-    factor = torch.where(tail_zero | degenerate, 0.0, 2.0).to(_real_dtype(col.dtype))
-    return v, factor
-
-
 def hessenberg_plain(a: torch.Tensor, accumulate_q: bool = False):
     """B7's plain version: ``H`` (and ``Q`` with ``A = Q H Q^H`` when
     ``accumulate_q``). The left update is restricted to columns >= k."""
     n = a.shape[0]
     H = a.clone()
-    Q = _eye(n, a) if accumulate_q else None
+    Q = eye(n, a) if accumulate_q else None
     cols = torch.arange(n, device=a.device)
     for k in range(n - 2):
-        v, f = _reflector(H[:, k], k + 1)
+        v, f = reflector(H[:, k], k + 1)
         w = torch.where(cols >= k, v.conj() @ H, 0)
         H = H - f * torch.outer(v, w)
         H = H - f * torch.outer(H @ v, v.conj())
@@ -107,7 +71,7 @@ def hessenberg_plain(a: torch.Tensor, accumulate_q: bool = False):
 
 def _qr_step(R: torch.Tensor, Q: torch.Tensor, k: int):
     """One Householder column step of ``A = Q R`` (qr_kernels.py:653-753)."""
-    v, f = _reflector(R[:, k], k)
+    v, f = reflector(R[:, k], k)
     cols = torch.arange(R.shape[1], device=R.device)
     w = torch.where(cols >= k, v.conj() @ R, 0)
     return R - f * torch.outer(v, w), Q - f * torch.outer(Q @ v, v.conj())
@@ -117,7 +81,7 @@ def qr_decompose_plain(a: torch.Tensor, kmax: int | None = None):
     """B9's plain version: ``(R, Q)`` with ``A = Q R`` after ``kmax``
     column steps (default n)."""
     n = a.shape[0]
-    R, Q = a.clone(), _eye(n, a)
+    R, Q = a.clone(), eye(n, a)
     for k in range(n if kmax is None else kmax):
         R, Q = _qr_step(R, Q, k)
     return R, Q
@@ -150,8 +114,8 @@ def _deflate_and_lo(H: torch.Tensor, hi: int, tol: torch.Tensor):
     n = H.shape[0]
     if n < 2:
         return 1, 0
-    smag = _abs2(H.diagonal(-1)).sqrt()
-    dmag = _abs2(H.diagonal()).sqrt()
+    smag = abs2(H.diagonal(-1)).sqrt()
+    dmag = abs2(H.diagonal()).sqrt()
     neg = smag <= tol * torch.clamp(dmag[:-1] + dmag[1:], min=1.0)
     c = torch.arange(n - 1, device=H.device)
     new_hi = int(torch.where((c < hi - 1) & ~neg, c, -1).max()) + 2
@@ -171,8 +135,8 @@ def qr_eig_plain(h: torch.Tensor, max_sweeps: int, tol: float,
     all rows, ``+ mu I``, and the new ``hi`` and ``lo``."""
     n = h.shape[0]
     H = h.clone()
-    Q = _eye(n, h) if accumulate_q else None
-    tol_t = torch.tensor(tol, dtype=_real_dtype(h.dtype), device=h.device)
+    Q = eye(n, h) if accumulate_q else None
+    tol_t = torch.tensor(tol, dtype=real_dtype(h.dtype), device=h.device)
     one = torch.ones((), dtype=h.dtype, device=h.device)
     hi, lo = _deflate_and_lo(H, n, tol_t)
     sweeps = 0
@@ -184,7 +148,7 @@ def qr_eig_plain(h: torch.Tensor, max_sweeps: int, tol: float,
         rotations = []
         for k in range(lo, hi - 1):
             x, y = H[k, k], H[k + 1, k]
-            r2 = _abs2(x) + _abs2(y)
+            r2 = abs2(x) + abs2(y)
             zero = r2 == 0
             rinv = torch.rsqrt(torch.where(zero, 1, r2))
             g00 = torch.where(zero, one, x.conj() * rinv)
@@ -212,14 +176,14 @@ def qr_parity_plain(h: torch.Tensor, max_iterations: int, tol: float):
     or ``max_iterations`` sweeps. Returns ``(H, it, converged, maxsub)``;
     the caller applies the reference's iteration-count quirk."""
     n = h.shape[0]
-    tol_t = torch.tensor(tol, dtype=_real_dtype(h.dtype), device=h.device)
+    tol_t = torch.tensor(tol, dtype=real_dtype(h.dtype), device=h.device)
     H = h.clone()
     maxsub = torch.zeros((), dtype=tol_t.dtype, device=h.device)
     it, converged = 0, False
     while it < max_iterations and not converged:
         R, Q = qr_decompose_plain(H)
         H = R @ Q
-        mag2 = _abs2(H)
+        mag2 = abs2(H)
         maxsub = mag2.diagonal(-1).max().sqrt() if n > 1 else torch.zeros_like(maxsub)
         converged = bool(maxsub <= tol_t * (1.0 + mag2.sum().sqrt()))
         it += 1
@@ -231,44 +195,17 @@ def qr_parity_plain(h: torch.Tensor, max_iterations: int, tol: float):
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
-def _check_square(name: str, a: torch.Tensor, codes: dict) -> int:
-    if a.device.type != "cuda":
-        raise ValueError(f"{name}: matrix on {a.device}, expected a CUDA device")
-    if a.dtype not in codes:
-        raise TypeError(f"{name}: unsupported dtype {a.dtype} "
-                        f"(takes {', '.join(str(d) for d in codes)})")
-    if a.ndim != 2 or a.shape[0] != a.shape[1]:
-        raise ValueError(f"{name}: expected a square (n, n) matrix, got {tuple(a.shape)}")
-    if not a.is_contiguous():
-        raise ValueError(f"{name}: matrix must be contiguous")
-    return codes[a.dtype]
-
-
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on_error(name: str, lib, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed ({rc}): "
-                           f"{lib.dia_cuda_error_string(rc).decode()}")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def hessenberg_kernel(a: torch.Tensor, accumulate_q: bool = False):
     """B7 on the card: ``H`` (and ``Q``) of a square CUDA matrix."""
-    code = _check_square("hessenberg_kernel", a, _DTYPE_CODES)
+    code = check_square("hessenberg_kernel", a, DTYPE_CODES)
     n = a.shape[0]
     lib = _build.load()
     h = torch.empty_like(a)
     q = torch.empty_like(a) if accumulate_q else None
     scratch = torch.empty(n + 1, dtype=a.dtype, device=a.device)
-    rc = lib.qr_hessenberg(code, a.device.index, a.data_ptr(), h.data_ptr(), _ptr(q),
-                           scratch.data_ptr(), n, _stream(a))
-    _raise_on_error("hessenberg_kernel", lib, rc)
+    rc = lib.qr_hessenberg(code, a.device.index, a.data_ptr(), h.data_ptr(), ptr(q),
+                           scratch.data_ptr(), n, stream(a))
+    raise_on_error("hessenberg_kernel", lib, rc)
     hessenberg_kernel.launches += 1
     return (h, q) if accumulate_q else h
 
@@ -281,7 +218,7 @@ def qr_eig_kernel(h: torch.Tensor, max_sweeps: int, tol: float,
     """B8 on the card: the shifted Givens iteration on a complex64 or
     complex128 Hessenberg matrix. Returns ``(eigenvalues, sweeps, hi)`` as
     device tensors, plus ``(T, Q)`` when ``accumulate_q``."""
-    code = _check_square("qr_eig_kernel", h, _COMPLEX_CODES)
+    code = check_square("qr_eig_kernel", h, COMPLEX_CODES)
     n = h.shape[0]
     if not 0 <= max_sweeps < 2 ** 31:
         raise ValueError(f"qr_eig_kernel: max_sweeps {max_sweeps} out of int32 range")
@@ -291,10 +228,10 @@ def qr_eig_kernel(h: torch.Tensor, max_sweeps: int, tol: float,
     rot = torch.empty(2 * max(n - 1, 1), dtype=h.dtype, device=h.device)
     eig = torch.empty(n, dtype=h.dtype, device=h.device)
     state = torch.empty(2, dtype=torch.int32, device=h.device)
-    rc = lib.qr_eig_givens(code, h.device.index, h.data_ptr(), t.data_ptr(), _ptr(q),
+    rc = lib.qr_eig_givens(code, h.device.index, h.data_ptr(), t.data_ptr(), ptr(q),
                            rot.data_ptr(), eig.data_ptr(), state.data_ptr(), n,
-                           int(max_sweeps), float(tol), _stream(h))
-    _raise_on_error("qr_eig_kernel", lib, rc)
+                           int(max_sweeps), float(tol), stream(h))
+    raise_on_error("qr_eig_kernel", lib, rc)
     qr_eig_kernel.launches += 1
     out = (eig, state[0], state[1])
     return out + (t, q) if accumulate_q else out
@@ -306,7 +243,7 @@ qr_eig_kernel.launches = 0
 def qr_decompose_kernel(a: torch.Tensor, kmax: int | None = None):
     """B9 on the card: ``(R, Q)`` with ``A = Q R`` of a square CUDA matrix
     after ``kmax`` column steps (default n)."""
-    code = _check_square("qr_decompose_kernel", a, _DTYPE_CODES)
+    code = check_square("qr_decompose_kernel", a, DTYPE_CODES)
     n = a.shape[0]
     kmax = n if kmax is None else int(kmax)
     if not 0 <= kmax <= n:
@@ -315,8 +252,8 @@ def qr_decompose_kernel(a: torch.Tensor, kmax: int | None = None):
     r, q = torch.empty_like(a), torch.empty_like(a)
     scratch = torch.empty(n + 1, dtype=a.dtype, device=a.device)
     rc = lib.qr_householder(code, a.device.index, a.data_ptr(), r.data_ptr(), q.data_ptr(),
-                            scratch.data_ptr(), n, kmax, _stream(a))
-    _raise_on_error("qr_decompose_kernel", lib, rc)
+                            scratch.data_ptr(), n, kmax, stream(a))
+    raise_on_error("qr_decompose_kernel", lib, rc)
     qr_decompose_kernel.launches += 1
     return r, q
 
@@ -329,7 +266,7 @@ def qr_parity_kernel(h: torch.Tensor, max_iterations: int, tol: float):
     ``(H, it, converged, maxsub)`` as device tensors. The iteration counter
     and the flags live on the device; the host reads ``done`` once per chunk
     of about ``PARITY_LAUNCHES_PER_READ`` launches."""
-    code = _check_square("qr_parity_kernel", h, _DTYPE_CODES)
+    code = check_square("qr_parity_kernel", h, DTYPE_CODES)
     n = h.shape[0]
     if not 0 <= max_iterations < 2 ** 31:
         raise ValueError(f"qr_parity_kernel: max_iterations {max_iterations} "
@@ -342,16 +279,17 @@ def qr_parity_kernel(h: torch.Tensor, max_iterations: int, tol: float):
     rc = lib.qr_parity_sweeps(code, h.device.index, h.data_ptr(), out.data_ptr(),
                               r.data_ptr(), q.data_ptr(), scratch.data_ptr(),
                               state.data_ptr(), n, int(max_iterations), float(tol),
-                              chunk, _stream(h))
-    _raise_on_error("qr_parity_kernel", lib, rc)
+                              chunk, stream(h))
+    raise_on_error("qr_parity_kernel", lib, rc)
     qr_parity_kernel.launches += 1
     return (out, state[0].to(torch.int32), state[1] != 0,
-            state[3].to(_real_dtype(h.dtype)))
+            state[3].to(real_dtype(h.dtype)))
 
 
 qr_parity_kernel.launches = 0
 
-KERNELS = (hessenberg_kernel, qr_eig_kernel, qr_decompose_kernel, qr_parity_kernel)
+KERNELS = (hessenberg_kernel, qr_eig_kernel, qr_decompose_kernel, qr_parity_kernel,
+           hessenberg_blocked_kernel, triangular_eigenvectors_kernel)
 
 
 def reset_launch_counts() -> None:
@@ -364,7 +302,12 @@ def reset_launch_counts() -> None:
 # --------------------------------------------------------------------------
 
 def hessenberg_reduce(a: torch.Tensor, accumulate_q: bool = False):
-    """Householder Hessenberg reduction (B7)."""
+    """Householder Hessenberg reduction: the blocked B11 at
+    ``n >= HESSENBERG_BLOCKED_MIN_N`` (``solvers/hessenberg.py``), the
+    unblocked B7 below it."""
+    from ..solvers import hessenberg
+    if a.shape[0] >= hessenberg.HESSENBERG_BLOCKED_MIN_N:
+        return hessenberg_blocked(a, accumulate_q)
     if a.device.type == "cpu":
         return hessenberg_plain(a, accumulate_q)
     return hessenberg_kernel(a, accumulate_q)
@@ -414,3 +357,57 @@ def parity_eigenvalues(a: torch.Tensor, max_iterations: int, tol: float):
     conv = bool(conv)
     iterations = int(it) if conv else max_iterations + 1
     return h.diagonal().clone(), iterations, conv, float(maxsub)
+
+
+def triangular_eigenvectors(T: np.ndarray, source_real_dtype=np.float32) -> np.ndarray:
+    """Eigenvectors of an upper-triangular matrix by back-substitution, in
+    numpy: the host oracle of B14 (JAX ``qr_kernels.py:621-646``).
+
+    Column k solves ``(T - T[k,k] I) y = 0`` with ``y[k] = 1`` and zeros
+    below; pivots below ``eps`` of ``source_real_dtype`` (the precision the
+    Schur form was computed in) times ``max(max|T|, 1)`` are set to that eps.
+    T is taken as complex128."""
+    n = T.shape[0]
+    V = np.zeros((n, n), np.complex128)
+    diag = np.diagonal(T)
+    scale = max(np.abs(T).max(), 1.0) if n else 1.0
+    eps = np.finfo(np.dtype(source_real_dtype)).eps * scale
+    for k in range(n):
+        lam = diag[k]
+        y = np.zeros(n, np.complex128)
+        y[k] = 1.0
+        for i in range(k - 1, -1, -1):
+            denom = diag[i] - lam
+            if abs(denom) < eps:
+                denom = eps
+            y[i] = -(T[i, i + 1:k + 1] @ y[i + 1:k + 1]) / denom
+        V[:, k] = y
+    return V
+
+
+def finish_eigenvectors_device(T: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """Eigenvectors from the Schur form ``A = Q T Q^H`` (JAX
+    ``qr_kernels.py:537-554``): ``Y`` from B14 with
+    ``eps = finfo(real dtype).eps * max(max|T|, 1)``, ``V = Q Y`` (a plain
+    product, as the JAX package leaves it to XLA), columns normalised with
+    a floor of 1e-30. Column k pairs with ``T[k, k]``."""
+    rdt = real_dtype(T.dtype)
+    scale = max(float(abs2(T).max().sqrt()), 1.0) if T.numel() else 1.0
+    eps = torch.finfo(rdt).eps * scale
+    V = Q @ triangular_eigenvectors_device(T, eps)
+    return V / abs2(V).sum(dim=0).sqrt().clamp_min(1e-30)
+
+
+def accelerated_eigenpairs(a: torch.Tensor, max_sweeps: int, tol: float):
+    """Counterpart of ``qr_eigenvalues_pallas(compute_vectors=True)``
+    (JAX ``qr_kernels.py:604-618``): the Hessenberg reduction with Q (B7 or
+    B11), the shifted sweeps with Schur Q (B8), ``Qh Qs`` and the
+    eigenvectors (B14). A real matrix reduces in its real dtype and is
+    widened to the complex dtype of its precision for B8. Returns
+    ``(eigenvalues, sweeps, converged, V)``; column k of ``V`` pairs with
+    ``eigenvalues[k]``."""
+    h, qh = hessenberg_reduce(a, accumulate_q=True)
+    if not h.is_complex():
+        h, qh = h.to(h.dtype.to_complex()), qh.to(qh.dtype.to_complex())
+    eig, sweeps, hi, t, qs = qr_eig_sweeps(h, max_sweeps, tol, accumulate_q=True)
+    return eig, int(sweeps), int(hi) <= 1, finish_eigenvectors_device(t, qh @ qs)

@@ -10,9 +10,10 @@ exactly like the reference (:104-106).
 
 ``hessenberg_dense`` is the JAX package's XLA column loop, here a torch loop
 with the same masks; ``qr_eigenvalues`` runs it on CPU tensors.
-``to_hessenberg`` goes through the B7 dispatcher ``hessenberg_reduce``
-(``ops/qr_kernels.py``): kernel B7 on CUDA tensors at every n, its plain
-version on CPU tensors.
+``to_hessenberg`` goes through the dispatcher ``hessenberg_reduce``
+(``ops/qr_kernels.py``): the blocked kernel B11 at
+``n >= HESSENBERG_BLOCKED_MIN_N``, the unblocked B7 below it, on CUDA
+tensors; their plain versions, with the same boundary, on CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +23,14 @@ import torch
 
 from ..core.dtypes import check_scalar_type
 from ..matrix.protocol import AbstractMatrix
+
+
+# The n from which a Hessenberg reduction runs the blocked B11 rather than
+# the unblocked B7. chip_smoke.py's sweep on an H100 (700 W) had B11 ahead
+# from n = 1024 on in float32 and complex64 alike (19.1 against 19.3 ms and
+# 24.8 against 30.2 ms there, 55 against 88 ms and 77 against 126 ms at
+# 2048) and behind at 256 and 512 (PERF.md).
+HESSENBERG_BLOCKED_MIN_N = 1024
 
 
 def vector_norm(x: torch.Tensor) -> torch.Tensor:

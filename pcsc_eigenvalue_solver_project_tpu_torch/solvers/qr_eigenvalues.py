@@ -17,13 +17,17 @@ converge (the reference's real unshifted iteration cannot separate them).
 Where it runs (``qr_dispatch``): a CPU tensor takes the JAX package's CPU
 route — parity through ``_qr_eigenvalues_parity``, accelerated through the
 real Francis iteration for real input and complex Givens sweeps for complex
-input — so the CPU tests compare like with like. A CUDA tensor takes the
-kernels for every dtype: parity runs B7 then B10, accelerated B7 then B8
+input, eigenpairs through ``_qr_eigenvectors_xla`` — so the CPU tests
+compare like with like. A CUDA tensor takes the kernels for every dtype:
+parity runs the Hessenberg reduction (B7, or B11 from
+``HESSENBERG_BLOCKED_MIN_N`` on) then B10, accelerated the reduction then
+B8, and eigenpairs the reduction and B8 with Q, then B14
 (``ops/qr_kernels.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.dtypes import check_scalar_type, complex_dtype_of, real_dtype_of
@@ -68,11 +72,13 @@ def _qr_eigenvalues_parity(a: torch.Tensor, max_iterations: int, tol: float) -> 
 # accelerated mode, complex arithmetic: Givens sweeps + Wilkinson shift
 # ---------------------------------------------------------------------------
 
-def _givens_sweep(H: torch.Tensor, hi: int, shift: torch.Tensor) -> torch.Tensor:
+def _givens_sweep_q(H: torch.Tensor, Q, hi: int, shift: torch.Tensor):
     """One shifted QR sweep on the active window H[:hi, :hi] via Givens.
 
     Computes ``H - shift I = Q R`` with hi-1 Givens rotations (only the
-    Hessenberg subdiagonal needs elimination), then ``R Q + shift I``."""
+    Hessenberg subdiagonal needs elimination), then ``R Q + shift I``. When
+    ``Q`` is given (not None) it is right-multiplied by the sweep's rotations
+    too, so that ``A = Q H Q^H`` stays invariant. Returns ``(H, Q)``."""
     n = H.shape[0]
     one = torch.ones((), dtype=H.dtype, device=H.device)
     diag_shift = torch.diag(torch.where(torch.arange(n, device=H.device) < hi, shift, 0))
@@ -89,11 +95,14 @@ def _givens_sweep(H: torch.Tensor, hi: int, shift: torch.Tensor) -> torch.Tensor
         H[k] = g00 * row_k + g01 * row_k1
         H[k + 1] = -g01.conj() * row_k + g00.conj() * row_k1
         rotations.append((g00, g01))
-    for k, (g00, g01) in enumerate(rotations):
-        ck, ck1 = H[:, k].clone(), H[:, k + 1].clone()
-        H[:, k] = g00.conj() * ck + g01.conj() * ck1
-        H[:, k + 1] = -g01 * ck + g00 * ck1
-    return H + diag_shift
+    if Q is not None:
+        Q = Q.clone()
+    for M in (H,) if Q is None else (H, Q):
+        for k, (g00, g01) in enumerate(rotations):
+            ck, ck1 = M[:, k].clone(), M[:, k + 1].clone()
+            M[:, k] = g00.conj() * ck + g01.conj() * ck1
+            M[:, k + 1] = -g01 * ck + g00 * ck1
+    return H + diag_shift, Q
 
 
 def _wilkinson_shift(H: torch.Tensor, hi: int) -> torch.Tensor:
@@ -106,11 +115,12 @@ def _wilkinson_shift(H: torch.Tensor, hi: int) -> torch.Tensor:
     return torch.where(torch.abs(mu_plus - d) < torch.abs(mu_minus - d), mu_plus, mu_minus)
 
 
-def _qr_eigenvalues_accel(H0: torch.Tensor, max_sweeps: int, tol: float) -> QRResult:
-    """Input MUST already be upper Hessenberg and complex."""
+def _qr_eigenvalues_accel_schur(H0: torch.Tensor, max_sweeps: int, tol: float,
+                                with_q: bool = True):
+    """Shifted Givens sweeps with deflation on a complex Hessenberg ``H0``.
+    Returns ``(T, Q, sweeps, hi)`` with ``H0 = Q T Q^H`` (``Q`` None unless
+    ``with_q``); converged when ``hi <= 1``."""
     n = H0.shape[0]
-    if n <= 1:
-        return _result(torch.diagonal(H0).clone(), 0, True)
     tol = torch.tensor(tol, dtype=real_dtype_of(H0.dtype), device=H0.device)
 
     def deflate(H, hi):
@@ -122,12 +132,67 @@ def _qr_eigenvalues_accel(H0: torch.Tensor, max_sweeps: int, tol: float) -> QRRe
         return hi
 
     H = H0.clone()
+    Q = torch.eye(n, dtype=H0.dtype, device=H0.device) if with_q else None
     hi, sweeps = deflate(H, n), 0
     while hi > 1 and sweeps < max_sweeps:
-        H = _givens_sweep(H, hi, _wilkinson_shift(H, hi))
+        H, Q = _givens_sweep_q(H, Q, hi, _wilkinson_shift(H, hi))
         hi = deflate(H, hi)
         sweeps += 1
+    return H, Q, sweeps, hi
+
+
+def _qr_eigenvalues_accel(H0: torch.Tensor, max_sweeps: int, tol: float) -> QRResult:
+    """Input MUST already be upper Hessenberg and complex."""
+    if H0.shape[0] <= 1:
+        return _result(torch.diagonal(H0).clone(), 0, True)
+    H, _, sweeps, hi = _qr_eigenvalues_accel_schur(H0, max_sweeps, tol, with_q=False)
     return _result(torch.diagonal(H).clone(), sweeps, hi <= 1)
+
+
+def _hessenberg_dense_q(a: np.ndarray):
+    """Host Hessenberg reduction that also returns the accumulated unitary
+    (``A = Q H Q^H``): the numpy mirror of ``hessenberg_host``."""
+    H = np.array(a)
+    n = H.shape[0]
+    Q = np.eye(n, dtype=H.dtype)
+    for k in range(n - 2):
+        x = H[k + 1:, k].copy()
+        if np.linalg.norm(x[1:]) == 0:
+            continue
+        norm_x = np.linalg.norm(x)
+        x0 = x[0]
+        sign = x0 / abs(x0) if x0 != 0 else 1.0
+        alpha = -sign * norm_x
+        v = x
+        v[0] -= alpha
+        vn = np.linalg.norm(v)
+        if vn == 0:
+            continue
+        v = v / vn
+        H[k + 1:, k:] -= 2.0 * np.outer(v, np.conj(v) @ H[k + 1:, k:])
+        H[:, k + 1:] -= 2.0 * np.outer(H[:, k + 1:] @ v, np.conj(v))
+        Q[:, k + 1:] -= 2.0 * np.outer(Q[:, k + 1:] @ v, np.conj(v))
+    return H, Q
+
+
+def _qr_eigenvectors_xla(a: torch.Tensor, max_it: int, dtol: float) -> QRResult:
+    """The eigenvector path of the JAX package's CPU route: the Schur form
+    by shifted Givens sweeps with Q, then the eigenvectors by triangular
+    back-substitution (numpy), normalised. Computes in the complex dtype of
+    the input's precision."""
+    from ..ops.qr_kernels import triangular_eigenvectors
+    cdt = complex_dtype_of(a.dtype)
+    H0, Qh = _hessenberg_dense_q(a.to(cdt).numpy())
+    T, Qs, sweeps, hi = _qr_eigenvalues_accel_schur(torch.from_numpy(H0), max_it, dtol)
+    T = T.numpy()
+    Q = Qh @ Qs.numpy()
+    src_rdt = np.float32 if cdt == torch.complex64 else np.float64
+    V = Q.astype(np.complex128) @ triangular_eigenvectors(T.astype(np.complex128),
+                                                          source_real_dtype=src_rdt)
+    V = V / np.maximum(np.linalg.norm(V, axis=0, keepdims=True), 1e-300)
+    res = _result(torch.from_numpy(np.diagonal(T).copy()), sweeps, hi <= 1)
+    res.eigenvectors = torch.from_numpy(V).to(cdt)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -265,17 +330,20 @@ def _qr_eigenvalues_accel_real(H0: torch.Tensor, max_sweeps: int, tol: float):
 # public wrapper
 # ---------------------------------------------------------------------------
 
-# n beyond which the unblocked kernels B7-B10 should hand over to the
-# blocked ones (B11, B13). None: no boundary yet. The unblocked kernels have
-# no size cap on this card, and the boundary is measured once the blocked
-# kernels are ported (ROADMAP A7).
+# n beyond which the unblocked sweep kernels B8/B10 should hand over to the
+# blocked sweeps B13. None: no boundary until B13 is ported (ROADMAP A7); the
+# unblocked kernels have no size cap on this card.
 UNBLOCKED_MAX_N: int | None = None
 
 
 def qr_dispatch(n: int, device) -> str:
     """Which engine a QR eigenvalue solve of an n x n matrix uses:
     ``"torch"`` for a CPU tensor (the JAX package's CPU route) and
-    ``"cuda_unblocked"`` (kernels B7-B10) for a CUDA tensor, of any dtype."""
+    ``"cuda_unblocked"`` for a CUDA tensor, of any dtype: the unblocked
+    sweeps B8 (accelerated) or B10 (parity) after the Hessenberg reduction,
+    which is itself blocked (B11) from ``HESSENBERG_BLOCKED_MIN_N`` on
+    (``solvers/hessenberg.py``). ``UNBLOCKED_MAX_N``, the boundary to the
+    blocked sweeps B13, stays None until B13 exists."""
     if torch.device(device).type == "cpu":
         return "torch"
     if UNBLOCKED_MAX_N is None or n <= UNBLOCKED_MAX_N:
@@ -292,9 +360,14 @@ def qr_eigenvalues(M: AbstractMatrix, opts: SolverOptions = QROptions(), *,
     Dense-only like the reference (qr_eigenvalues.hpp:131-133); ``dtype``
     asserts the stored scalar type (TypeError on mismatch, :135-138). Plain
     ``SolverOptions`` select parity mode. Accelerated mode returns complex
-    eigenvalues; parity mode keeps the input's dtype.
+    eigenvalues; parity mode keeps the input's dtype. With
+    ``QROptions(mode="accelerated", compute_vectors=True)`` the result also
+    carries ``eigenvectors`` (n x n, complex, unit columns; column k pairs
+    with ``eigenvalues[k]``): on a CUDA tensor from B7 or B11, B8 and B14 at
+    every n and dtype, on a CPU tensor from the JAX package's CPU route.
     """
-    from ..ops.qr_kernels import accelerated_eigenvalues, parity_eigenvalues
+    from ..ops.qr_kernels import (accelerated_eigenpairs, accelerated_eigenvalues,
+                                  parity_eigenvalues)
     if not M.is_dense:
         raise ValueError("qr_eigenvalues: only dense matrices are supported")
     if dtype is not None:
@@ -304,16 +377,21 @@ def qr_eigenvalues(M: AbstractMatrix, opts: SolverOptions = QROptions(), *,
 
     mode = opts.mode if isinstance(opts, QROptions) else "parity"
     n = M.shape[0]
-    if mode == "accelerated" and opts.compute_vectors and n > 0:
-        raise NotImplementedError(
-            "qr_eigenvalues: compute_vectors needs the eigenvector kernel B14 "
-            "(triangular back-substitution), not ported yet (ROADMAP A7)")
     a = M.as_dense()
     max_it = opts.max_iterations
     dtol = opts.deflation_tolerance if isinstance(opts, QROptions) and \
         opts.deflation_tolerance is not None else opts.tolerance
+    engine = qr_dispatch(n, a.device)
 
-    if qr_dispatch(n, a.device) == "cuda_unblocked":
+    if mode == "accelerated" and opts.compute_vectors and n > 0:
+        if engine == "torch":
+            return _qr_eigenvectors_xla(a, max_it, dtol)
+        eigs, sweeps, conv, V = accelerated_eigenpairs(a, max_it, dtol)
+        res = _result(eigs, sweeps, conv)
+        res.eigenvectors = V
+        return res
+
+    if engine == "cuda_unblocked":
         if n == 0:
             empty_dt = a.dtype if mode == "parity" else complex_dtype_of(a.dtype)
             return _result(torch.zeros((0,), dtype=empty_dt, device=a.device), 0, True)

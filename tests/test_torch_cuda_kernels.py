@@ -21,6 +21,16 @@ once the diagonal unitary D that they are unique up to is divided out: each
 entry of D is the phase of a pivot, which moves by about eps / |pivot|, so
 by up to ~1e-2 at a small pivot in single-precision complex. D itself is
 held to 1 within ``PHASE_TOL``, which a wrong phase convention still fails.
+
+The blocked Hessenberg kernel B11 (B12 on complex data) is held to its plain
+version the same way, and to the unblocked B7 at three units (the blocked
+and unblocked sums differ in order, as tests/test_torch_hessenberg_blocked.py
+measures on the CPU). The triangular-eigenvector kernel B14 is held to its
+plain version on normalised columns, to 1e-4 in complex64 (the recurrence
+grows Y by up to ~1e18 on a random triangle, which amplifies the summation
+order; 6.7e-6 measured between the plain version and the Pallas kernel) and
+to 1e-10 in complex128, and both to the residual ``|T y - lambda y|`` of
+tests/test_trisolve.py (5e-3 in complex64).
 """
 
 import numpy as np
@@ -28,7 +38,10 @@ import pytest
 import torch
 
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+from pcsc_eigenvalue_solver_project_tpu_torch.ops import hessenberg_blocked as hb
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+from pcsc_eigenvalue_solver_project_tpu_torch.ops import trisolve_vec as tv
+from pcsc_eigenvalue_solver_project_tpu_torch.solvers import hessenberg as hs
 
 pytestmark = pytest.mark.cuda
 
@@ -330,7 +343,7 @@ def test_public_qr_functions_on_the_card(cuda, dtype):
         mode="accelerated", tolerance=1e-12 if double else 1e-6, max_iterations=60 * n))
     parity = eigsol.qr_eigenvalues(M, eigsol.QROptions(mode="parity", max_iterations=5))
     torch.cuda.synchronize()
-    assert [k.launches for k in qk.KERNELS] == [3, 1, 1, 1]
+    assert [k.launches for k in qk.KERNELS] == [3, 1, 1, 1, 0, 0]
     assert h.device.type == q.device.type == accel.eigenvalues.device.type == "cuda"
     assert accel.eigenvalues.dtype == (dtype if dtype.is_complex else dtype.to_complex())
     assert parity.eigenvalues.dtype == dtype
@@ -341,3 +354,123 @@ def test_public_qr_functions_on_the_card(cuda, dtype):
     ev = np.linalg.eigvals(a.cpu().numpy().astype(np.complex128))
     limit = 1e-9 if double else 1e-4  # deflation at tol * |h_ii|, times conditioning
     assert matched_err(accel.eigenvalues.cpu().numpy(), ev) <= limit * scale
+
+
+# --------------------------------------------------------------------------
+# Blocked Hessenberg B11 (B12 on complex data) and eigenvectors B14
+# --------------------------------------------------------------------------
+
+def assert_same_reduction(a, h, q, hp, qp, units=1.0):
+    """h, q against hp, qp with the diagonal unitary D divided out, plus the
+    residuals and the exact zeros below the subdiagonal."""
+    n = a.shape[0]
+    dtype = a.dtype
+    scale = float(a.abs().max())
+    tol, phase_tol = qr_tol(dtype, n), PHASE_TOL[is_double(dtype)]
+    eye = torch.eye(n, dtype=dtype, device=a.device)
+    d = hessenberg_phases(h, hp)
+    assert float((d - 1).abs().max()) <= phase_tol
+    assert rel_to(h, d.conj()[:, None] * hp * d, scale) <= units * tol
+    assert rel_to(q, qp * d, 1.0) <= units * tol
+    assert rel_to(q @ h @ q.conj().T, a, scale) <= tol
+    assert rel_to(q.conj().T @ q, eye, 1.0) <= tol
+    if n > 2:
+        assert float(torch.tril(h, -2).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+@pytest.mark.parametrize("n,nb", [(1, 32), (3, 32), (5, 32), (33, 32), (100, 7), (129, 64),
+                                  (512, 32), (1030, 32)])
+def test_blocked_hessenberg_kernel_matches_plain(cuda, n, nb, dtype):
+    a = well_conditioned(n, dtype, seed=300 + n, device=cuda)
+    before = hb.hessenberg_blocked_kernel.launches
+    h, q = hb.hessenberg_blocked(a, accumulate_q=True, nb=nb)
+    torch.cuda.synchronize()
+    assert hb.hessenberg_blocked_kernel.launches == before + 1
+    assert torch.equal(hb.hessenberg_blocked(a, nb=nb), h)
+    hp, qp = hb.hessenberg_blocked_plain(a, accumulate_q=True, nb=nb)
+    assert_same_reduction(a, h, q, hp, qp)
+    if n <= 512:  # and the unblocked kernel B7
+        h7, q7 = qk.hessenberg_kernel(a, accumulate_q=True)
+        assert_same_reduction(a, h, q, h7, q7, units=3.0)
+
+
+def test_hessenberg_reduce_picks_the_blocked_kernel(cuda, monkeypatch):
+    monkeypatch.setattr(hs, "HESSENBERG_BLOCKED_MIN_N", 64)
+    for dt in (torch.float32, torch.complex64):
+        counts = (qk.hessenberg_kernel.launches, hb.hessenberg_blocked_kernel.launches)
+        qk.hessenberg_reduce(dense(63, dt, seed=1, device=cuda))
+        assert (qk.hessenberg_kernel.launches, hb.hessenberg_blocked_kernel.launches) == \
+            (counts[0] + 1, counts[1])
+        qk.hessenberg_reduce(dense(64, dt, seed=1, device=cuda), accumulate_q=True)
+        assert (qk.hessenberg_kernel.launches, hb.hessenberg_blocked_kernel.launches) == \
+            (counts[0] + 1, counts[1] + 1)
+
+
+def random_triangular(n, dtype, seed, device, repeated=False):
+    """tests/test_trisolve.py's operands: a random upper triangle with the
+    spectrum over [1, 3], or (repeated) a small one over a single eigenvalue."""
+    rng = np.random.default_rng(seed)
+    if repeated:
+        T = np.triu(0.3 * rng.standard_normal((n, n)), 1) + 2.0 * np.eye(n)
+    else:
+        T = np.triu(rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+        T = T + np.diag(np.linspace(1.0, 3.0, n))
+    return torch.from_numpy(T.astype(np.complex128)).to(device=device, dtype=dtype)
+
+
+def normalised(Y):
+    return Y / (Y.abs().square().sum(0).sqrt().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n,repeated", [(1, False), (5, False), (33, False), (130, False),
+                                        (512, False), (150, True), (512, True)])
+def test_triangular_eigenvectors_kernel_matches_plain(cuda, n, repeated, dtype):
+    T = random_triangular(n, dtype, seed=n, device=cuda, repeated=repeated)
+    eps = torch.finfo(dtype.to_real()).eps * max(float(T.abs().max()), 1.0)
+    before = tv.triangular_eigenvectors_kernel.launches
+    Y = tv.triangular_eigenvectors_device(T, eps)
+    torch.cuda.synchronize()
+    assert tv.triangular_eigenvectors_kernel.launches == before + 1
+    Yp = tv.triangular_eigenvectors_plain(T, eps)
+    assert bool(torch.isfinite(Y).all())
+    assert float(torch.tril(Y, -1).abs().max()) == 0.0
+    limit = 1e-10 if dtype == torch.complex128 else 1e-4
+    assert float((normalised(Y) - normalised(Yp)).abs().max()) <= limit
+    if not repeated:
+        Yn = normalised(Y.to(torch.complex128))
+        Tc = T.to(torch.complex128)
+        assert float((Tc @ Yn - Yn * Tc.diagonal()[None, :]).abs().max()) <= 5e-3
+
+
+def test_eigenvector_kernel_rejects_real_input(cuda):
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        tv.triangular_eigenvectors_kernel(dense(8, torch.float32, seed=0, device=cuda), 1e-6)
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+@pytest.mark.parametrize("n", [24, 200])
+def test_public_eigenpairs_on_the_card(cuda, n, dtype):
+    # qr_eigenvalues(compute_vectors=True) on a CUDA tensor: B7 + B8 + B14
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    a = dense(n, dtype, seed=11, device=cuda)
+    double = is_double(dtype)
+    qk.reset_launch_counts()
+    r = eigsol.qr_eigenvalues(eigsol.DenseMatrix(a), eigsol.QROptions(
+        mode="accelerated", compute_vectors=True, tolerance=1e-12 if double else 1e-6,
+        max_iterations=60 * n))
+    torch.cuda.synchronize()
+    assert [k.launches for k in qk.KERNELS] == [1, 1, 0, 0, 0, 1]
+    assert bool(r.converged)
+    cdt = dtype if dtype.is_complex else dtype.to_complex()
+    V, lam = r.eigenvectors, r.eigenvalues
+    assert V.dtype == lam.dtype == cdt and V.device.type == "cuda" and V.shape == (n, n)
+    ac = a.to(cdt)
+    res = float((ac @ V - V * lam[None, :]).abs().square().sum(0).sqrt().max())
+    # ten units (1e-5 n, 1e-13 n) of ||A||_2: the Schur form is backward
+    # stable, and the back-substitution's rounding grows with ||T|| / gap
+    # (2.4 units measured in float64 at n = 24 on the H100)
+    assert res <= 10 * qr_tol(dtype, n) * float(torch.linalg.matrix_norm(ac, 2))
+    ev = np.linalg.eigvals(a.cpu().numpy().astype(np.complex128))
+    assert matched_err(lam.cpu().numpy(), ev) <= (1e-9 if double else 1e-3) * float(a.abs().max())

@@ -13,6 +13,16 @@ pairs come out in either order); float64/complex128 agree to 1e-10 with
 equal iteration counts and ``converged``; float32/complex64 to 1e-4, with
 iteration counts that may differ where a deflation test falls on the f32
 rounding level.
+
+Eigenpairs (``compute_vectors=True``): the eigenvalues as above; each
+eigenvector is unique up to a phase, so a port column is paired with the
+JAX column of the nearest eigenvalue and its phase aligned before the
+entries are compared: 1e-10 in float64/complex128 and 1e-4 in
+float32/complex64 (measured up to 6.3e-15 and 1.1e-6: both sides run the
+same algorithm, and the eigenvalue gaps of these small random matrices are
+~0.1). Both are held to the backward-stable residual
+``max_k ||A v_k - lambda_k v_k|| / ||A||``, 1e-12 resp. 1e-5 (measured up
+to 2.7e-13 and 9.2e-7), and to unit columns.
 """
 
 import os
@@ -270,7 +280,85 @@ class TestProbes:
         with pytest.raises(ValueError, match="qr_decompose_dense: empty matrix"):
             T.qr_decompose(T.DenseMatrix.from_array(np.zeros((0, 0))))
 
-    def test_compute_vectors_not_ported(self):
-        m = T.DenseMatrix.from_array(np.eye(3))
-        with pytest.raises(NotImplementedError, match="B14"):
-            T.qr_eigenvalues(m, T.QROptions(mode="accelerated", compute_vectors=True))
+
+def eig_residual(a, lam, V):
+    """max_k ||A v_k - lambda_k v_k|| / ||A||_2."""
+    a = a.astype(np.complex128)
+    R = a @ V.astype(np.complex128) - V * lam[None, :]
+    return np.linalg.norm(R, axis=0).max() / np.linalg.norm(a, 2)
+
+
+def aligned_vector_err(lam, V, lam_ref, V_ref):
+    """Max entry difference after pairing each column with the reference
+    column of the nearest eigenvalue and aligning its phase."""
+    worst = 0.0
+    for k in range(len(lam)):
+        j = int(np.argmin(np.abs(lam_ref - lam[k])))
+        v, w = V[:, k].astype(np.complex128), V_ref[:, j].astype(np.complex128)
+        p = np.vdot(v, w)
+        v = v * (p / abs(p) if abs(p) > 0 else 1.0)
+        worst = max(worst, np.abs(v - w).max())
+    return worst
+
+
+class TestEigenpairs:
+    """``qr_eigenvalues(compute_vectors=True)`` on CPU tensors against the
+    JAX package's CPU route (``_qr_eigenvectors_xla``)."""
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("n,seed", [(8, 3), (12, 4)])
+    def test_matches_jax(self, n, seed, dtype):
+        a = random_matrix(n, dtype, seed)
+        Mj, Mt = both(a)
+        opts = dict(mode="accelerated", compute_vectors=True,
+                    tolerance=1e-12 if exact(dtype) else 1e-6, max_iterations=3000)
+        rj, rt = J.qr_eigenvalues(Mj, J.QROptions(**opts)), T.qr_eigenvalues(Mt, T.QROptions(**opts))
+        assert bool(rt.converged)
+        assert_same_solve(rj, rt, dtype)
+        lam, V = rt.eigenvalues.numpy(), rt.eigenvectors.numpy()
+        lam_j, V_j = np.asarray(rj.eigenvalues), np.asarray(rj.eigenvectors)
+        assert V.dtype == V_j.dtype == lam.dtype and V.shape == (n, n)
+        np.testing.assert_allclose(np.linalg.norm(V, axis=0), 1.0,
+                                   atol=1e-12 if exact(dtype) else 1e-6)
+        assert aligned_vector_err(lam, V, lam_j, V_j) <= (1e-10 if exact(dtype) else 1e-4)
+        assert eig_residual(a, lam, V) <= (1e-12 if exact(dtype) else 1e-5)
+
+    @pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+    def test_symmetric_geometric_spectrum(self, dtype):
+        a = geometric_symmetric(10, 0.7, dtype, seed=5)
+        Mj, Mt = both(a)
+        opts = dict(mode="accelerated", compute_vectors=True, tolerance=1e-12)
+        rj, rt = J.qr_eigenvalues(Mj, J.QROptions(**opts)), T.qr_eigenvalues(Mt, T.QROptions(**opts))
+        assert_same_solve(rj, rt, dtype)
+        lam, V = rt.eigenvalues.numpy(), rt.eigenvectors.numpy()
+        assert aligned_vector_err(lam, V, np.asarray(rj.eigenvalues),
+                                  np.asarray(rj.eigenvectors)) <= 1e-10
+        assert eig_residual(a, lam, V) <= 1e-12
+
+    def test_reference_data_a(self):
+        # upper triangular already: no sweep, eigenvectors by back-substitution
+        Mj = J.read_matrix_from_file(os.path.join(DATA, "A.txt"), dtype=np.complex128)
+        Mt = T.read_matrix_from_file(os.path.join(DATA, "A.txt"), torch.complex128)
+        opts = dict(mode="accelerated", compute_vectors=True, tolerance=1e-10)
+        rj, rt = J.qr_eigenvalues(Mj, J.QROptions(**opts)), T.qr_eigenvalues(Mt, T.QROptions(**opts))
+        assert_same_solve(rj, rt, np.complex128)
+        np.testing.assert_allclose(rt.eigenvectors.numpy(), np.asarray(rj.eigenvectors), atol=1e-13)
+        a = Mt.to_dense().numpy()
+        assert eig_residual(a, rt.eigenvalues.numpy(), rt.eigenvectors.numpy()) <= 1e-13
+
+    def test_budget_without_convergence(self):
+        a = random_matrix(8, np.complex128, seed=6)
+        Mj, Mt = both(a)
+        opts = dict(mode="accelerated", compute_vectors=True, tolerance=1e-12, max_iterations=2)
+        rj, rt = J.qr_eigenvalues(Mj, J.QROptions(**opts)), T.qr_eigenvalues(Mt, T.QROptions(**opts))
+        assert not bool(rt.converged) and not bool(rj.converged)
+        assert int(rt.iterations) == int(rj.iterations) == 2
+        np.testing.assert_allclose(rt.eigenvalues.numpy(), np.asarray(rj.eigenvalues), atol=1e-12)
+        assert rt.eigenvectors.shape == (8, 8)
+
+    def test_zero_size_has_no_vectors(self):
+        Mj, Mt = both(np.zeros((0, 0), np.complex128))
+        opts = dict(mode="accelerated", compute_vectors=True)
+        rj, rt = J.qr_eigenvalues(Mj, J.QROptions(**opts)), T.qr_eigenvalues(Mt, T.QROptions(**opts))
+        assert rt.eigenvalues.shape == (0,) and bool(rt.converged)
+        assert rt.eigenvectors is None and rj.eigenvectors is None
