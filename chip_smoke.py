@@ -42,15 +42,31 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 10. the eigenpair path through the public API on CUDA tensors:
     ``qr_eigenvalues(A, QROptions(mode="accelerated", compute_vectors=True))``
     on (a) the bench operand at 512 in float32, (b) the complex64 operand of
-    phase 7, (c) the non-symmetric float32 matrix of phase 7 and (e) the
-    bench operand's construction at 2048, each held to its spectrum and to
-    the residual ``max_k ||A v_k - lambda_k v_k|| / ||A||``;
+    phase 7, (c) the non-symmetric float32 matrix of phase 7 (B8 at 512) and
+    (e) the bench operand's construction at 2048 (B11 and B13), each held to
+    its spectrum and to the residual ``max_k ||A v_k - lambda_k v_k|| / ||A||``;
 11. ``to_hessenberg`` through the public API at n = 4096 float32 and at
-    n = 2048 complex64 (the blocked kernel on real and on complex data).
+    n = 2048 complex64 (the blocked kernel on real and on complex data);
+12. the blocked sweeps B13 against their plain version on the card, complex64
+    and complex128, with a budget of a few sweeps and deflation off: Schur
+    mode at sizes that straddle block edges (bs - 1, bs + 1, 2 bs + 1), at
+    n = 512 and, in complex64, at 2048, a size the path beyond
+    ``UNBLOCKED_MAX_N`` gives B13 (T and Q entry by entry,
+    ``||H - Q T Q^H||``, ``||Q^H Q - I||``), eigenvalues-only mode and a
+    3-shift schedule, with B13's time per sweep beside the plain version's;
+13. the sweep that set ``UNBLOCKED_MAX_N``: B8 against B13 in complex64 at
+    n = 128 ... 4096, per sweep with the window full and per whole solve on
+    the bench operand; B13's block sizes at 4096 and a torch.profiler
+    breakdown of B13 there;
+14. the path beyond ``UNBLOCKED_MAX_N`` through ``qr_eigenvalues`` on CUDA
+    tensors: eigenvalues of the bench operand at 4096 float32, of the
+    complex64 normal operand at 2048 and of a non-symmetric float32 matrix at
+    2048 (against numpy in float64), eigenpairs of the bench operand at 2048
+    and 4096.
 
 The banded kernels' launch counts are zeroed just before phases 4-5 and
-read just after, the QR kernels' just before and after phase 7, 10 and each
-run of phase 11; each kernel must have run on its path. The script then
+read just after, the QR kernels' just before and after phases 7, 10, 14 and
+each run of phase 11; each kernel must have run on its path. The script then
 prints one JSON line with each kernel's numbers (time, plain time, the
 least time the card could take for the same work, the library call's time
 where one PyTorch call computes the same function), the card's name and
@@ -83,6 +99,11 @@ TRI_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/trisolve_vec.py
 SWEEP_SIZES = (256, 512, 1024, 2048, 4096)  # B7 against B11
 FULL_N = 4096   # B11's row, its panel widths, to_hessenberg in float32
 LARGE_N = 2048  # B12's row, B14's second size, eigenpair run (e)
+QRB_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/qr_eig_blocked.cu"
+QRB_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/qr_eig_blocked.py"
+BOUNDARY_SIZES = (128, 256, 512, 1024, 2048, 4096)  # B8 against B13
+B13_SWEEPS = 3  # B13 against its plain version at n >= 512 (the plain version is slow)
+NONSYM_MAX_N = 1024  # whole non-symmetric solves in the boundary sweep (B8 is slow beyond)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}  # H100 SXM data sheet, outside the tensor cores
 
@@ -772,6 +793,199 @@ def qr_path_phase(eigsol, dev):
     check(bool(rA_eig.converged) and ev_err <= 1e-8, "data/A.txt: eigenvalues off numpy")
 
 
+def blocked_sweeps_phase(dev, card_name, card_limit):
+    """Phase 12: B13 against its plain version on the card in complex64 and
+    complex128, with deflation off (tol 0) so that both run the same iterates:
+    Schur mode at sizes that straddle block edges (bs - 1, bs + 1, 2 bs + 1),
+    at n = 512 and, in complex64, at ``LARGE_N`` (beyond ``UNBLOCKED_MAX_N``,
+    where the path runs B13), eigenvalues-only mode, and a 3-shift schedule.
+    Returns the max abs error of T at ``LARGE_N`` and (kernel, plain) ms per
+    sweep there (eigenvalues only; the plain version timed once)."""
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_eig_blocked as qb
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+
+    rng = np.random.default_rng(60)
+    bs = qb.BLOCK
+    err_main, timing = None, None
+
+    def rel(x, y, scale):
+        return float((x - y).abs().max()) / scale
+
+    for dt in (torch.complex64, torch.complex128):
+        shifts = torch.tensor([0.3 + 0.1j, -0.2, 0.5 - 0.4j], dtype=dt, device=dev)
+        sizes = ((bs - 1, None), (bs + 1, None), (2 * bs + 1, None), (QR_N, None),
+                 (QR_N, shifts))
+        if dt == torch.complex64:
+            sizes += ((LARGE_N, None),)
+        for n, sched in sizes:
+            h = qk.hessenberg_reduce(device_operand(rng, n, dt, dev, "gaussian")[0])
+            scale = float(h.abs().max())
+            # T, Q and the diagonal to ten units of 1e-6 n (1e-14 n in complex128)
+            # relative to max|H| (Q: 1), the residuals to one unit, as B8's
+            unit = (1e-14 if dt == torch.complex128 else 1e-6) * n
+            sweeps = B13_SWEEPS if n >= QR_N else 6
+            e, s, hi, t, q = qb.qr_eig_blocked_kernel(h, sweeps, 0.0, sched, accumulate_q=True)
+            e1, s1, hi1 = qb.qr_eig_blocked_kernel(h, sweeps, 0.0, sched)
+            ep, sp, hip, tp, qp = qb.qr_eig_blocked_plain(h, sweeps, 0.0, sched,
+                                                          accumulate_q=True)
+            torch.cuda.synchronize()
+            plain_start = time.perf_counter()
+            e1p, _, _ = qb.qr_eig_blocked_plain(h, sweeps, 0.0, sched)
+            torch.cuda.synchronize()
+            plain_once_ms = (time.perf_counter() - plain_start) * 1e3
+            eye = torch.eye(n, dtype=dt, device=dev)
+            label = f"B13 {dt} n={n} bs={bs}{' 3-shift schedule' if sched is not None else ''}"
+            checks = {"T vs plain": (rel(t, tp, scale), 10 * unit),
+                      "Q vs plain": (rel(q, qp, 1.0), 10 * unit),
+                      "eigenvalues-only diagonal vs plain": (rel(e1, e1p, scale), 10 * unit),
+                      "|H - Q T Q^H|": (rel(q @ t @ q.conj().T, h, scale), unit),
+                      "|Q^H Q - I|": (rel(q.conj().T @ q, eye, 1.0), unit)}
+            for name, (err, limit) in checks.items():
+                print(f"check {label} {name}: {err:.3e} (limit {limit:.1e})")
+                check(err <= limit, f"{label} {name}: {err:.3e} above {limit:.1e}")
+            counts = {(int(s), int(hi)), (int(s1), int(hi1)), (int(sp), int(hip))}
+            check(counts == {(sweeps, n)}, f"{label}: sweeps and hi {counts}")
+            check(bool(torch.isfinite(t).all()) and bool(torch.isfinite(q).all()),
+                  f"{label}: non-finite output")
+            if n == QR_N and sched is None:
+                k_ms, p_ms = timed_pair(lambda: qb.qr_eig_blocked_kernel(h, sweeps, 0.0),
+                                        lambda: qb.qr_eig_blocked_plain(h, sweeps, 0.0),
+                                        lambda fn: time_events_ms(fn, reps=2),
+                                        lambda fn: time_events_ms(fn, reps=1))
+            elif n == LARGE_N:  # ~1.3 s a sweep in the plain version: its one run above
+                k_ms = time_events_ms(lambda: qb.qr_eig_blocked_kernel(h, sweeps, 0.0), reps=2)
+                p_ms = plain_once_ms
+            if n >= QR_N and sched is None:
+                schur_ms = time_events_ms(
+                    lambda: qb.qr_eig_blocked_kernel(h, sweeps, 0.0, accumulate_q=True), 2)
+                print(f"time B13 {dt} n={n} bs={bs}: kernel {k_ms / sweeps:.4f} ms/sweep "
+                      f"(Schur mode {schur_ms / sweeps:.4f}), plain {p_ms / sweeps:.2f} ms/sweep "
+                      f"[{card_name}, {card_limit}]")
+                if n == LARGE_N:
+                    err_main = float((t - tp).abs().max())
+                    timing = (k_ms / sweeps, p_ms / sweeps)
+    return err_main, timing
+
+
+def blocked_boundary_phase(dev, card_name, card_limit):
+    """Phase 13: the sweep that sets ``UNBLOCKED_MAX_N``: B8 against B13 in
+    complex64, per sweep on a Gaussian operand's Hessenberg form with a
+    budget of 4 sweeps and deflation off (the window stays full), per whole
+    solve on the bench operand (whose active window is small) and, up to
+    ``NONSYM_MAX_N``, on a non-symmetric uniform(-1, 1) operand (whose window
+    shrinks from full); B13's block sizes at 4096; a torch.profiler breakdown
+    of B13 there."""
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_eig_blocked as qb
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers import qr_eigenvalues as qe
+
+    rng = np.random.default_rng(70)
+    sweeps = 4
+    print(f"boundary (complex64, ms; per sweep: {sweeps} sweeps, tol 0; whole solve: bench "
+          f"operand, tol {QR_TOL}; one CUDA-event loop per point) [{card_name}, {card_limit}]")
+    print("boundary n B8/sweep B13/sweep B8/solve B13/solve (sweeps) "
+          f"B8/non-symmetric B13/non-symmetric (sweeps; n <= {NONSYM_MAX_N})")
+    faster_from, full = None, None
+    for n in BOUNDARY_SIZES:
+        h = qk.hessenberg_reduce(device_operand(rng, n, torch.complex64, dev, "gaussian")[0])
+        times = [time_events_ms(lambda: qk.qr_eig_kernel(h, sweeps, 0.0), 1) / sweeps,
+                 time_events_ms(lambda: qb.qr_eig_blocked_kernel(h, sweeps, 0.0), 1) / sweeps]
+        solves = [qk.hessenberg_reduce(device_operand(rng, n, torch.float32, dev, "geometric")[0])]
+        if n <= NONSYM_MAX_N:
+            solves.append(qk.hessenberg_reduce(
+                torch.from_numpy(rng.uniform(-1, 1, (n, n))).to(dev, torch.float32)))
+        line = f"boundary {n} {times[0]:.4f} {times[1]:.4f}"
+        for hs in solves:
+            hs = hs.to(torch.complex64)
+            pair = [time_events_ms(lambda: qk.qr_eig_kernel(hs, 20 * n, QR_TOL), 1),
+                    time_events_ms(lambda: qb.qr_eig_blocked_kernel(hs, 20 * n, QR_TOL), 1)]
+            _, s8, hi8 = qk.qr_eig_kernel(hs, 20 * n, QR_TOL)
+            _, s13, hi13 = qb.qr_eig_blocked_kernel(hs, 20 * n, QR_TOL)
+            check(int(hi8) <= 1 and int(hi13) <= 1, f"boundary n={n}: a solve did not converge")
+            line += f" {pair[0]:.3f} {pair[1]:.3f} ({int(s8)}/{int(s13)})"
+            times += pair
+        print(line)
+        faster_from = (faster_from or n) if all(b13 < b8 for b8, b13 in
+                                                zip(times[::2], times[1::2])) else None
+        full = h
+    print(f"boundary: B13 faster than B8 on every measure from n = {faster_from} on; "
+          f"UNBLOCKED_MAX_N = {qe.UNBLOCKED_MAX_N}")
+    n = BOUNDARY_SIZES[-1]
+    hg = qk.hessenberg_reduce(device_operand(rng, n, torch.float32, dev, "geometric")[0])
+    hg = hg.to(torch.complex64)
+    for bs in (16, 32, 64):
+        per_sweep = time_events_ms(lambda: qb.qr_eig_blocked_kernel(full, sweeps, 0.0, block=bs),
+                                   1) / sweeps
+        schur = time_events_ms(lambda: qb.qr_eig_blocked_kernel(
+            full, sweeps, 0.0, accumulate_q=True, block=bs), 1) / sweeps
+        whole = time_events_ms(lambda: qb.qr_eig_blocked_kernel(hg, 20 * n, QR_TOL, block=bs), 1)
+        print(f"block {bs}: B13 complex64 n={n} {per_sweep:.4f} ms/sweep (Schur mode "
+              f"{schur:.4f}), bench-operand solve {whole:.3f} ms [{card_name}, {card_limit}]")
+    profile_breakdown(f"B13 complex64 n={n}, {sweeps} sweeps",
+                      lambda: qb.qr_eig_blocked_kernel(full, sweeps, 0.0))
+
+
+def blocked_path_phase(eigsol, dev):
+    """Phase 14: the public path beyond ``UNBLOCKED_MAX_N`` on CUDA tensors:
+    eigenvalues of the bench operand at 4096 float32, of the complex64 normal
+    operand at 2048 and of a non-symmetric float32 matrix at 2048 (against
+    numpy in float64), and eigenpairs of the bench operand at 2048 and 4096.
+    Every size lies beyond ``UNBLOCKED_MAX_N``. Every check raises on
+    failure."""
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers.qr_eigenvalues import qr_dispatch
+
+    rng = np.random.default_rng(80)
+    a4, d4 = device_operand(rng, FULL_N, torch.float32, dev, "geometric")
+    a2, d2 = device_operand(rng, LARGE_N, torch.float32, dev, "geometric")
+    c2, dc2 = device_operand(rng, LARGE_N, torch.complex64, dev, "geometric")
+    g = torch.from_numpy(rng.uniform(-1, 1, (LARGE_N, LARGE_N))).to(dev, torch.float32)
+    g_eigs = np.linalg.eigvals(g.double().cpu().numpy())
+    # limits of phases 7 and 10: planted spectra 1e-4, the non-symmetric
+    # matrix 5e-3 against numpy in float64, the residual one unit (1e-6 n)
+    runs = {f"eigenvalues f32 bench {FULL_N}": (a4, d4, 1e-4, False),
+            f"eigenvalues c64 normal {LARGE_N}": (c2, dc2, 1e-4, False),
+            f"eigenvalues f32 non-symmetric {LARGE_N}": (g, g_eigs, 5e-3, False),
+            f"eigenpairs f32 bench {LARGE_N}": (a2, d2, 1e-4, True),
+            f"eigenpairs f32 bench {FULL_N}": (a4, d4, 1e-4, True)}
+    torch.cuda.synchronize()
+    results, seconds = {}, {}
+    for name, (a, _, _, vectors) in runs.items():
+        n = a.shape[0]
+        check(qr_dispatch(n, a.device) == "cuda_blocked", f"{name}: n = {n} is not beyond "
+              f"UNBLOCKED_MAX_N")
+        t0 = time.perf_counter()
+        opts = eigsol.QROptions(mode="accelerated", compute_vectors=vectors,
+                                max_iterations=20 * n, tolerance=QR_TOL)
+        r = eigsol.qr_eigenvalues(eigsol.DenseMatrix(a), opts)
+        results[name] = (r.eigenvalues, int(r.iterations), bool(r.converged), r.eigenvectors)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    for name, (a, want, limit, vectors) in runs.items():
+        lam, sweeps, converged, V = results[name]
+        n = a.shape[0]
+        check(lam.shape == (n,) and bool(torch.isfinite(lam).all()), f"{name}: bad eigenvalues")
+        err = nearest_err(lam.cpu().numpy(), want)
+        line = (f"{name}: max eigenvalue error {err:.3e} (limit {limit:.0e}), "
+                f"{sweeps} sweeps, converged={converged}, {seconds[name]:.3f} s")
+        check(converged, f"{name}: did not converge")
+        check(err <= limit, f"{name}: eigenvalue error {err:.3e} above {limit:.0e}")
+        if vectors:
+            check(V is not None and V.shape == (n, n) and bool(torch.isfinite(V).all()),
+                  f"{name}: bad eigenvectors")
+            ac = a.to(lam.dtype)
+            res = float((ac @ V - V * lam[None, :]).abs().square().sum(0).sqrt().max()) / \
+                float(torch.linalg.matrix_norm(ac, 2))
+            line += f", max_k |A v_k - lambda_k v_k| / |A| {res:.3e} (limit {1e-6 * n:.1e})"
+            check(res <= 1e-6 * n, f"{name}: residual {res:.3e} above {1e-6 * n:.1e}")
+        print(line)
+
+
 def main() -> None:
     import torch
 
@@ -785,6 +999,7 @@ def main() -> None:
         HESSENBERG_BLOCKED_MIN_N)
     from pcsc_eigenvalue_solver_project_tpu_torch.solvers.power import (
         norm, power_iteration_loop, vdot)
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers.qr_eigenvalues import qr_dispatch
 
     # ---- 1. the card -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1041,12 +1256,37 @@ def main() -> None:
     if HESSENBERG_BLOCKED_MIN_N <= LARGE_N:  # run (e)
         check(pair_launches["hessenberg_blocked_kernel"] > 0,
               "hessenberg_blocked_kernel was not launched by the eigenpair path")
+    if qr_dispatch(LARGE_N, dev) == "cuda_blocked":  # run (e)
+        check(pair_launches["qr_eig_blocked_kernel"] > 0,
+              "qr_eig_blocked_kernel was not launched by the eigenpair path")
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
     # ---- 11. to_hessenberg on the blocked kernel ---------------------------
     t0 = time.perf_counter()
     hess_launches = to_hessenberg_phase(eigsol, dev, qk, hb)
     print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12. the blocked sweeps against their plain version -----------------
+    t0 = time.perf_counter()
+    b13_err, b13_timing = blocked_sweeps_phase(dev, card_name, card_limit)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13. the boundary between the unblocked and blocked sweeps ----------
+    t0 = time.perf_counter()
+    blocked_boundary_phase(dev, card_name, card_limit)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14. the path beyond the boundary -------------------------------------
+    t0 = time.perf_counter()
+    qk.reset_launch_counts()
+    blocked_path_phase(eigsol, dev)
+    torch.cuda.synchronize()
+    big_launches = {kernel.__name__: kernel.launches for kernel in qk.KERNELS}
+    print(f"blocked-path launches: {big_launches}")
+    for name in ("hessenberg_blocked_kernel", "qr_eig_blocked_kernel",
+                 "triangular_eigenvectors_kernel"):
+        check(big_launches[name] > 0, f"{name} was not launched by the blocked path")
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
     # ---- report ------------------------------------------------------------
     rows = []
@@ -1095,6 +1335,17 @@ def main() -> None:
             launch_count = hess_launches[tag]
         add_row(name, source, replaces, launch_count, blk_errors[tag], k_ms, p_ms, nbytes,
                 flops, tag)
+    # B13 per full-window sweep at LARGE_N in complex64, eigenvalues only:
+    # the upper-Hessenberg part read once and written once, and the
+    # rotations' own arithmetic, as B8's row counts it: left rotation k turns
+    # rows k, k + 1 over columns k .. n - 1, right rotation k columns k, k + 1
+    # over rows 0 .. k + 1, two complex multiply-adds (8 flops) per entry
+    n = LARGE_N
+    elements = n * (n + 1) // 2 + n - 1
+    cmadds = sum(4 * (n - k) + 4 * min(k + 2, n) for k in range(n - 1))
+    add_row("qr_eig_blocked_kernel", QRB_SOURCE, f"{QRB_TPU_KERNELS}:63",
+            big_launches["qr_eig_blocked_kernel"], b13_err, b13_timing[0], b13_timing[1],
+            2 * 8 * elements, 8 * cmadds, "B13")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

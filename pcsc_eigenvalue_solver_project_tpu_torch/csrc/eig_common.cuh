@@ -1,5 +1,5 @@
 // Scalar arithmetic and small helpers shared by the dense kernels
-// (qr_kernels.cu, hessenberg_blocked.cu, trisolve_vec.cu).
+// (qr_kernels.cu, hessenberg_blocked.cu, trisolve_vec.cu, qr_eig_blocked.cu).
 //
 // Each kernel is templated on float, double, float2 and double2: complex
 // values are (re, im) in (.x, .y), and a complex multiply-add is four FMAs
@@ -119,6 +119,86 @@ __global__ void eye_kernel(T* __restrict__ Q, int64_t n) {
   using O = Ops<T>;
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e < n * n) Q[e] = e / n == e % n ? O::one() : O::zero();
+}
+
+// ---- the shifted Givens sweeps (B8 in qr_kernels.cu, B13 in qr_eig_blocked.cu)
+
+// |H[c+1, c]| <= tol * max(|H[c, c]| + |H[c+1, c+1]|, 1)
+template <typename T>
+__device__ __forceinline__ bool negligible(const T* H, int64_t n, int64_t c,
+                                           typename Ops<T>::Real tol) {
+  using O = Ops<T>;
+  using R = typename O::Real;
+  const R scale = dsqrt(O::abs2(H[c * n + c])) + dsqrt(O::abs2(H[(c + 1) * n + c + 1]));
+  return dsqrt(O::abs2(H[(c + 1) * n + c])) <= tol * (scale > R(1) ? scale : R(1));
+}
+
+// The window update of qr_kernels.py:339-351 (deflate_and_lo): on return
+// sh[0] + 2 is the new hi (2 + the last c < hi - 1 with a non-negligible
+// subdiagonal, 1 if none) and sh[1] + 1 is lo (1 + the last c < new hi - 1
+// with a negligible subdiagonal, 0 if none). Call with all threads after a
+// barrier; read sh before the next barrier-separated call.
+template <typename T>
+__device__ void deflate_and_lo(const T* H, int64_t n, int hi, typename Ops<T>::Real tol, int* sh) {
+  if (threadIdx.x == 0) sh[0] = sh[1] = -1;
+  __syncthreads();
+  int best = -1;
+  for (int c = threadIdx.x; c < hi - 1; c += blockDim.x)
+    if (!negligible(H, n, c, tol)) best = c;
+  if (best >= 0) atomicMax(&sh[0], best);
+  __syncthreads();
+  const int new_hi = sh[0] + 2;
+  best = -1;
+  for (int c = threadIdx.x; c < new_hi - 1; c += blockDim.x)
+    if (negligible(H, n, c, tol)) best = c;
+  if (best >= 0) atomicMax(&sh[1], best);
+  __syncthreads();
+}
+
+// Givens rotation zeroing b under a: g00 = conj(a)/r, g01 = conj(b)/r with
+// r = sqrt(|a|^2 + |b|^2); the identity when r = 0 (qr_kernels.py:405-415).
+template <typename T>
+__device__ __forceinline__ void givens(T a, T b, T* g) {
+  using O = Ops<T>;
+  using R = typename O::Real;
+  const R r2 = O::abs2(a) + O::abs2(b);
+  const bool zero = r2 == R(0);
+  const R rinv = R(1) / dsqrt(zero ? R(1) : r2);
+  g[0] = zero ? O::one() : O::scale(O::conj(a), rinv);
+  g[1] = zero ? O::zero() : O::scale(O::conj(b), rinv);
+}
+
+// Rows k, k+1 of a column under the left rotation (g00, g01):
+// (g00 x + g01 y, -conj(g01) x + conj(g00) y).
+template <typename T>
+__device__ __forceinline__ void rotate_pair(T g00, T g01, T* x, T* y) {
+  using O = Ops<T>;
+  const T rk = *x, rk1 = *y;
+  *x = O::madd(O::madd(O::zero(), g00, rk), g01, rk1);
+  *y = O::msub(O::madd(O::zero(), O::conj(g00), rk1), O::conj(g01), rk);
+}
+
+// Eigenvalue of the trailing active 2x2 [[a, b], [c, d]] nearest d, with
+// the complex square root and the pick of qr_kernels.py:366-385.
+template <typename T>
+__device__ T wilkinson_shift(const T* H, int64_t n, int hi) {
+  using O = Ops<T>;
+  using R = typename O::Real;
+  const T a = H[(hi - 2) * n + hi - 2], b = H[(hi - 2) * n + hi - 1];
+  const T c = H[(hi - 1) * n + hi - 2], d = H[(hi - 1) * n + hi - 1];
+  const R delr = (a.x - d.x) * R(0.5), deli = (a.y - d.y) * R(0.5);
+  const R zr = delr * delr - deli * deli + b.x * c.x - b.y * c.y;
+  const R zi = R(2) * delr * deli + b.x * c.y + b.y * c.x;
+  const R mz = dsqrt(zr * zr + zi * zi);
+  const R pr = (mz + zr) * R(0.5), pi = (mz - zr) * R(0.5);
+  const R sqr = dsqrt(pr > R(0) ? pr : R(0));
+  const R sqi_mag = dsqrt(pi > R(0) ? pi : R(0));
+  const R sqi = zi >= R(0) ? sqi_mag : -sqi_mag;
+  const T mu1 = O::make(d.x + delr + sqr, d.y + deli + sqi);
+  const T mu2 = O::make(d.x + delr - sqr, d.y + deli - sqi);
+  const R m1 = (mu1.x - d.x) * (mu1.x - d.x) + (mu1.y - d.y) * (mu1.y - d.y);
+  const R m2 = (mu2.x - d.x) * (mu2.x - d.x) + (mu2.y - d.y) * (mu2.y - d.y);
+  return m1 < m2 ? mu1 : mu2;
 }
 
 inline unsigned blocks_for(int64_t count, int per_block) {

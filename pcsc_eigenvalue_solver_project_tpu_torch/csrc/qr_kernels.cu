@@ -200,74 +200,6 @@ int run_householder(const T* a, T* r, T* q, T* v, int64_t n, int64_t kmax, cudaS
 
 // ---- B8 ------------------------------------------------------------------
 
-// |H[c+1, c]| <= tol * max(|H[c, c]| + |H[c+1, c+1]|, 1)
-template <typename T>
-__device__ __forceinline__ bool negligible(const T* H, int64_t n, int64_t c,
-                                           typename Ops<T>::Real tol) {
-  using O = Ops<T>;
-  using R = typename O::Real;
-  const R scale = dsqrt(O::abs2(H[c * n + c])) + dsqrt(O::abs2(H[(c + 1) * n + c + 1]));
-  return dsqrt(O::abs2(H[(c + 1) * n + c])) <= tol * (scale > R(1) ? scale : R(1));
-}
-
-// The window update of qr_kernels.py:339-351 (deflate_and_lo): on return
-// sh[0] + 2 is the new hi (2 + the last c < hi - 1 with a non-negligible
-// subdiagonal, 1 if none) and sh[1] + 1 is lo (1 + the last c < new hi - 1
-// with a negligible subdiagonal, 0 if none). Call with all threads after a
-// barrier; read sh before the next barrier-separated call.
-template <typename T>
-__device__ void deflate_and_lo(const T* H, int64_t n, int hi, typename Ops<T>::Real tol, int* sh) {
-  if (threadIdx.x == 0) sh[0] = sh[1] = -1;
-  __syncthreads();
-  int best = -1;
-  for (int c = threadIdx.x; c < hi - 1; c += blockDim.x)
-    if (!negligible(H, n, c, tol)) best = c;
-  if (best >= 0) atomicMax(&sh[0], best);
-  __syncthreads();
-  const int new_hi = sh[0] + 2;
-  best = -1;
-  for (int c = threadIdx.x; c < new_hi - 1; c += blockDim.x)
-    if (negligible(H, n, c, tol)) best = c;
-  if (best >= 0) atomicMax(&sh[1], best);
-  __syncthreads();
-}
-
-// Givens rotation zeroing b under a: g00 = conj(a)/r, g01 = conj(b)/r with
-// r = sqrt(|a|^2 + |b|^2); the identity when r = 0 (qr_kernels.py:405-415).
-template <typename T>
-__device__ __forceinline__ void givens(T a, T b, T* g) {
-  using O = Ops<T>;
-  using R = typename O::Real;
-  const R r2 = O::abs2(a) + O::abs2(b);
-  const bool zero = r2 == R(0);
-  const R rinv = R(1) / dsqrt(zero ? R(1) : r2);
-  g[0] = zero ? O::one() : O::scale(O::conj(a), rinv);
-  g[1] = zero ? O::zero() : O::scale(O::conj(b), rinv);
-}
-
-// Eigenvalue of the trailing active 2x2 [[a, b], [c, d]] nearest d, with
-// the complex square root and the pick of qr_kernels.py:366-385.
-template <typename T>
-__device__ T wilkinson_shift(const T* H, int64_t n, int hi) {
-  using O = Ops<T>;
-  using R = typename O::Real;
-  const T a = H[(hi - 2) * n + hi - 2], b = H[(hi - 2) * n + hi - 1];
-  const T c = H[(hi - 1) * n + hi - 2], d = H[(hi - 1) * n + hi - 1];
-  const R delr = (a.x - d.x) * R(0.5), deli = (a.y - d.y) * R(0.5);
-  const R zr = delr * delr - deli * deli + b.x * c.x - b.y * c.y;
-  const R zi = R(2) * delr * deli + b.x * c.y + b.y * c.x;
-  const R mz = dsqrt(zr * zr + zi * zi);
-  const R pr = (mz + zr) * R(0.5), pi = (mz - zr) * R(0.5);
-  const R sqr = dsqrt(pr > R(0) ? pr : R(0));
-  const R sqi_mag = dsqrt(pi > R(0) ? pi : R(0));
-  const R sqi = zi >= R(0) ? sqi_mag : -sqi_mag;
-  const T mu1 = O::make(d.x + delr + sqr, d.y + deli + sqi);
-  const T mu2 = O::make(d.x + delr - sqr, d.y + deli - sqi);
-  const R m1 = (mu1.x - d.x) * (mu1.x - d.x) + (mu1.y - d.y) * (mu1.y - d.y);
-  const R m2 = (mu2.x - d.x) * (mu2.x - d.x) + (mu2.y - d.y) * (mu2.y - d.y);
-  return m1 < m2 ? mu1 : mu2;
-}
-
 // Right rotations k in [lo, hi-1) on row `row` of M: columns k, k+1 become
 // conj(g00) c_k + conj(g01) c_k1 and -g01 c_k + g00 c_k1, in order, with the
 // rotated column k+1 carried in a register.
@@ -314,9 +246,9 @@ qr_eig_kernel(T* __restrict__ H, T* __restrict__ Q, T* __restrict__ rot, T* __re
     for (int k = lo; k < hi - 1; ++k) {
       const T g00 = s_g[k & 1][0], g01 = s_g[k & 1][1];
       for (int64_t j = t; j < n; j += nt) {
-        const T rk = H[k * n + j], rk1 = H[(k + 1) * n + j];
-        H[k * n + j] = O::madd(O::madd(O::zero(), g00, rk), g01, rk1);
-        const T nk1 = O::msub(O::madd(O::zero(), O::conj(g00), rk1), O::conj(g01), rk);
+        T rk = H[k * n + j], nk1 = H[(k + 1) * n + j];
+        rotate_pair(g00, g01, &rk, &nk1);
+        H[k * n + j] = rk;
         H[(k + 1) * n + j] = nk1;
         if (j == k + 1 && k + 2 < hi) {  // the owner of column k+1 forms rotation k+1
           T* g = s_g[(k + 1) & 1];

@@ -136,6 +136,11 @@ def load() -> ctypes.CDLL:
             # dtype, device, t, y, racc, counts, n, eps, stream
             lib.trisolve_eigenvectors.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, f64, ptr]
             lib.trisolve_eigenvectors.restype = i32
+            # dtype, device, h, q, ubuf, eig, state, mu, shifts, n_shifts, n, max_sweeps,
+            # tol, bs, launches_per_read, stream
+            lib.qr_eig_blocked_sweeps.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                                  i32, i64, i32, f64, i32, i32, ptr]
+            lib.qr_eig_blocked_sweeps.restype = i32
             lib.dia_cuda_error_string.argtypes = [i32]
             lib.dia_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

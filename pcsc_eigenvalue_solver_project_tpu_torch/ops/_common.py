@@ -1,6 +1,7 @@
 """What the dense kernels' Python side shares: dtype codes, input checks,
-the launch stream and error check, and the Householder reflector rule of
-the plain versions (B7, B9, B11)."""
+the launch stream and error check, the Householder reflector rule of the
+plain versions (B7, B9, B11), and the shift and window rules of the shifted
+sweeps' plain versions (B8, B13)."""
 
 from __future__ import annotations
 
@@ -51,6 +52,59 @@ def reflector(col: torch.Tensor, s: int):
     v = v * torch.rsqrt(torch.where(degenerate, 1, vn2))
     factor = torch.where(tail_zero | degenerate, 0.0, 2.0).to(real_dtype(col.dtype))
     return v, factor
+
+
+def wilkinson_shift(a, b, c, d):
+    """Eigenvalue of ``[[a, b], [c, d]]`` nearest ``d``, in the plane
+    arithmetic of the Pallas kernel (qr_kernels.py:366-385)."""
+    delr, deli = (a.real - d.real) * 0.5, (a.imag - d.imag) * 0.5
+    zr = delr * delr - deli * deli + b.real * c.real - b.imag * c.imag
+    zi = 2.0 * delr * deli + b.real * c.imag + b.imag * c.real
+    mz = torch.sqrt(zr * zr + zi * zi)
+    sqr = torch.sqrt(torch.clamp((mz + zr) * 0.5, min=0.0))
+    sqi_mag = torch.sqrt(torch.clamp((mz - zr) * 0.5, min=0.0))
+    sqi = torch.where(zi >= 0.0, sqi_mag, -sqi_mag)
+    mu1r, mu1i = d.real + delr + sqr, d.imag + deli + sqi
+    mu2r, mu2i = d.real + delr - sqr, d.imag + deli - sqi
+    m1 = (mu1r - d.real) ** 2 + (mu1i - d.imag) ** 2
+    m2 = (mu2r - d.real) ** 2 + (mu2i - d.imag) ** 2
+    pick1 = m1 < m2
+    return torch.complex(torch.where(pick1, mu1r, mu2r), torch.where(pick1, mu1i, mu2i))
+
+
+def deflate_and_lo(H: torch.Tensor, hi: int, tol: torch.Tensor):
+    """The Pallas kernel's window update (qr_kernels.py:339-351): the new
+    ``hi`` is 2 + the last c < hi - 1 whose subdiagonal ``H[c+1, c]`` is not
+    negligible (1 if none); ``lo`` is 1 + the last c < new hi - 1 whose
+    subdiagonal is negligible (0 if none). Negligible:
+    ``|H[c+1,c]| <= tol * max(|H[c,c]| + |H[c+1,c+1]|, 1)``."""
+    n = H.shape[0]
+    if n < 2:
+        return 1, 0
+    smag = abs2(H.diagonal(-1)).sqrt()
+    dmag = abs2(H.diagonal()).sqrt()
+    neg = smag <= tol * torch.clamp(dmag[:-1] + dmag[1:], min=1.0)
+    c = torch.arange(n - 1, device=H.device)
+    new_hi = int(torch.where((c < hi - 1) & ~neg, c, -1).max()) + 2
+    lo = int(torch.where((c < new_hi - 1) & neg, c, -1).max()) + 1
+    return new_hi, lo
+
+
+def givens(x: torch.Tensor, y: torch.Tensor):
+    """The rotation zeroing ``y`` under ``x`` (qr_kernels.py:405-415):
+    ``g00 = conj(x) / r``, ``g01 = conj(y) / r`` with ``r = sqrt(|x|^2 +
+    |y|^2)``; the identity when ``r = 0``."""
+    r2 = abs2(x) + abs2(y)
+    zero = r2 == 0
+    rinv = torch.rsqrt(torch.where(zero, 1, r2))
+    return (torch.where(zero, torch.ones_like(x), x.conj() * rinv),
+            torch.where(zero, 0, y.conj() * rinv))
+
+
+def rotate_rows(g00, g01, x: torch.Tensor, y: torch.Tensor):
+    """Rows k, k+1 under the left rotation: ``(g00 x + g01 y,
+    -conj(g01) x + conj(g00) y)``, as new tensors."""
+    return g00 * x + g01 * y, -g01.conj() * x + g00.conj() * y
 
 
 def check_square(name: str, a: torch.Tensor, codes: dict) -> int:

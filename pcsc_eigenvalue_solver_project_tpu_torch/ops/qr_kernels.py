@@ -12,9 +12,10 @@ all in ``csrc/qr_kernels.cu`` (see its header for the design):
   QR of ``H`` each sweep, then ``H := R Q``) until
   ``max|H[i,i-1]| <= tol * (1 + ||H||_F)``.
 
-The blocked Hessenberg reduction B11 (``ops/hessenberg_blocked.py``) and the
-triangular eigenvectors B14 (``ops/trisolve_vec.py``) have modules of their
-own; ``KERNELS`` lists all six.
+The blocked Hessenberg reduction B11 (``ops/hessenberg_blocked.py``), the
+triangular eigenvectors B14 (``ops/trisolve_vec.py``) and the blocked sweeps
+B13 (``ops/qr_eig_blocked.py``) have modules of their own; ``KERNELS`` lists
+all seven.
 
 The functions take native ``(n, n)`` tensors of float32, float64, complex64
 or complex128 (B8: complex only). The TPU's split re/im planes, its
@@ -38,9 +39,11 @@ import numpy as np
 import torch
 
 from . import _build
-from ._common import (COMPLEX_CODES, DTYPE_CODES, abs2, check_square, eye, ptr,
-                      raise_on_error, real_dtype, reflector, stream)
+from ._common import (COMPLEX_CODES, DTYPE_CODES, abs2, check_square, deflate_and_lo, eye,
+                      givens, ptr, raise_on_error, real_dtype, reflector, rotate_rows, stream,
+                      wilkinson_shift)
 from .hessenberg_blocked import hessenberg_blocked, hessenberg_blocked_kernel
+from .qr_eig_blocked import blocked_sweeps, qr_eig_blocked_kernel
 from .trisolve_vec import triangular_eigenvectors_device, triangular_eigenvectors_kernel
 
 # B10 enqueues sweeps in chunks of about this many launches and reads its
@@ -87,42 +90,6 @@ def qr_decompose_plain(a: torch.Tensor, kmax: int | None = None):
     return R, Q
 
 
-def _wilkinson_shift(a, b, c, d):
-    """Eigenvalue of ``[[a, b], [c, d]]`` nearest ``d``, in the plane
-    arithmetic of the Pallas kernel (qr_kernels.py:366-385)."""
-    delr, deli = (a.real - d.real) * 0.5, (a.imag - d.imag) * 0.5
-    zr = delr * delr - deli * deli + b.real * c.real - b.imag * c.imag
-    zi = 2.0 * delr * deli + b.real * c.imag + b.imag * c.real
-    mz = torch.sqrt(zr * zr + zi * zi)
-    sqr = torch.sqrt(torch.clamp((mz + zr) * 0.5, min=0.0))
-    sqi_mag = torch.sqrt(torch.clamp((mz - zr) * 0.5, min=0.0))
-    sqi = torch.where(zi >= 0.0, sqi_mag, -sqi_mag)
-    mu1r, mu1i = d.real + delr + sqr, d.imag + deli + sqi
-    mu2r, mu2i = d.real + delr - sqr, d.imag + deli - sqi
-    m1 = (mu1r - d.real) ** 2 + (mu1i - d.imag) ** 2
-    m2 = (mu2r - d.real) ** 2 + (mu2i - d.imag) ** 2
-    pick1 = m1 < m2
-    return torch.complex(torch.where(pick1, mu1r, mu2r), torch.where(pick1, mu1i, mu2i))
-
-
-def _deflate_and_lo(H: torch.Tensor, hi: int, tol: torch.Tensor):
-    """The Pallas kernel's window update (qr_kernels.py:339-351): the new
-    ``hi`` is 2 + the last c < hi - 1 whose subdiagonal ``H[c+1, c]`` is not
-    negligible (1 if none); ``lo`` is 1 + the last c < new hi - 1 whose
-    subdiagonal is negligible (0 if none). Negligible:
-    ``|H[c+1,c]| <= tol * max(|H[c,c]| + |H[c+1,c+1]|, 1)``."""
-    n = H.shape[0]
-    if n < 2:
-        return 1, 0
-    smag = abs2(H.diagonal(-1)).sqrt()
-    dmag = abs2(H.diagonal()).sqrt()
-    neg = smag <= tol * torch.clamp(dmag[:-1] + dmag[1:], min=1.0)
-    c = torch.arange(n - 1, device=H.device)
-    new_hi = int(torch.where((c < hi - 1) & ~neg, c, -1).max()) + 2
-    lo = int(torch.where((c < new_hi - 1) & neg, c, -1).max()) + 1
-    return new_hi, lo
-
-
 def qr_eig_plain(h: torch.Tensor, max_sweeps: int, tol: float,
                  accumulate_q: bool = False):
     """B8's plain version on a complex Hessenberg ``h``. Returns
@@ -137,25 +104,17 @@ def qr_eig_plain(h: torch.Tensor, max_sweeps: int, tol: float,
     H = h.clone()
     Q = eye(n, h) if accumulate_q else None
     tol_t = torch.tensor(tol, dtype=real_dtype(h.dtype), device=h.device)
-    one = torch.ones((), dtype=h.dtype, device=h.device)
-    hi, lo = _deflate_and_lo(H, n, tol_t)
+    hi, lo = deflate_and_lo(H, n, tol_t)
     sweeps = 0
     while hi > 1 and sweeps < max_sweeps:
-        mu = _wilkinson_shift(H[hi - 2, hi - 2], H[hi - 2, hi - 1],
+        mu = wilkinson_shift(H[hi - 2, hi - 2], H[hi - 2, hi - 1],
                               H[hi - 1, hi - 2], H[hi - 1, hi - 1])
         win = torch.arange(lo, hi, device=h.device)
         H[win, win] -= mu
         rotations = []
         for k in range(lo, hi - 1):
-            x, y = H[k, k], H[k + 1, k]
-            r2 = abs2(x) + abs2(y)
-            zero = r2 == 0
-            rinv = torch.rsqrt(torch.where(zero, 1, r2))
-            g00 = torch.where(zero, one, x.conj() * rinv)
-            g01 = torch.where(zero, 0, y.conj() * rinv)
-            rk, rk1 = H[k].clone(), H[k + 1].clone()
-            H[k] = g00 * rk + g01 * rk1
-            H[k + 1] = -g01.conj() * rk + g00.conj() * rk1
+            g00, g01 = givens(H[k, k], H[k + 1, k])
+            H[k], H[k + 1] = rotate_rows(g00, g01, H[k], H[k + 1])
             rotations.append((k, g00, g01))
         for M in (H, Q) if accumulate_q else (H,):
             for k, g00, g01 in rotations:
@@ -163,7 +122,7 @@ def qr_eig_plain(h: torch.Tensor, max_sweeps: int, tol: float,
                 M[:, k] = g00.conj() * ck + g01.conj() * ck1
                 M[:, k + 1] = -g01 * ck + g00 * ck1
         H[win, win] += mu
-        hi, lo = _deflate_and_lo(H, hi, tol_t)
+        hi, lo = deflate_and_lo(H, hi, tol_t)
         sweeps += 1
     out = (H.diagonal().clone(), torch.tensor(sweeps, dtype=torch.int32),
            torch.tensor(hi, dtype=torch.int32))
@@ -289,7 +248,7 @@ def qr_parity_kernel(h: torch.Tensor, max_iterations: int, tol: float):
 qr_parity_kernel.launches = 0
 
 KERNELS = (hessenberg_kernel, qr_eig_kernel, qr_decompose_kernel, qr_parity_kernel,
-           hessenberg_blocked_kernel, triangular_eigenvectors_kernel)
+           hessenberg_blocked_kernel, triangular_eigenvectors_kernel, qr_eig_blocked_kernel)
 
 
 def reset_launch_counts() -> None:
@@ -335,15 +294,18 @@ def parity_sweeps(h: torch.Tensor, max_iterations: int, tol: float):
     return qr_parity_kernel(h, max_iterations, tol)
 
 
-def accelerated_eigenvalues(a: torch.Tensor, max_sweeps: int, tol: float):
-    """Counterpart of ``qr_eigenvalues_pallas`` (eigenvalues only): B7 then
-    B8. A real matrix reduces in its real dtype and is widened to the
-    complex dtype of its precision for B8. Returns ``(eigenvalues, sweeps,
-    converged)`` with ``converged = hi <= 1``."""
+def accelerated_eigenvalues(a: torch.Tensor, max_sweeps: int, tol: float,
+                            blocked: bool = False):
+    """Counterpart of ``qr_eigenvalues_pallas`` (eigenvalues only): B7 (or
+    B11) then B8, or with ``blocked`` then B13 (``qr_eigenvalues_pallas_blocked``;
+    ``qr_eigenvalues`` sets it where ``qr_dispatch`` says
+    ``"cuda_blocked"``). A real matrix reduces in its real dtype and is
+    widened to the complex dtype of its precision for the sweeps. Returns
+    ``(eigenvalues, sweeps, converged)`` with ``converged = hi <= 1``."""
     h = hessenberg_reduce(a)
     if not h.is_complex():
         h = h.to(h.dtype.to_complex())
-    eig, sweeps, hi = qr_eig_sweeps(h, max_sweeps, tol)
+    eig, sweeps, hi = (blocked_sweeps if blocked else qr_eig_sweeps)(h, max_sweeps, tol)[:3]
     return eig, int(sweeps), int(hi) <= 1
 
 
@@ -398,16 +360,18 @@ def finish_eigenvectors_device(T: torch.Tensor, Q: torch.Tensor) -> torch.Tensor
     return V / abs2(V).sum(dim=0).sqrt().clamp_min(1e-30)
 
 
-def accelerated_eigenpairs(a: torch.Tensor, max_sweeps: int, tol: float):
+def accelerated_eigenpairs(a: torch.Tensor, max_sweeps: int, tol: float,
+                           blocked: bool = False):
     """Counterpart of ``qr_eigenvalues_pallas(compute_vectors=True)``
     (JAX ``qr_kernels.py:604-618``): the Hessenberg reduction with Q (B7 or
-    B11), the shifted sweeps with Schur Q (B8), ``Qh Qs`` and the
-    eigenvectors (B14). A real matrix reduces in its real dtype and is
-    widened to the complex dtype of its precision for B8. Returns
-    ``(eigenvalues, sweeps, converged, V)``; column k of ``V`` pairs with
-    ``eigenvalues[k]``."""
+    B11), the shifted sweeps with Schur Q (B8, or with ``blocked`` B13),
+    ``Qh Qs`` and the eigenvectors (B14). A real matrix reduces in its real
+    dtype and is widened to the complex dtype of its precision for the
+    sweeps. Returns ``(eigenvalues, sweeps, converged, V)``; column k of
+    ``V`` pairs with ``eigenvalues[k]``."""
     h, qh = hessenberg_reduce(a, accumulate_q=True)
     if not h.is_complex():
         h, qh = h.to(h.dtype.to_complex()), qh.to(qh.dtype.to_complex())
-    eig, sweeps, hi, t, qs = qr_eig_sweeps(h, max_sweeps, tol, accumulate_q=True)
+    sweep = blocked_sweeps if blocked else qr_eig_sweeps
+    eig, sweeps, hi, t, qs = sweep(h, max_sweeps, tol, accumulate_q=True)
     return eig, int(sweeps), int(hi) <= 1, finish_eigenvectors_device(t, qh @ qs)

@@ -20,9 +20,11 @@ real Francis iteration for real input and complex Givens sweeps for complex
 input, eigenpairs through ``_qr_eigenvectors_xla`` — so the CPU tests
 compare like with like. A CUDA tensor takes the kernels for every dtype:
 parity runs the Hessenberg reduction (B7, or B11 from
-``HESSENBERG_BLOCKED_MIN_N`` on) then B10, accelerated the reduction then
-B8, and eigenpairs the reduction and B8 with Q, then B14
-(``ops/qr_kernels.py``).
+``HESSENBERG_BLOCKED_MIN_N`` on) then B10 at every n; accelerated mode runs
+the reduction then the unblocked sweeps B8 up to ``UNBLOCKED_MAX_N`` and the
+blocked sweeps B13 beyond it; eigenpairs run the reduction with Q, the same
+sweeps with Schur Q, then B14 (``ops/qr_kernels.py``,
+``ops/qr_eig_blocked.py``).
 """
 
 from __future__ import annotations
@@ -330,26 +332,34 @@ def _qr_eigenvalues_accel_real(H0: torch.Tensor, max_sweeps: int, tol: float):
 # public wrapper
 # ---------------------------------------------------------------------------
 
-# n beyond which the unblocked sweep kernels B8/B10 should hand over to the
-# blocked sweeps B13. None: no boundary until B13 is ported (ROADMAP A7); the
-# unblocked kernels have no size cap on this card.
-UNBLOCKED_MAX_N: int | None = None
+# The largest n at which the accelerated sweeps run unblocked (B8); beyond it
+# they run blocked (B13). chip_smoke.py's boundary sweep on an NVIDIA H100
+# 80GB HBM3 at 700 W (complex64, PERF.md section 6): B13 ahead from
+# 1024 on in every measure (per full-window sweep, whole solves of the bench
+# and of a non-symmetric operand); at 512 B13 ahead per sweep (0.57 against
+# 0.76 ms) and on the non-symmetric solve (297 against 420 ms), but B8 ahead
+# on the bench solve (6.3 against 11.7 ms), whose active window stays small;
+# B8 ahead in every measure at 128 and 256. So at 512 the choice favours
+# small active windows, at a cost of about 30% on solves whose window starts
+# full; choosing after the first deflation scan would serve both (PERF.md
+# section 7).
+UNBLOCKED_MAX_N: int | None = 512
 
 
 def qr_dispatch(n: int, device) -> str:
     """Which engine a QR eigenvalue solve of an n x n matrix uses:
-    ``"torch"`` for a CPU tensor (the JAX package's CPU route) and
-    ``"cuda_unblocked"`` for a CUDA tensor, of any dtype: the unblocked
-    sweeps B8 (accelerated) or B10 (parity) after the Hessenberg reduction,
-    which is itself blocked (B11) from ``HESSENBERG_BLOCKED_MIN_N`` on
-    (``solvers/hessenberg.py``). ``UNBLOCKED_MAX_N``, the boundary to the
-    blocked sweeps B13, stays None until B13 exists."""
+    ``"torch"`` for a CPU tensor (the JAX package's CPU route);
+    ``"cuda_unblocked"`` for a CUDA tensor with ``n <= UNBLOCKED_MAX_N``
+    (accelerated sweeps B8) and ``"cuda_blocked"`` beyond it (accelerated
+    sweeps B13), of any dtype. Parity mode runs B10 on either CUDA engine:
+    the JAX package has no blocked parity kernel. The Hessenberg reduction
+    before the sweeps is B11 from ``HESSENBERG_BLOCKED_MIN_N`` on and B7
+    below it (``solvers/hessenberg.py``)."""
     if torch.device(device).type == "cpu":
         return "torch"
     if UNBLOCKED_MAX_N is None or n <= UNBLOCKED_MAX_N:
         return "cuda_unblocked"
-    raise NotImplementedError(
-        f"qr_dispatch: n={n} needs the blocked QR kernels B11-B13 (ROADMAP A7)")
+    return "cuda_blocked"
 
 
 def qr_eigenvalues(M: AbstractMatrix, opts: SolverOptions = QROptions(), *,
@@ -363,8 +373,8 @@ def qr_eigenvalues(M: AbstractMatrix, opts: SolverOptions = QROptions(), *,
     eigenvalues; parity mode keeps the input's dtype. With
     ``QROptions(mode="accelerated", compute_vectors=True)`` the result also
     carries ``eigenvectors`` (n x n, complex, unit columns; column k pairs
-    with ``eigenvalues[k]``): on a CUDA tensor from B7 or B11, B8 and B14 at
-    every n and dtype, on a CPU tensor from the JAX package's CPU route.
+    with ``eigenvalues[k]``): on a CUDA tensor from B7 or B11, B8 or B13 and
+    B14 at every n and dtype, on a CPU tensor from the JAX package's CPU route.
     """
     from ..ops.qr_kernels import (accelerated_eigenpairs, accelerated_eigenvalues,
                                   parity_eigenvalues)
@@ -386,19 +396,20 @@ def qr_eigenvalues(M: AbstractMatrix, opts: SolverOptions = QROptions(), *,
     if mode == "accelerated" and opts.compute_vectors and n > 0:
         if engine == "torch":
             return _qr_eigenvectors_xla(a, max_it, dtol)
-        eigs, sweeps, conv, V = accelerated_eigenpairs(a, max_it, dtol)
+        eigs, sweeps, conv, V = accelerated_eigenpairs(a, max_it, dtol,
+                                                       engine == "cuda_blocked")
         res = _result(eigs, sweeps, conv)
         res.eigenvectors = V
         return res
 
-    if engine == "cuda_unblocked":
+    if engine != "torch":
         if n == 0:
             empty_dt = a.dtype if mode == "parity" else complex_dtype_of(a.dtype)
             return _result(torch.zeros((0,), dtype=empty_dt, device=a.device), 0, True)
         if mode == "parity":
             eigs, iterations, conv, _ = parity_eigenvalues(a, max_it, opts.tolerance)
             return _result(eigs, iterations, conv)
-        eigs, sweeps, conv = accelerated_eigenvalues(a, max_it, dtol)
+        eigs, sweeps, conv = accelerated_eigenvalues(a, max_it, dtol, engine == "cuda_blocked")
         return _result(eigs, sweeps, conv)
 
     if mode == "parity":

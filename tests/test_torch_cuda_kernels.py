@@ -31,6 +31,11 @@ grows Y by up to ~1e18 on a random triangle, which amplifies the summation
 order; 6.7e-6 measured between the plain version and the Pallas kernel) and
 to 1e-10 in complex128, and both to the residual ``|T y - lambda y|`` of
 tests/test_trisolve.py (5e-3 in complex64).
+
+The blocked sweeps B13 are held to their plain version like B8: after a fixed
+budget with deflation off, T and Q to ten units (the products sum in another
+order than torch.matmul), the sweep count and window exactly, and
+``||H - Q T Q^H||`` to one unit; to convergence, the spectrum as B8's.
 """
 
 import numpy as np
@@ -39,9 +44,11 @@ import torch
 
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import hessenberg_blocked as hb
+from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_eig_blocked as qb
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import trisolve_vec as tv
 from pcsc_eigenvalue_solver_project_tpu_torch.solvers import hessenberg as hs
+from pcsc_eigenvalue_solver_project_tpu_torch.solvers import qr_eigenvalues as qe
 
 pytestmark = pytest.mark.cuda
 
@@ -343,7 +350,7 @@ def test_public_qr_functions_on_the_card(cuda, dtype):
         mode="accelerated", tolerance=1e-12 if double else 1e-6, max_iterations=60 * n))
     parity = eigsol.qr_eigenvalues(M, eigsol.QROptions(mode="parity", max_iterations=5))
     torch.cuda.synchronize()
-    assert [k.launches for k in qk.KERNELS] == [3, 1, 1, 1, 0, 0]
+    assert [k.launches for k in qk.KERNELS] == [3, 1, 1, 1, 0, 0, 0]
     assert h.device.type == q.device.type == accel.eigenvalues.device.type == "cuda"
     assert accel.eigenvalues.dtype == (dtype if dtype.is_complex else dtype.to_complex())
     assert parity.eigenvalues.dtype == dtype
@@ -452,7 +459,8 @@ def test_eigenvector_kernel_rejects_real_input(cuda):
 @pytest.mark.parametrize("dtype", QR_DTYPES)
 @pytest.mark.parametrize("n", [24, 200])
 def test_public_eigenpairs_on_the_card(cuda, n, dtype):
-    # qr_eigenvalues(compute_vectors=True) on a CUDA tensor: B7 + B8 + B14
+    # qr_eigenvalues(compute_vectors=True) on a CUDA tensor: B7 + B8 (B13
+    # beyond UNBLOCKED_MAX_N) + B14
     import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
     a = dense(n, dtype, seed=11, device=cuda)
     double = is_double(dtype)
@@ -461,7 +469,8 @@ def test_public_eigenpairs_on_the_card(cuda, n, dtype):
         mode="accelerated", compute_vectors=True, tolerance=1e-12 if double else 1e-6,
         max_iterations=60 * n))
     torch.cuda.synchronize()
-    assert [k.launches for k in qk.KERNELS] == [1, 1, 0, 0, 0, 1]
+    blocked = qe.qr_dispatch(n, a.device) == "cuda_blocked"
+    assert [k.launches for k in qk.KERNELS] == [1, int(not blocked), 0, 0, 0, 1, int(blocked)]
     assert bool(r.converged)
     cdt = dtype if dtype.is_complex else dtype.to_complex()
     V, lam = r.eigenvectors, r.eigenvalues
@@ -474,3 +483,95 @@ def test_public_eigenpairs_on_the_card(cuda, n, dtype):
     assert res <= 10 * qr_tol(dtype, n) * float(torch.linalg.matrix_norm(ac, 2))
     ev = np.linalg.eigvals(a.cpu().numpy().astype(np.complex128))
     assert matched_err(lam.cpu().numpy(), ev) <= (1e-9 if double else 1e-3) * float(a.abs().max())
+
+
+# --------------------------------------------------------------------------
+# Blocked shifted sweeps B13
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n,block", [(2, 32), (5, 3), (31, 32), (33, 32), (65, 32), (100, 7),
+                                     (129, 64), (512, 32)])
+def test_blocked_sweeps_kernel_matches_plain(cuda, n, block, dtype):
+    h = qk.hessenberg_plain(dense(n, dtype, seed=400 + n, device=cuda))
+    scale = float(h.abs().max())
+    tol = qr_tol(dtype, n)
+    # a fixed budget with deflation off (n <= 2 converges at once, and
+    # deflating at exact zero would race the rounding): the same iterates
+    budget_tol = 0.0 if n > 2 else 1e-6
+    before = qb.qr_eig_blocked_kernel.launches
+    e, s, hi, t, q = qb.qr_eig_blocked_kernel(h, 6, budget_tol, accumulate_q=True, block=block)
+    e_only, s_only, hi_only = qb.qr_eig_blocked_kernel(h, 6, budget_tol, block=block)
+    torch.cuda.synchronize()
+    assert qb.qr_eig_blocked_kernel.launches == before + 2
+    ep, sp, hip, tp, qp = qb.qr_eig_blocked_plain(h, 6, budget_tol, accumulate_q=True,
+                                                  block=block)
+    assert (int(s), int(hi)) == (int(s_only), int(hi_only)) == (int(sp), int(hip))
+    assert rel_to(t, tp, scale) <= 10 * tol and rel_to(q, qp, 1.0) <= 10 * tol
+    assert rel_to(e_only, ep, scale) <= 10 * tol
+    assert rel_to(q @ t @ q.conj().T, h, scale) <= tol
+    # to convergence: the same spectrum as B8's test
+    e, s, hi = qb.qr_eig_blocked_kernel(h, 60 * n, 1e-6 if dtype == torch.complex64 else 1e-12,
+                                        block=block)
+    assert int(hi) <= 1
+    ev = np.linalg.eigvals(h.cpu().numpy().astype(np.complex128))
+    limit = 1e-9 if dtype == torch.complex128 else 1e-3
+    assert matched_err(e.cpu().numpy(), ev) <= limit * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_blocked_sweeps_schedule_and_resumed_q(cuda, dtype):
+    # a 3-shift schedule, resumed in Schur mode from a unitary q, at block
+    # edges (65 = 2 * 32 + 1)
+    n = 65
+    h = qk.hessenberg_plain(dense(n, dtype, seed=7, device=cuda))
+    q0, _ = torch.linalg.qr(dense(n, dtype, seed=8, device=cuda))
+    shifts = torch.tensor([0.3 + 0.1j, -0.2, 0.5 - 0.4j], dtype=dtype, device=cuda)
+    scale, tol = float(h.abs().max()), qr_tol(dtype, n)
+    t, q, e, s, hi = qb.qr_eig_blocked_step_q(h, q0, 4, 0.0, shifts)
+    tp, qp, ep, sp, hip = qb.qr_eig_blocked_step_q(h.cpu(), q0.cpu(), 4, 0.0, shifts.cpu())
+    assert (int(s), int(hi)) == (int(sp), int(hip)) == (4, n)
+    assert rel_to(t.cpu(), tp, scale) <= 10 * tol and rel_to(q.cpu(), qp, 1.0) <= 10 * tol
+    assert rel_to(q @ t @ q.conj().T, q0 @ h @ q0.conj().T, scale) <= tol
+    h1, e1, s1, _ = qb.qr_eig_blocked_step(h, 4, 0.0, shifts)
+    assert rel_to(h1, t, scale) <= 10 * tol  # the same sweeps without Q
+
+
+def test_accelerated_solves_take_the_blocked_sweeps_beyond_the_boundary(cuda, monkeypatch):
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    monkeypatch.setattr(qe, "UNBLOCKED_MAX_N", 16)
+    for n, dtype in ((16, torch.float32), (40, torch.float32), (40, torch.complex128)):
+        a = dense(n, dtype, seed=n, device=cuda)
+        blocked = n > 16
+        for vectors in (False, True):
+            qk.reset_launch_counts()
+            r = eigsol.qr_eigenvalues(eigsol.DenseMatrix(a), eigsol.QROptions(
+                mode="accelerated", compute_vectors=vectors, max_iterations=60 * n,
+                tolerance=1e-12 if is_double(dtype) else 1e-6))
+            torch.cuda.synchronize()
+            assert [k.launches for k in qk.KERNELS] == \
+                [1, int(not blocked), 0, 0, 0, int(vectors), int(blocked)]
+            assert bool(r.converged)
+            ev = np.linalg.eigvals(a.cpu().numpy().astype(np.complex128))
+            limit = 1e-9 if is_double(dtype) else 1e-3
+            assert matched_err(r.eigenvalues.cpu().numpy(), ev) <= limit * float(a.abs().max())
+            if vectors:
+                ac, V, lam = a.to(r.eigenvalues.dtype), r.eigenvectors, r.eigenvalues
+                res = float((ac @ V - V * lam[None, :]).abs().square().sum(0).sqrt().max())
+                assert res <= 10 * qr_tol(dtype, n) * float(torch.linalg.matrix_norm(ac, 2))
+        # parity mode stays on B10 beyond the boundary
+        qk.reset_launch_counts()
+        eigsol.qr_eigenvalues(eigsol.DenseMatrix(a), eigsol.QROptions(mode="parity",
+                                                                      max_iterations=3))
+        assert [k.launches for k in qk.KERNELS] == [1, 0, 0, 1, 0, 0, 0]
+
+
+def test_blocked_sweeps_kernel_rejects_what_it_does_not_take(cuda):
+    a = dense(8, torch.float32, seed=0, device=cuda)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        qb.qr_eig_blocked_kernel(a, 10, 1e-6)  # complex only, as B8
+    c = a.to(torch.complex64)
+    with pytest.raises(ValueError, match="q must match"):
+        qb.qr_eig_blocked_kernel(c, 10, 1e-6, accumulate_q=True, q=c[:4, :4].contiguous())
+    with pytest.raises(ValueError, match="shifts"):
+        qb.qr_eig_blocked_kernel(c, 10, 1e-6, shifts=c[:0, 0])

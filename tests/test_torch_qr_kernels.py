@@ -306,14 +306,19 @@ class TestDispatch:
         assert all(k.launches == 0 for k in tq.KERNELS)
 
     def test_dispatch_table(self):
+        from pcsc_eigenvalue_solver_project_tpu_torch.solvers.qr_eigenvalues import (
+            UNBLOCKED_MAX_N)
         assert qr_dispatch(512, "cpu") == "torch"
-        for n in (1, 512, 4096, 65536):  # no size cap on the unblocked kernels yet
-            assert qr_dispatch(n, torch.device("cuda")) == "cuda_unblocked"
+        for n in (1, 512, 4096, 65536):  # the unblocked sweeps up to UNBLOCKED_MAX_N, then B13
+            blocked = UNBLOCKED_MAX_N is not None and n > UNBLOCKED_MAX_N
+            assert qr_dispatch(n, torch.device("cuda")) == \
+                ("cuda_blocked" if blocked else "cuda_unblocked")
 
     def test_reset_launch_counts(self):
         for k in tq.KERNELS:
             k.launches = 3
         tq.reset_launch_counts()
-        assert [k.launches for k in tq.KERNELS] == [0] * 6
+        assert [k.launches for k in tq.KERNELS] == [0] * 7
         assert {k.__name__ for k in tq.KERNELS} >= {"hessenberg_blocked_kernel",
-                                                   "triangular_eigenvectors_kernel"}
+                                                   "triangular_eigenvectors_kernel",
+                                                   "qr_eig_blocked_kernel"}
