@@ -244,7 +244,14 @@ def planted_band(n, dtype, seed):
 
 def scipy_dominant(data: np.ndarray, offsets) -> complex:
     """Dominant eigenvalue of the DIA operator by ARPACK in float64."""
-    from scipy.sparse.linalg import LinearOperator, eigs
+    return complex(scipy_top(data, offsets, 1)[0])
+
+
+def scipy_top(data: np.ndarray, offsets, k: int, which: str = "LM",
+              symmetric: bool = False) -> np.ndarray:
+    """k eigenvalues of the DIA operator by ARPACK in float64 (``eigsh`` for
+    a symmetric operator)."""
+    from scipy.sparse.linalg import LinearOperator, eigs, eigsh
     n = data.shape[1]
     dt = np.complex128 if data.dtype.kind == "c" else np.float64
     vals = data.astype(dt)
@@ -260,8 +267,11 @@ def scipy_dominant(data: np.ndarray, offsets) -> complex:
         return y
 
     op = LinearOperator((n, n), matvec=matvec, dtype=dt)
-    lam = eigs(op, k=1, which="LM", v0=np.ones(n, dt), return_eigenvectors=False)
-    return complex(lam[0])
+    if symmetric:
+        return eigsh(op, k=k, which=which, v0=np.ones(n, dt), ncv=max(2 * k + 1, 20),
+                     return_eigenvectors=False)
+    return eigs(op, k=k, which=which, v0=np.ones(n, dt), ncv=max(2 * k + 1, 20),
+                return_eigenvectors=False)
 
 
 def nearest_err(got, want) -> float:
@@ -573,21 +583,26 @@ def blocked_kernel_phase(dev, card_name, card_limit):
 
 
 def profile_breakdown(label, fn, top=8):
-    """Device time by kernel name over one call of ``fn`` (torch.profiler).
-    A breakdown only: a profiler that records nothing is reported, not
-    failed on."""
+    """Device time by kernel name over one call of ``fn`` (torch.profiler),
+    and the device's busy share of the call's wall-clock. A breakdown only:
+    a profiler that records nothing is reported, not failed on."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device rows only: an aten:: operator's row repeats the time of its kernels
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
+            if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
     if not rows:
         print(f"profile {label}: no device time recorded (not measured)")
     total = sum(ms for _, ms, _ in rows)
+    print(f"profile {label}: {total:.3f} ms of device time in {wall_ms:.3f} ms of wall-clock "
+          f"under the profiler, device busy {total / wall_ms:.1%}")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"profile {label}: {ms:.3f} ms of {total:.3f} ms device time in {count} "
               f"launches of {key[:90]}")
@@ -986,6 +1001,290 @@ def blocked_path_phase(eigsol, dev):
         print(line)
 
 
+class PlainMatvec:
+    """A split operator with its matvec replaced by the plain version: the
+    reference loop of phase 16."""
+
+    def __init__(self, op, matvec):
+        self.op, self.matvec = op, matvec
+
+    def __getattr__(self, name):
+        return getattr(self.op, name)
+
+
+def symmetric_band(n, boost, seed):
+    """A symmetric 33-diagonal band, uniform(-0.5, 0.5) entries, with
+    ``boost`` added to the head of the diagonal (tests/test_lanczos.py's
+    construction), as float32 numpy data (k, n)."""
+    rng = np.random.default_rng(seed)
+    offs = tuple(range(-BANDWIDTH, BANDWIDTH + 1))
+    data = np.zeros((len(offs), n), np.float32)
+    for d, off in enumerate(offs):
+        if off < 0:
+            continue
+        v = rng.uniform(-0.5, 0.5, n).astype(np.float32)
+        if off > 0:
+            v[n - off:] = 0
+            data[offs.index(-off), off:] = v[:n - off]
+        data[d] = v
+    data[BANDWIDTH, :len(boost)] += np.asarray(boost, np.float32)
+    return data
+
+
+def banded_block_kernel_phase(ctx):
+    """Phase 15: the split-plane kernels (B4 interleaved, B3's planes entry
+    row-major) and the block kernel B5 (row-major and interleaved) against
+    their plain versions on the bench operator (1M rows, 33 diagonals), with
+    each time per call beside the plain version's, and the library call
+    ``torch.sparse.mm`` of the band's CSR times the (n, 8) block. Returns
+    ({tag: max abs error}, {tag: (kernel ms, plain ms, bytes)}, {tag: library ms})."""
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch import SplitComplexDIA
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+
+    dev, offs, op32, op64c, xc = ctx["dev"], ctx["offs"], ctx["op32"], ctx["op64c"], ctx["xc"]
+    card_name, card_limit = ctx["card_name"], ctx["card_limit"]
+    rng = np.random.default_rng(90)
+    errors, timings, library = {}, {}, {}
+
+    def compare(label, tag, y, y_ref, limit, main_case=False):
+        torch.cuda.synchronize()
+        err = rel_err(y, y_ref)
+        print(f"check {label}: rel err {err:.3e} (limit {limit:.0e})")
+        check(torch.isfinite(y).all().item(), f"{label}: non-finite output")
+        check(err <= limit, f"{label}: rel err {err:.3e} above {limit:.0e}")
+        if main_case:
+            errors[tag] = float((y - y_ref).abs().max())
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def plain_timer(fn):
+        return time_ms(fn, reps=5)
+
+    # B3's planes entry and B4 on the planes of the complex bench operator
+    sc = SplitComplexDIA.from_complex_dia(op64c)
+    xp = torch.stack([xc.real, xc.imag]).contiguous()
+    y = ds.dia_matvec_planes(sc.planes, offs, xp)
+    compare(f"planes dia_planes_kernel float32 n={N}", "planes", y,
+            ds.dia_matvec_planes_plain(sc.planes, offs, xp), 1e-5, True)
+    compare(f"planes dia_planes_kernel against B3 complex64 n={N}", "planes",
+            torch.complex(y[0], y[1]), ds.dia_matvec(op64c.data, offs, xc), 1e-5)
+    k_ms, p_ms = timed_pair(lambda: ds.dia_planes_kernel(sc.planes, offs, xp),
+                            lambda: ds.dia_matvec_planes_plain(sc.planes, offs, xp),
+                            plain_timer=plain_timer)
+    timings[("planes", torch.float32)] = (k_ms, p_ms, nbytes(sc.planes, xp, y))
+    pr = ds.il_window_halo(offs)
+    for dt in (torch.float32, torch.bfloat16):
+        il = SplitComplexDIA(planes=sc.planes.to(dt), offsets=offs, shape=sc.shape).interleaved()
+        x_il = il.encode_vec(xp)
+        y_il = ds.dia_matvec_il_planes(il.planes_il, offs, x_il)
+        compare(f"B4 dia_il_planes_kernel {dt} n={N}", "B4", y_il,
+                ds.dia_matvec_il_planes_plain(il.planes_il, offs, x_il), 1e-5,
+                dt == torch.float32)
+        w = ds._il_window(x_il, pr)
+        k_ms, p_ms = timed_pair(lambda: ds.dia_il_planes_kernel(il.planes_il, offs, w),
+                                lambda: ds.dia_matvec_il_planes_plain(il.planes_il, offs, x_il),
+                                plain_timer=plain_timer)
+        timings[("B4", dt)] = (k_ms, p_ms, nbytes(il.planes_il, w, y_il))
+        k_ms = min(time_ms(lambda: ds.dia_matvec_il_planes(il.planes_il, offs, x_il))
+                   for _ in range(2))
+        timings[("B4+window", dt)] = (k_ms, p_ms, nbytes(il.planes_il, w, y_il))
+    # B5 row-major and interleaved: nvec 8 in f32 and bf16, the ragged
+    # chunks 1, 3 and 13 in f32, one complex64 case
+    cases = [(8, torch.float32), (8, torch.bfloat16), (1, torch.float32), (3, torch.float32),
+             (13, torch.float32), (8, torch.complex64)]
+    for nvec, dt in cases:
+        vals = op64c.data if dt.is_complex else op32.data.to(dt)
+        xs = rng.uniform(-1, 1, (nvec, N))
+        if dt.is_complex:
+            xs = xs + 1j * rng.uniform(-1, 1, (nvec, N))
+        xs = torch.from_numpy(xs).to(dev, ds.acc_dtype(dt))
+        main = nvec == 8 and dt == torch.float32
+        ys = ds.dia_matmat(vals, offs, xs)
+        compare(f"B5 dia_block_kernel {dt} nvec={nvec} n={N}", "B5", ys,
+                ds.dia_matmat_plain(vals, offs, xs), 1e-5, main)
+        il_vals = ds.interleave_dia_vals(vals, ds.il_rows(N))
+        xs_il = torch.stack([ds.interleave_vec(v, il_vals.shape[1]) for v in xs])
+        ys_il = ds.dia_matmat_il(il_vals, offs, xs_il)
+        compare(f"B5 dia_il_block_kernel {dt} nvec={nvec} n={N}", "B5il", ys_il,
+                ds.dia_matmat_il_plain(il_vals, offs, xs_il), 1e-5, main)
+        if nvec == 8 and not dt.is_complex:
+            k_ms, p_ms = timed_pair(lambda: ds.dia_block_kernel(vals, offs, xs),
+                                    lambda: ds.dia_matmat_plain(vals, offs, xs),
+                                    plain_timer=plain_timer)
+            timings[("B5", dt)] = (k_ms, p_ms, nbytes(vals, xs, ys))
+            w8 = ds._il_window(xs_il, pr)
+            k_ms, p_ms = timed_pair(lambda: ds.dia_il_block_kernel(il_vals, offs, w8),
+                                    lambda: ds.dia_matmat_il_window_plain(il_vals, offs, w8),
+                                    plain_timer=plain_timer)
+            timings[("B5il", dt)] = (k_ms, p_ms, nbytes(il_vals, w8, ys_il))
+            if dt == torch.float32:
+                # the library call: CSR times the (n, 8) block (timed only)
+                csr = band_csr(vals, offs)
+                block = xs.T.contiguous()
+                y_lib = torch.sparse.mm(csr, block)
+                print(f"library torch.sparse.mm (CSR) x (n, 8) float32 n={N}: rel err against "
+                      f"the plain version {rel_err(y_lib.T, ys):.2e}")
+                lib_ms = time_events_ms(lambda: torch.sparse.mm(csr, block), reps=20)
+                library.update({"B5": lib_ms, "B5il": lib_ms})
+                print(f"time library torch.sparse.mm (CSR) x (n, 8) float32 {N}x33: "
+                      f"{lib_ms * 1e3:.1f} us [{card_name}, {card_limit}]")
+                del csr, y_lib
+        del xs, ys, xs_il, ys_il, il_vals
+    for (tag, dt), (k_ms, p_ms, nb) in timings.items():
+        print(f"time {tag} {dt} {N}x33: kernel {k_ms * 1e3:.1f} us "
+              f"({nb / (k_ms * 1e-3) / 1e9:.0f} GB/s, {nb / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1%} "
+              f"of 3.35 TB/s), plain {p_ms * 1e3:.1f} us [{card_name}, {card_limit}]")
+    return errors, timings, library
+
+
+def banded_block_path_phase(ctx):
+    """Phase 16: the split-plane power method and the block solvers through
+    the public API at 1M x 33 on the card: (a) ``power_method`` on
+    ``SplitComplexDIA`` (f32 planes) and ``InterleavedSplitComplexDIA`` (f32
+    and bf16 planes) of the planted complex band of phases 4-5, with a fixed
+    budget (held to the loop driven by the plain planes matvec) and
+    converging (held to scipy's ``eigs``); (b) ``subspace_iteration(k=3,
+    block=8)`` on the planted real band as ``SparseDIA`` and
+    ``InterleavedDIA``, held to scipy's ``eigs(k=3)``; (c)
+    ``chebyshev_subspace_iteration(k=4)`` on a symmetric band with four
+    planted top values, row-major and interleaved, held to scipy's
+    ``eigsh(k=4, which="LA")``. The launch counts are zeroed just before and
+    read just after the runs (the references and oracles run outside)."""
+    import torch
+
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import split_complex as sc_ops
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers import subspace as sub
+
+    dev, offs = ctx["dev"], ctx["offs"]
+    card_name, card_limit = ctx["card_name"], ctx["card_limit"]
+    planted, planted_c = ctx["planted"], ctx["planted_c"]
+    x0 = np.random.default_rng(4).uniform(-1, 1, (2, N))
+    budget = eigsol.SolverOptions(max_iterations=200, tolerance=0.0)
+    converge = eigsol.SolverOptions(max_iterations=1000, tolerance=1e-6)
+    sc32 = eigsol.SplitComplexDIA.from_complex_dia(
+        eigsol.SparseDIA(data=torch.from_numpy(planted_c).to(dev), offsets=offs, shape=(N, N)))
+    sc16 = eigsol.SplitComplexDIA(planes=sc32.planes.to(torch.bfloat16), offsets=offs,
+                                  shape=(N, N))
+    p32 = eigsol.SparseDIA(data=torch.from_numpy(planted).to(dev), offsets=offs, shape=(N, N))
+    sym = symmetric_band(N, (8.0, 7.0, 6.5, 6.0), seed=5)
+    s32 = eigsol.SparseDIA(data=torch.from_numpy(sym).to(dev), offsets=offs, shape=(N, N))
+    powers = {"split f32": sc32, "split IL f32": sc32.interleaved(),
+              "split IL bf16": sc16.interleaved()}
+    blocks = {"subspace DIA f32": (p32, "subspace"),
+              "subspace IL f32": (p32.interleaved(), "subspace"),
+              "chebyshev DIA f32": (s32, "chebyshev"),
+              "chebyshev IL f32": (s32.interleaved(), "chebyshev")}
+    sub_opts = eigsol.SolverOptions(max_iterations=300, tolerance=1e-6)
+    cheb_opts = eigsol.SolverOptions(max_iterations=200, tolerance=1e-5)
+
+    def solve(M, kind):
+        if kind == "subspace":
+            return eigsol.subspace_iteration(M, k=3, block=8, opts=sub_opts)
+        return eigsol.chebyshev_subspace_iteration(M, k=4, opts=cheb_opts)
+
+    for M in powers.values():  # warm-up (allocator, library handles)
+        eigsol.power_method(M, eigsol.SolverOptions(max_iterations=3), x0=x0)
+    for M, kind in blocks.values():
+        eigsol.subspace_iteration(M, k=3, block=8, opts=eigsol.SolverOptions(max_iterations=1),
+                                  sweeps_per_check=1)
+    torch.cuda.synchronize()
+
+    t_path = time.perf_counter()
+    ds.reset_launch_counts()
+    results, seconds = {}, {}
+    for name, M in powers.items():
+        for label, opts in (("budget", budget), ("converge", converge)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            results[(name, label)] = eigsol.power_method(M, opts, x0=x0)
+            end.record()
+            end.synchronize()
+            seconds[(name, label)] = start.elapsed_time(end) / 1e3
+    for name, (M, kind) in blocks.items():
+        t0 = time.perf_counter()
+        results[name] = solve(M, kind)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in ds.KERNELS}
+    print(f"phase-16 launches: {launches}")
+    for name in ("dia_il_planes_kernel", "dia_planes_kernel", "dia_block_kernel",
+                 "dia_il_block_kernel"):
+        check(launches[name] > 0, f"{name} was not launched by the phase-16 paths")
+
+    # (a) the split-plane power method
+    oracle = {"f32": scipy_dominant(planted_c, offs),
+              "bf16": scipy_dominant((sc16.planes[0].float() + 1j * sc16.planes[1].float())
+                                     .cpu().numpy(), offs)}
+    for name, M in powers.items():
+        r = results[(name, "budget")]
+        plain = (ds.dia_matvec_il_planes_plain if name.startswith("split IL")
+                 else ds.dia_matvec_planes_plain)
+        planes = M.planes_il if hasattr(M, "planes_il") else M.planes
+        ref = eigsol.power_method_split_complex(
+            PlainMatvec(M, lambda v, planes=planes, plain=plain: plain(planes, offs, v)),
+            budget, x0=x0)
+        lam = complex(sc_ops.from_planes(r.eigenvalue))
+        lam_ref = complex(sc_ops.from_planes(ref.eigenvalue))
+        err = abs(lam - lam_ref) / abs(lam_ref)
+        per_iter = seconds[(name, "budget")] / int(r.iterations)
+        print(f"power {name} budget: lambda {lam:.7g} vs plain loop {lam_ref:.7g} (rel "
+              f"{err:.2e}, limit 1e-4), {int(r.iterations)} iterations (plain loop "
+              f"{int(ref.iterations)}), {per_iter * 1e6:.1f} us/iteration "
+              f"[{card_name}, {card_limit}]")
+        check(int(r.iterations) == int(ref.iterations) == budget.max_iterations,
+              f"{name}: iteration counts")
+        check(r.eigenvector.shape == (2, N) and torch.isfinite(r.eigenvector).all().item(),
+              f"{name}: bad eigenvector")
+        check(err <= 1e-4, f"{name}: eigenvalue off the plain loop by {err:.2e}")
+        r = results[(name, "converge")]
+        lam, lam_ref = complex(sc_ops.from_planes(r.eigenvalue)), oracle[name.split()[-1]]
+        err = abs(lam - lam_ref) / abs(lam_ref)
+        print(f"power {name} converge: lambda {lam:.7g} vs scipy eigs {lam_ref:.7g} (rel "
+              f"{err:.2e}, limit 1e-4), {int(r.iterations)} iterations, "
+              f"converged={bool(r.converged)}, {seconds[(name, 'converge')]:.3f} s")
+        check(bool(r.converged), f"{name}: did not converge")
+        check(err <= 1e-4, f"{name}: eigenvalue off scipy by {err:.2e}")
+    # (b) and (c) the block solvers
+    oracles = {"subspace": scipy_top(planted, offs, 3),
+               "chebyshev": scipy_top(sym, offs, 4, which="LA", symmetric=True)}
+    for name, (M, kind) in blocks.items():
+        r = results[name]
+        want = oracles[kind]
+        got = r.eigenvalues.cpu().numpy()
+        err = nearest_err(got, want) / np.abs(want).max()
+        print(f"{name}: Ritz values {np.round(got, 6)} vs scipy {np.round(want, 6)} (rel "
+              f"{err:.2e}, limit 1e-4), {int(r.iterations)} sweeps, "
+              f"converged={bool(r.converged)}, {seconds[name]:.3f} s [{card_name}, {card_limit}]")
+        check(got.shape == want.shape and np.isfinite(got).all(), f"{name}: bad Ritz values")
+        check(bool(r.converged), f"{name}: did not converge")
+        check(err <= 1e-4, f"{name}: Ritz values off scipy by {err:.2e}")
+    print(f"phase-16 paths: {time.perf_counter() - t_path:.1f} s")
+    # where a subspace chunk's time goes (10 sweeps of k=3, block 8)
+    for name in ("subspace DIA f32", "subspace IL f32"):
+        M = blocks[name][0]
+        rows = isinstance(M, eigsol.InterleavedDIA)
+        X = sub._start_block(M, N, 8, torch.float32, None, None, rows)
+        chunk = sub._subspace_chunk_rows if rows else sub._subspace_chunk
+        profile_breakdown(f"{name} chunk of 10 sweeps", lambda: chunk(M, X, 10))
+    # why CholeskyQR2 multiplies by the inverse of the b x b factor: the
+    # triangular solve against the (8, n) block of the path (one call each)
+    block = torch.randn(8, N, device=dev)
+    L = torch.linalg.cholesky(block @ block.T)
+    eye = torch.eye(8, device=dev)
+    solve_ms = time_events_ms(lambda: torch.linalg.solve_triangular(L, block, upper=False), 1)
+    inverse_ms = time_events_ms(
+        lambda: torch.linalg.solve_triangular(L, eye, upper=False) @ block, 1)
+    print(f"CholeskyQR2 step, (8, {N}) block: solve_triangular {solve_ms:.3f} ms, "
+          f"inverse factor times the block {inverse_ms:.3f} ms [{card_name}, {card_limit}]")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1092,7 +1391,8 @@ def main() -> None:
     compare(f"B1 dia_matvec_il_window with halo values n={N}", "B1",
             ds.dia_matvec_il_window(il.data_il, offs, w),
             ds.dia_matvec_il_window_plain(il.data_il, offs, w), 1e-5)
-    for kernel in ds.KERNELS:
+    spmv_kernels = (ds.dia_il_kernel, ds.dia_kernel, ds.dia_complex_kernel)  # B1-B3
+    for kernel in spmv_kernels:
         print(f"launches in phase 3: {kernel.__name__} = {kernel.launches}")
         check(kernel.launches > 0, f"{kernel.__name__} never launched")
     card_name, card_limit = (s.strip() for s in card.splitlines()[0].split(","))
@@ -1153,7 +1453,7 @@ def main() -> None:
         seconds[name] = start.elapsed_time(end) / 1e3
     files = {"A": eigsol.power_method(A, demo), "B": eigsol.power_method(B, demo)}
     torch.cuda.synchronize()
-    launches = {kernel.__name__: kernel.launches for kernel in ds.KERNELS}
+    launches = {kernel.__name__: kernel.launches for kernel in spmv_kernels}
 
     print(f"main-path launches: {launches}")
     for name, count in launches.items():
@@ -1288,6 +1588,18 @@ def main() -> None:
         check(big_launches[name] > 0, f"{name} was not launched by the blocked path")
     print(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 15/16. the split-plane and block kernels and their paths ------------
+    ctx = {"dev": dev, "offs": offs, "op32": op32, "op64c": op64c, "xc": xc,
+           "planted": planted, "planted_c": planted_c, "card_name": card_name,
+           "card_limit": card_limit}
+    t0 = time.perf_counter()
+    blk_kernel_errors, blk_kernel_timings, blk_library = banded_block_kernel_phase(ctx)
+    library.update(blk_library)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    block_launches = banded_block_path_phase(ctx)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
     # ---- report ------------------------------------------------------------
     rows = []
 
@@ -1346,6 +1658,17 @@ def main() -> None:
     add_row("qr_eig_blocked_kernel", QRB_SOURCE, f"{QRB_TPU_KERNELS}:63",
             big_launches["qr_eig_blocked_kernel"], b13_err, b13_timing[0], b13_timing[1],
             2 * 8 * elements, 8 * cmadds, "B13")
+    # B4 and B3's planes entry per call at 1M x 33 f32 planes (four FMAs per
+    # stored complex entry); B5 per call at nvec = 8 (one FMA per entry and vector)
+    for name, tag, line, flops in (
+            ("dia_il_planes_kernel", "B4", 577, 8 * nnz),
+            ("dia_planes_kernel", "planes", 73, 8 * nnz),
+            ("dia_block_kernel", "B5", 223, 2 * nnz * 8),
+            ("dia_il_block_kernel", "B5il", 695, 2 * nnz * 8)):
+        k_ms, p_ms, nbytes = blk_kernel_timings[(tag, torch.float32)]
+        add_row(name, KERNEL_SOURCE, f"{TPU_KERNELS}:{line}", block_launches[name],
+                blk_kernel_errors[tag], k_ms, p_ms, nbytes, flops,
+                tag if tag.startswith("B5") else "B3")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,19 +3,23 @@
 The port of ``pcsc_eigenvalue_solver_project_tpu`` (JAX on a TPU) to
 PyTorch on an NVIDIA H100, under the same module tree and public names.
 This package holds the power-method path on dense, CSR/ELL and banded
-(DIA and interleaved DIA) operators, and the dense QR stack (Hessenberg
-reduction, QR decomposition, QR eigenvalues in parity and accelerated
-modes). The banded SpMV and the QR stack run as CUDA kernels written for
-Hopper (``csrc/``), built with nvcc at the first CUDA launch.
-On CPU tensors every operation runs its plain PyTorch version.
+(DIA and interleaved DIA) operators and on the split-plane complex banded
+operators (``SplitComplexDIA``, ``InterleavedSplitComplexDIA``,
+``power_method_split_complex``); the block top-k solvers
+``subspace_iteration`` and ``chebyshev_subspace_iteration``; and the dense
+QR stack (Hessenberg reduction, QR decomposition, QR eigenvalues in parity
+and accelerated modes, with eigenvectors). The banded SpMV and block SpMM
+and the QR stack run as CUDA kernels written for Hopper (``csrc/``), built
+with nvcc at the first CUDA launch. Constructors put their data on the card
+unless given ``device`` (``device="cpu"`` for the CPU); on CPU tensors every
+operation runs its plain PyTorch version.
 
 Typical usage::
 
     import torch
     import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
 
-    A = eigsol.read_matrix_from_file("data/A.txt", dtype=torch.complex128,
-                                     device="cuda")
+    A = eigsol.read_matrix_from_file("data/A.txt", dtype=torch.complex128)
     res = eigsol.power_method(A, eigsol.SolverOptions(tolerance=1e-8))
     print(res.eigenvalue, int(res.iterations), bool(res.converged))
     qr = eigsol.qr_eigenvalues(A, eigsol.QROptions(mode="accelerated"))
@@ -28,11 +32,13 @@ from .matrix.dense import DenseMatrix
 from .matrix.dia import InterleavedDIA, SparseDIA
 from .matrix.protocol import AbstractMatrix
 from .matrix.sparse import SparseCSR, SparseELL
+from .matrix.split_complex import InterleavedSplitComplexDIA, SplitComplexDIA
 from .io.reader import read_matrix_from_file, read_matrix_from_text
 from .solvers.hessenberg import to_hessenberg
-from .solvers.power import power_method
+from .solvers.power import power_method, power_method_split_complex
 from .solvers.qr import qr_decompose
 from .solvers.qr_eigenvalues import qr_eigenvalues
+from .solvers.subspace import chebyshev_subspace_iteration, subspace_iteration
 
 __version__ = "0.1.0"
 
@@ -41,17 +47,22 @@ __all__ = [
     "DenseMatrix",
     "EigenResult",
     "InterleavedDIA",
+    "InterleavedSplitComplexDIA",
     "QROptions",
     "QRResult",
     "SolverOptions",
     "SparseCSR",
     "SparseDIA",
     "SparseELL",
+    "SplitComplexDIA",
+    "chebyshev_subspace_iteration",
     "is_close_relative",
     "power_method",
+    "power_method_split_complex",
     "qr_decompose",
     "qr_eigenvalues",
     "read_matrix_from_file",
     "read_matrix_from_text",
+    "subspace_iteration",
     "to_hessenberg",
 ]

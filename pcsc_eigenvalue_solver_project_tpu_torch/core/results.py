@@ -33,7 +33,9 @@ class EigenResult:
         return bool(self.converged)
 
     def __repr__(self):
-        return (f"EigenResult(eigenvalue={complex(self.eigenvalue)}, "
+        lam = self.eigenvalue
+        lam = complex(lam[0], lam[1]) if lam.ndim == 1 else complex(lam)  # (2,) planes
+        return (f"EigenResult(eigenvalue={lam}, "
                 f"iterations={int(self.iterations)}, converged={bool(self.converged)})")
 
 

@@ -18,7 +18,7 @@ import torch
 
 def is_close_relative(a, b, tol):
     """True iff ``|a - b| <= tol * (1 + |a|)``. Works for real and complex."""
-    a = torch.as_tensor(a)
+    a, b = torch.as_tensor(a), torch.as_tensor(b)  # numpy scalars promote as arrays
     diff = torch.abs(a - b)
     scale = 1.0 + torch.abs(a)
     return diff <= tol * scale

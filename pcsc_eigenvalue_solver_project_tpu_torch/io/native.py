@@ -16,6 +16,7 @@ import threading
 
 import numpy as np
 
+from ..core.device import resolve_device
 from ..core.dtypes import canonical_dtype, is_complex_dtype, numpy_dtype
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -77,7 +78,8 @@ def _lp(a):
 
 def read_matrix_from_file(filename, dtype, device=None):
     """Native-parse a matrix file; raises ValueError with reference-parity
-    messages on malformed input. Returns DenseMatrix or SparseCSR."""
+    messages on malformed input. Returns DenseMatrix or SparseCSR on
+    ``device`` (default: the card)."""
     from ..matrix.dense import DenseMatrix
     from ..matrix.sparse import SparseCSR
 
@@ -85,6 +87,7 @@ def read_matrix_from_file(filename, dtype, device=None):
     if lib is None:
         raise ImportError("native reader unavailable")
     dtype = canonical_dtype(dtype)
+    device = resolve_device(device)
     np_dtype = numpy_dtype(dtype)
     cx = is_complex_dtype(dtype)
     path = os.fspath(filename).encode()

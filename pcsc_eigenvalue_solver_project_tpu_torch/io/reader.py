@@ -15,7 +15,8 @@ dims, non-positive nnz, out-of-range indices, malformed scalar entries.
 The scalar type is a ``dtype`` argument (the ``Scalar`` template parameter
 analogue); a real dtype reads one token per entry, a complex dtype reads
 two. Parsing happens on the host (NumPy); the result is a ``DenseMatrix``
-or ``SparseCSR`` on ``device``.
+or ``SparseCSR`` on ``device``
+(default: the card).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import os
 
 import numpy as np
 
+from ..core.device import resolve_device
 from ..core.dtypes import canonical_dtype, is_complex_dtype, numpy_dtype
 from ..matrix.dense import DenseMatrix
 from ..matrix.sparse import SparseCSR
@@ -125,6 +127,7 @@ STORAGE_KEYWORDS = ("dense", "sparse")
 def read_matrix_from_text(text: str, dtype, device=None):
     """Parse the full format from an in-memory string."""
     dtype = canonical_dtype(dtype)
+    device = resolve_device(device)
     toks = _Tokens(text)
     storage = toks.next()
     if storage is None:
@@ -149,6 +152,7 @@ def read_matrix_from_file(filename, dtype, *, use_native: bool = True,
     ``use_native`` routes parsing through the C++ fast tokenizer when it
     builds (io/native.py); the grammar and errors are identical.
     """
+    device = resolve_device(device)
     if not os.path.exists(filename):
         raise FileNotFoundError(f"Impossible to open the file: {filename}")
     if use_native:

@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.dtypes import canonical_dtype
 from ..ops.matvec import dense_matvec, dense_rmatvec
 from ..utils.interop import to_tensor
@@ -35,9 +36,10 @@ class DenseMatrix(AbstractMatrix):
     # --- constructors ---
     @staticmethod
     def from_array(a, dtype=None, device=None) -> "DenseMatrix":
+        """A copy of the 2-D array-like ``a`` on ``device`` (default: the card)."""
         if dtype is not None:
             dtype = canonical_dtype(dtype)
-        arr = to_tensor(a, dtype=dtype, device=device)
+        arr = to_tensor(a, dtype=dtype, device=resolve_device(device))
         if arr.ndim != 2:
             raise ValueError(f"DenseMatrix: expected a 2-D array, got ndim={arr.ndim}")
         canonical_dtype(arr.dtype)
@@ -52,7 +54,7 @@ class DenseMatrix(AbstractMatrix):
                 f"DenseMatrix: data size ({vals.size}) does not match "
                 f"rows*cols ({rows}*{cols}={rows * cols})")
         return DenseMatrix.from_array(vals.reshape(rows, cols), dtype=dtype,
-                                      device=device)
+                                      device=resolve_device(device))
 
     # --- queries ---
     @property

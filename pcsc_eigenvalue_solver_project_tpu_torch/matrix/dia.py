@@ -2,7 +2,9 @@
 
 Storing the diagonals densely turns SpMV into shifted multiply-accumulates:
 no gathers, unit-stride reads, one pass over the data. On the card the
-whole band is one kernel launch (ops/dia_spmv.py, csrc/dia_spmv.cu).
+whole band is one kernel launch (ops/dia_spmv.py, csrc/dia_spmv.cu), and so
+is a block of vectors (``InterleavedDIA.matmat``; the block solvers call
+``dia_matmat`` on a ``SparseDIA``'s data).
 
 Convention (row-indexed): ``data[d, i] = A[i, i + offsets[d]]`` with zeros
 where the index leaves the matrix.
@@ -15,9 +17,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.dtypes import as_torch_dtype, numpy_dtype
 from ..ops.dia_spmv import (DEFAULT_IL_TILE, _shifted, deinterleave_vec,
-                            dia_matvec, dia_matvec_il, il_rows,
+                            dia_matmat_il, dia_matvec, dia_matvec_il, il_rows,
                             interleave_dia_vals, interleave_vec)
 from .protocol import AbstractMatrix
 from .sparse import SparseCSR
@@ -50,7 +53,8 @@ class SparseDIA(AbstractMatrix):
 
     @staticmethod
     def from_diagonals(diagonals, offsets, n, dtype=None, device=None) -> "SparseDIA":
-        """Build from per-diagonal arrays (row-indexed, length n each)."""
+        """Build from per-diagonal arrays (row-indexed, length n each) on
+        ``device`` (default: the card)."""
         dtype = numpy_dtype(dtype)
         data = np.zeros((len(offsets), n), dtype=dtype)
         for d, diag in enumerate(diagonals):
@@ -60,7 +64,7 @@ class SparseDIA(AbstractMatrix):
                 data[d, n - off:] = 0
             elif off < 0:
                 data[d, :-off] = 0
-        return SparseDIA(data=torch.from_numpy(data).to(device),
+        return SparseDIA(data=torch.from_numpy(data).to(resolve_device(device)),
                          offsets=tuple(int(o) for o in offsets), shape=(n, n))
 
     # --- queries ---
@@ -197,9 +201,9 @@ class InterleavedDIA(AbstractMatrix):
         return dia_matvec_il(self.data_il, self.offsets, x_il)
 
     def matmat(self, xs_il):
-        raise NotImplementedError(
-            "InterleavedDIA.matmat: the block SpMV kernel (B5) is not ported "
-            "yet (ROADMAP.md, Queue A item 8)")
+        """Block SpMM in the interleaved domain: (nvec, R, 128) ->
+        (nvec, R, 128), B5 on the card."""
+        return dia_matmat_il(self.data_il, self.offsets, xs_il)
 
     def rmatvec(self, x_il):
         # correctness path: transpose via the natural layout; adjoint-heavy

@@ -9,7 +9,7 @@ expanded row-id array so SpMV is a gather plus an index-add.
 ``SparseELL`` is the padded fixed-row-width layout: every row is padded to
 the maximum row nnz so the SpMV becomes one 2-D gather + row reduction.
 The packed gather-ELL format of the JAX package (``to_gell``) is not ported
-yet (ROADMAP.md, Queue A item 10).
+yet (ROADMAP.md, Queue A item 5).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.dtypes import canonical_dtype, numpy_dtype
 from ..ops.matvec import csr_matvec, ell_matvec
 from .protocol import AbstractMatrix
@@ -42,7 +43,8 @@ class SparseCSR(AbstractMatrix):
     @staticmethod
     def from_coo(row, col, values, shape, dtype=None, *,
                  sum_duplicates: bool = True, device=None) -> "SparseCSR":
-        """Build from COO triplets (host-side).
+        """Build from COO triplets on the host, then place on ``device``
+        (default: the card).
 
         With ``sum_duplicates=False`` a repeated (row, col) raises
         ``ValueError`` — parity with Eigen ``insert()`` which rejects
@@ -75,6 +77,7 @@ class SparseCSR(AbstractMatrix):
         np.add.at(indptr, r + 1, 1)
         indptr = np.cumsum(indptr)
         canonical_dtype(v.dtype)
+        device = resolve_device(device)
 
         def put(a, dt=None):
             return torch.from_numpy(np.array(a, dtype=dt)).to(device)
@@ -89,7 +92,7 @@ class SparseCSR(AbstractMatrix):
         m = mat.tocoo()
         data = m.data.astype(numpy_dtype(dtype)) if dtype else m.data
         return SparseCSR.from_coo(m.row, m.col, data, m.shape, dtype=dtype,
-                                  device=device)
+                                  device=resolve_device(device))
 
     @staticmethod
     def from_dense(a, dtype=None, device=None) -> "SparseCSR":
@@ -98,7 +101,7 @@ class SparseCSR(AbstractMatrix):
         arr = np.asarray(a, dtype=numpy_dtype(dtype))
         r, c = np.nonzero(arr)
         return SparseCSR.from_coo(r, c, arr[r, c], arr.shape, dtype=dtype,
-                                  device=device)
+                                  device=resolve_device(device))
 
     # --- queries ---
     @property

@@ -5,7 +5,8 @@ its tests build <=3x3 matrices inline. The benchmark configs in
 BASELINE.json need 100K-row and 1M-row sparse operators and 512x512 dense
 ones, so generation is a first-class component here. All generators build
 on the host with NumPy, deterministic in ``seed`` (the same numbers as the
-JAX package's generators), and place the result on ``device``.
+JAX package's generators), and place the result on ``device`` (default:
+the card).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.dtypes import numpy_dtype
 from ..matrix.dense import DenseMatrix
 from ..matrix.dia import SparseDIA
@@ -28,7 +30,7 @@ def dense_random(n: int, *, dtype=np.float64, seed: int = 0,
         a = (rng.uniform(-1, 1, (n, n)) + 1j * rng.uniform(-1, 1, (n, n)))
     else:
         a = rng.uniform(-1, 1, (n, n))
-    return DenseMatrix.from_array(scale * a.astype(dt), dtype=dt, device=device)
+    return DenseMatrix.from_array(scale * a.astype(dt), dtype=dt, device=resolve_device(device))
 
 
 def laplacian_1d(n: int, *, dtype=np.float64, device=None) -> SparseCSR:
@@ -40,7 +42,7 @@ def laplacian_1d(n: int, *, dtype=np.float64, device=None) -> SparseCSR:
     cols = np.concatenate([i, i[:-1] + 1, i[1:] - 1])
     vals = np.concatenate([np.full(n, 2.0), np.full(n - 1, -1.0),
                            np.full(n - 1, -1.0)]).astype(dt)
-    return SparseCSR.from_coo(rows, cols, vals, (n, n), dtype=dt, device=device)
+    return SparseCSR.from_coo(rows, cols, vals, (n, n), dtype=dt, device=resolve_device(device))
 
 
 def laplacian_2d(side: int, *, dtype=np.float64, device=None) -> SparseCSR:
@@ -58,7 +60,7 @@ def laplacian_2d(side: int, *, dtype=np.float64, device=None) -> SparseCSR:
         v.append(np.full(ok.sum(), -1.0))
     return SparseCSR.from_coo(np.concatenate(r), np.concatenate(c),
                               np.concatenate(v).astype(dt), (n, n), dtype=dt,
-                              device=device)
+                              device=resolve_device(device))
 
 
 def banded_random(n: int, *, bandwidth: int = 8, nnz_per_row: int = 8,
@@ -81,7 +83,7 @@ def banded_random(n: int, *, bandwidth: int = 8, nnz_per_row: int = 8,
         i = np.concatenate([i, np.arange(n)])
         j = np.concatenate([j, np.arange(n)])
         v = np.concatenate([v, np.full(n, diag_boost)])
-    return SparseCSR.from_coo(i, j, v.astype(dt), (n, n), dtype=dt, device=device)
+    return SparseCSR.from_coo(i, j, v.astype(dt), (n, n), dtype=dt, device=resolve_device(device))
 
 
 def banded_full(n: int, *, bandwidth: int = 16, dtype=np.float32,
@@ -106,7 +108,7 @@ def banded_full(n: int, *, bandwidth: int = 16, dtype=np.float32,
             data[d, n - off:] = 0
         elif off < 0:
             data[d, :-off] = 0
-    return SparseDIA(data=torch.from_numpy(data).to(device), offsets=offsets,
+    return SparseDIA(data=torch.from_numpy(data).to(resolve_device(device)), offsets=offsets,
                      shape=(n, n))
 
 

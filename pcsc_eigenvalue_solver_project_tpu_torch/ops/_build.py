@@ -116,6 +116,15 @@ def load() -> ctypes.CDLL:
             # dtype, device, vals_il, w, offsets, k, pr, R*128, y, stream
             lib.dia_il_window_spmv.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i64, ptr, ptr]
             lib.dia_il_window_spmv.restype = i32
+            # dtype, device, vals_p, x_p, offsets, k, pr, m, x plane stride, window, y, stream
+            lib.dia_planes_spmv.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i64, i64, i32,
+                                            ptr, ptr]
+            lib.dia_planes_spmv.restype = i32
+            # dtype, device, vals, xs, offsets, k, pr, m, x vector stride, nvec, window, y,
+            # stream
+            lib.dia_block_spmm.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i64, i64, i32, i32,
+                                           ptr, ptr]
+            lib.dia_block_spmm.restype = i32
             # dtype, device, a, h, q, scratch, n, stream
             lib.qr_hessenberg.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, ptr]
             lib.qr_hessenberg.restype = i32

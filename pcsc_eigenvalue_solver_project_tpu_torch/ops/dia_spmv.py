@@ -1,25 +1,38 @@
-"""Banded (DIA) SpMV: CUDA kernels for the H100 and their plain versions.
+"""Banded (DIA) SpMV and block SpMM: CUDA kernels for the H100 and their
+plain versions.
 
-Counterpart of the JAX package's ``ops/pallas/dia_spmv.py``. Three kernels,
+Counterpart of the JAX package's ``ops/pallas/dia_spmv.py``. The kernels,
 all in ``csrc/dia_spmv.cu`` (see its header for the design):
 
 - ``dia_kernel`` (B2): row-major SpMV ``y[i] = sum_d vals[d, i] * x[i + off_d]``
   over f32, bf16 or f64 diagonals;
 - ``dia_complex_kernel`` (B3): the same over complex64/complex128, reading
-  native complex tensors (no split planes);
+  native complex tensors;
 - ``dia_il_kernel`` (B1): the interleaved (lane-major) SpMV from a haloed
-  window, ``y[s, l] = sum_d vals_il[d, s, l] * w[pr + s + off_d, l]``.
+  window, ``y[s, l] = sum_d vals_il[d, s, l] * w[pr + s + off_d, l]``;
+- ``dia_planes_kernel`` (B3's split-plane entry) and ``dia_il_planes_kernel``
+  (B4): the complex SpMV on real re/im planes, row-major ``(2, k, n)`` and
+  interleaved ``(2, k, R, 128)``, four FMAs per diagonal;
+- ``dia_block_kernel`` and ``dia_il_block_kernel`` (B5): the band times a
+  block of ``nvec`` vectors, row-major and interleaved, each diagonal read
+  once per chunk of up to 8 vectors.
 
 Each kernel wrapper checks its inputs, allocates the output, launches on
 the current stream and counts its launches in ``.launches``. The
-dispatchers (``dia_matvec``, ``dia_matvec_il``, ``dia_matvec_il_window``)
-run the plain PyTorch version when the operands lie on the CPU, and the
-kernel otherwise: a tensor on a CUDA device launches the kernel or raises.
+dispatchers (``dia_matvec``, ``dia_matvec_il``, ``dia_matvec_il_window``,
+``dia_matvec_planes``, ``dia_matvec_il_planes``, ``dia_matmat``,
+``dia_matmat_il``, ``dia_matmat_il_window``) run the plain PyTorch version
+when the operands lie on the CPU, and the kernel otherwise: a tensor on a
+CUDA device launches the kernel or raises. Outputs have the accumulation
+dtype ``acc_dtype(stored)``, as the Pallas kernels' do.
 
 Layout: the interleaved layout stores element ``i`` of an n-vector at
 ``(i % R, i // R)`` of an ``(R, 128)`` tensor. It exists for the TPU's
 sublane shifts; it is kept at these public functions so the port and the
-JAX package compare like with like.
+JAX package compare like with like. Not ported, as they serve the TPU only:
+the lane rolls and the ``_il_plan`` residue groups, the ``_stream`` variants'
+VMEM budget (``_WINDOW_VMEM_BUDGET``), the ``tile_rows`` / (8, 128) tiling
+inside the kernels and ``_backend_supports_pallas``.
 """
 
 from __future__ import annotations
@@ -88,15 +101,16 @@ def interleave_dia_vals(vals: torch.Tensor, R: int) -> torch.Tensor:
 
 
 def _il_window(x_il: torch.Tensor, pr: int) -> torch.Tensor:
-    """Haloed window (R + 2*pr, 128): pr rows above/below each lane's chunk,
-    carrying the tail/head of the neighbouring lane's chunk (zero at the
-    vector's ends). Then x[i + off] for |off| <= pr is the pure row access
-    window[pr + (i % R) + off, i // R]. Needs pr <= R."""
-    R = x_il.shape[0]
-    w = x_il.new_zeros((R + 2 * pr, LANES))
-    w[pr:pr + R] = x_il
-    w[:pr, 1:] = x_il[R - pr:, :LANES - 1]
-    w[pr + R:, :LANES - 1] = x_il[:pr, 1:]
+    """Haloed window (..., R + 2*pr, 128): pr rows above/below each lane's
+    chunk, carrying the tail/head of the neighbouring lane's chunk (zero at
+    the vector's ends). Then x[i + off] for |off| <= pr is the pure row access
+    window[pr + (i % R) + off, i // R]. Needs pr <= R. Leading dimensions
+    (re/im planes, the vectors of a block) each get their own halo."""
+    R = x_il.shape[-2]
+    w = x_il.new_zeros((*x_il.shape[:-2], R + 2 * pr, LANES))
+    w[..., pr:pr + R, :] = x_il
+    w[..., :pr, 1:] = x_il[..., R - pr:, :LANES - 1]
+    w[..., pr + R:, :LANES - 1] = x_il[..., :pr, 1:]
     return w
 
 
@@ -105,12 +119,12 @@ def _il_window(x_il: torch.Tensor, pr: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def _shifted(x: torch.Tensor, off: int) -> torch.Tensor:
-    """seg[i] = x[i + off], zero where i + off leaves [0, n)."""
-    n = x.shape[0]
+    """seg[..., i] = x[..., i + off], zero where i + off leaves [0, n)."""
+    n = x.shape[-1]
     if off > 0:
-        return torch.nn.functional.pad(x[off:], (0, min(off, n)))
+        return torch.nn.functional.pad(x[..., off:], (0, min(off, n)))
     if off < 0:
-        return torch.nn.functional.pad(x[:off], (min(-off, n), 0))
+        return torch.nn.functional.pad(x[..., :off], (min(-off, n), 0))
     return x
 
 
@@ -127,13 +141,7 @@ def dia_matvec_il_plain(vals_il: torch.Tensor, offsets,
     """Interleaved banded SpMV: de-interleave, shifted multiply-adds on the
     padded vector (exact: padding positions carry zero diagonal values),
     re-interleave."""
-    k, R, _ = vals_il.shape
-    vals = vals_il.transpose(1, 2).reshape(k, R * LANES)
-    x = x_il.T.reshape(-1)
-    y = torch.zeros_like(x, dtype=torch.promote_types(vals.dtype, x.dtype))
-    for d, off in enumerate(offsets):
-        y = y + vals[d] * _shifted(x, off)
-    return y.reshape(LANES, R).T.contiguous()
+    return dia_matmat_il_plain(vals_il, offsets, x_il[None])[0]
 
 
 def dia_matvec_il_window_plain(vals_il: torch.Tensor, offsets,
@@ -146,6 +154,78 @@ def dia_matvec_il_window_plain(vals_il: torch.Tensor, offsets,
     for d, off in enumerate(offsets):
         y = y + vals_il[d].to(out_dt) * w[pr + off:pr + off + R].to(out_dt)
     return y
+
+
+def _il_to_rows(t: torch.Tensor) -> torch.Tensor:
+    """(..., R, 128) lane-major -> (..., R*128) in the natural order."""
+    return t.transpose(-1, -2).reshape(*t.shape[:-2], -1)
+
+
+def _rows_to_il(t: torch.Tensor, R: int) -> torch.Tensor:
+    """(..., R*128) natural -> contiguous (..., R, 128) lane-major."""
+    return t.reshape(*t.shape[:-1], LANES, R).transpose(-1, -2).contiguous()
+
+
+def dia_matvec_planes_plain(vals_p: torch.Tensor, offsets, x_p: torch.Tensor) -> torch.Tensor:
+    """Split-plane complex SpMV (JAX :171-183): (2, k, n) real planes times
+    (2, n) planes -> (2, n), ``y_re = A_re x_re - A_im x_im``,
+    ``y_im = A_re x_im + A_im x_re``, in ``acc_dtype(vals_p.dtype)``."""
+    out_dt = acc_dtype(vals_p.dtype)
+    x_p = x_p.to(out_dt)
+    yr = torch.zeros(x_p.shape[1:], dtype=out_dt, device=x_p.device)
+    yi = torch.zeros_like(yr)
+    for d, off in enumerate(offsets):
+        sr, si = _shifted(x_p[0], off), _shifted(x_p[1], off)
+        vr, vi = vals_p[0, d].to(out_dt), vals_p[1, d].to(out_dt)
+        yr = yr + vr * sr - vi * si
+        yi = yi + vr * si + vi * sr
+    return torch.stack([yr, yi])
+
+
+def dia_matvec_il_planes_plain(vals_il_p: torch.Tensor, offsets,
+                               x_il_p: torch.Tensor) -> torch.Tensor:
+    """Interleaved split-plane complex SpMV (JAX :689-692): de-interleave,
+    the row-major planes product on the padded vector, re-interleave."""
+    R = vals_il_p.shape[2]
+    y = dia_matvec_planes_plain(_il_to_rows(vals_il_p), offsets, _il_to_rows(x_il_p))
+    return _rows_to_il(y, R)
+
+
+def dia_matmat_plain(vals: torch.Tensor, offsets, xs: torch.Tensor) -> torch.Tensor:
+    """Banded block SpMM (JAX :305-312): (k, n) diagonals times (nvec, n)
+    vectors -> (nvec, n) in ``acc_dtype(vals.dtype)`` (the Pallas kernel's
+    output dtype, :271)."""
+    out_dt = acc_dtype(vals.dtype)
+    xs = xs.to(out_dt)
+    ys = torch.zeros_like(xs)
+    for d, off in enumerate(offsets):
+        ys = ys + vals[d].to(out_dt)[None] * _shifted(xs, off)
+    return ys
+
+
+def dia_matmat_il_window_plain(vals_il: torch.Tensor, offsets,
+                               w: torch.Tensor) -> torch.Tensor:
+    """Interleaved block SpMM from haloed windows (JAX :785-790):
+    (nvec, R + 2*pr, 128) -> (nvec, R, 128), by row slices."""
+    _, R, _ = vals_il.shape
+    pr = _il_halo(offsets)
+    out_dt = acc_dtype(vals_il.dtype)
+    ys = torch.zeros((w.shape[0], R, w.shape[2]), dtype=out_dt, device=w.device)
+    for d, off in enumerate(offsets):
+        ys = ys + vals_il[d].to(out_dt)[None] * w[:, pr + off:pr + off + R].to(out_dt)
+    return ys
+
+
+def dia_matmat_il_plain(vals_il: torch.Tensor, offsets, xs_il: torch.Tensor) -> torch.Tensor:
+    """Interleaved block SpMM (JAX :804-805, ``dia_matvec_il``'s XLA branch
+    on each vector): (nvec, R, 128) -> (nvec, R, 128)."""
+    R = vals_il.shape[1]
+    vals, xs = _il_to_rows(vals_il), _il_to_rows(xs_il)
+    out_dt = torch.promote_types(vals.dtype, xs.dtype)
+    ys = torch.zeros(xs.shape, dtype=out_dt, device=xs.device)
+    for d, off in enumerate(offsets):
+        ys = ys + vals[d][None] * _shifted(xs, off)
+    return _rows_to_il(ys, R)
 
 
 # --------------------------------------------------------------------------
@@ -253,7 +333,122 @@ def dia_il_kernel(vals_il: torch.Tensor, offsets, w: torch.Tensor) -> torch.Tens
 
 dia_il_kernel.launches = 0
 
-KERNELS = (dia_il_kernel, dia_kernel, dia_complex_kernel)
+
+def _check_planes(name: str, vals: torch.Tensor) -> None:
+    if vals.is_complex():
+        raise TypeError(f"{name}: planes must be real (float32, bfloat16 or float64), "
+                        f"got {vals.dtype}")
+
+
+def _launch_planes(name, vals_p, offsets, x_p, pr, m, out_shape, window):
+    _check_operands(name, vals_p, x_p, offsets, vals_p.shape[1])
+    lib = _build.load()
+    y = torch.empty(out_shape, dtype=x_p.dtype, device=x_p.device)
+    rc = lib.dia_planes_spmv(
+        _DTYPE_CODES[vals_p.dtype], x_p.device.index, vals_p.data_ptr(), x_p.data_ptr(),
+        _device_offsets(offsets, x_p.device).data_ptr(), vals_p.shape[1], pr, m,
+        x_p[0].numel(), int(window), y.data_ptr(),
+        torch.cuda.current_stream(x_p.device).cuda_stream)
+    _raise_on_error(name, lib, rc)
+    return y
+
+
+def dia_planes_kernel(vals_p: torch.Tensor, offsets, x_p: torch.Tensor) -> torch.Tensor:
+    """B3's split-plane entry on the card: (2, k, n) real planes (f32, bf16,
+    f64) times (2, n) planes of dtype ``acc_dtype(vals_p.dtype)`` -> (2, n)."""
+    offsets = tuple(int(o) for o in offsets)
+    _check_planes("dia_planes_kernel", vals_p)
+    if vals_p.ndim != 3 or vals_p.shape[0] != 2 or x_p.shape != (2, vals_p.shape[2]):
+        raise ValueError(f"dia_planes_kernel: expected (2, k, n) planes and a (2, n) vector, "
+                         f"got {tuple(vals_p.shape)} and {tuple(x_p.shape)}")
+    n = vals_p.shape[2]
+    y = _launch_planes("dia_planes_kernel", vals_p, offsets, x_p, 0, n, (2, n), False)
+    dia_planes_kernel.launches += 1
+    return y
+
+
+dia_planes_kernel.launches = 0
+
+
+def dia_il_planes_kernel(vals_il_p: torch.Tensor, offsets, w_p: torch.Tensor) -> torch.Tensor:
+    """B4 on the card: (2, k, R, 128) interleaved real planes times the
+    per-plane haloed windows (2, R + 2*pr, 128) of dtype
+    ``acc_dtype(vals_il_p.dtype)`` -> (2, R, 128)."""
+    offsets = tuple(int(o) for o in offsets)
+    _check_planes("dia_il_planes_kernel", vals_il_p)
+    if vals_il_p.ndim != 4 or vals_il_p.shape[0] != 2 or vals_il_p.shape[3] != LANES:
+        raise ValueError(f"dia_il_planes_kernel: expected (2, k, R, {LANES}) planes, "
+                         f"got {tuple(vals_il_p.shape)}")
+    _, _, R, _ = vals_il_p.shape
+    pr = _il_halo(offsets)
+    if tuple(w_p.shape) != (2, R + 2 * pr, LANES):
+        raise ValueError(f"dia_il_planes_kernel: window shape {tuple(w_p.shape)}, expected "
+                         f"{(2, R + 2 * pr, LANES)}")
+    y = _launch_planes("dia_il_planes_kernel", vals_il_p, offsets, w_p, pr, R * LANES,
+                       (2, R, LANES), True)
+    dia_il_planes_kernel.launches += 1
+    return y
+
+
+dia_il_planes_kernel.launches = 0
+
+
+def _launch_block(name, vals, offsets, xs, pr, m, out_shape, window):
+    _check_operands(name, vals, xs, offsets, vals.shape[0])
+    nvec = xs.shape[0]
+    if nvec >= 2 ** 31:
+        raise ValueError(f"{name}: {nvec} vectors, more than int32 holds")
+    lib = _build.load()
+    y = torch.empty(out_shape, dtype=xs.dtype, device=xs.device)
+    rc = lib.dia_block_spmm(
+        _DTYPE_CODES[vals.dtype], xs.device.index, vals.data_ptr(), xs.data_ptr(),
+        _device_offsets(offsets, xs.device).data_ptr(), vals.shape[0], pr, m,
+        xs[0].numel() if nvec else 0, nvec, int(window), y.data_ptr(),
+        torch.cuda.current_stream(xs.device).cuda_stream)
+    _raise_on_error(name, lib, rc)
+    return y
+
+
+def dia_block_kernel(vals: torch.Tensor, offsets, xs: torch.Tensor) -> torch.Tensor:
+    """B5 on the card, row-major: (k, n) diagonals (f32, bf16, f64, c64,
+    c128) times an (nvec, n) block of dtype ``acc_dtype(vals.dtype)`` ->
+    (nvec, n)."""
+    offsets = tuple(int(o) for o in offsets)
+    if vals.ndim != 2 or xs.ndim != 2 or xs.shape[1] != vals.shape[1]:
+        raise ValueError(f"dia_block_kernel: expected (k, n) diagonals and an (nvec, n) block, "
+                         f"got {tuple(vals.shape)} and {tuple(xs.shape)}")
+    n = vals.shape[1]
+    y = _launch_block("dia_block_kernel", vals, offsets, xs, 0, n, tuple(xs.shape), False)
+    dia_block_kernel.launches += 1
+    return y
+
+
+dia_block_kernel.launches = 0
+
+
+def dia_il_block_kernel(vals_il: torch.Tensor, offsets, w: torch.Tensor) -> torch.Tensor:
+    """B5 on the card, interleaved: (k, R, 128) diagonals times the haloed
+    windows (nvec, R + 2*pr, 128) of dtype ``acc_dtype(vals_il.dtype)`` ->
+    (nvec, R, 128)."""
+    offsets = tuple(int(o) for o in offsets)
+    if vals_il.ndim != 3 or vals_il.shape[2] != LANES:
+        raise ValueError(f"dia_il_block_kernel: expected (k, R, {LANES}) diagonals, "
+                         f"got {tuple(vals_il.shape)}")
+    _, R, _ = vals_il.shape
+    pr = _il_halo(offsets)
+    if w.ndim != 3 or tuple(w.shape[1:]) != (R + 2 * pr, LANES):
+        raise ValueError(f"dia_il_block_kernel: window shape {tuple(w.shape)}, expected "
+                         f"(nvec, {R + 2 * pr}, {LANES})")
+    y = _launch_block("dia_il_block_kernel", vals_il, offsets, w, pr, R * LANES,
+                      (w.shape[0], R, LANES), True)
+    dia_il_block_kernel.launches += 1
+    return y
+
+
+dia_il_block_kernel.launches = 0
+
+KERNELS = (dia_il_kernel, dia_kernel, dia_complex_kernel, dia_il_planes_kernel,
+           dia_planes_kernel, dia_block_kernel, dia_il_block_kernel)
 
 
 def reset_launch_counts() -> None:
@@ -313,3 +508,66 @@ def dia_matvec_il_window(vals_il: torch.Tensor, offsets, w: torch.Tensor) -> tor
         return dia_matvec_il_window_plain(vals_il, offsets, w)
     return dia_il_kernel(vals_il, offsets,
                          w.to(torch.promote_types(w.dtype, torch.float32)))
+
+
+def dia_matvec_planes(vals_p: torch.Tensor, offsets, x_p: torch.Tensor) -> torch.Tensor:
+    """Split-plane banded complex SpMV: (2, k, n) real planes times (2, n)
+    planes -> (2, n) (``y = A x`` with A and x complex). On the card ``x_p``
+    must have dtype ``acc_dtype(vals_p.dtype)``, and so has the result."""
+    if vals_p.device.type == "cpu":
+        return dia_matvec_planes_plain(vals_p, offsets, x_p)
+    return dia_planes_kernel(vals_p, offsets, x_p)
+
+
+def dia_matvec_il_planes(vals_il_p: torch.Tensor, offsets,
+                         x_il_p: torch.Tensor) -> torch.Tensor:
+    """Interleaved split-plane complex SpMV: (2, k, R, 128) real planes times
+    (2, R, 128) planes -> (2, R, 128). Each plane gets its own haloed
+    window. Requires the halo (bandwidth rounded up to 8) <= R."""
+    _, _, R, _ = vals_il_p.shape
+    pr = _il_halo(offsets)
+    if pr > R:
+        raise ValueError("dia_matvec_il_planes: bandwidth exceeds chunk size R")
+    if vals_il_p.device.type == "cpu":
+        return dia_matvec_il_planes_plain(vals_il_p, offsets, x_il_p)
+    w = _il_window(x_il_p.to(torch.promote_types(x_il_p.dtype, torch.float32)), pr)
+    return dia_il_planes_kernel(vals_il_p, offsets, w)
+
+
+def dia_matmat(vals: torch.Tensor, offsets, xs: torch.Tensor) -> torch.Tensor:
+    """Banded block SpMM: (k, n) diagonals times (nvec, n) vectors ->
+    (nvec, n). On the card ``xs`` must be contiguous with dtype
+    ``acc_dtype(vals.dtype)``, and the result has that dtype."""
+    if vals.device.type == "cpu":
+        return dia_matmat_plain(vals, offsets, xs)
+    return dia_block_kernel(vals, offsets, xs)
+
+
+def dia_matmat_il(vals_il: torch.Tensor, offsets, xs_il: torch.Tensor) -> torch.Tensor:
+    """Interleaved-domain block SpMM: (k, R, 128) diagonals times
+    (nvec, R, 128) vectors -> (nvec, R, 128). Each vector gets its own haloed
+    window; requires the halo <= R."""
+    _, R, _ = vals_il.shape
+    pr = _il_halo(offsets)
+    if pr > R:
+        raise ValueError("dia_matmat_il: bandwidth exceeds chunk size R")
+    if vals_il.device.type == "cpu":
+        return dia_matmat_il_plain(vals_il, offsets, xs_il)
+    w = _il_window(xs_il.to(torch.promote_types(xs_il.dtype, torch.float32)), pr)
+    return dia_il_block_kernel(vals_il, offsets, w)
+
+
+def dia_matmat_il_window(vals_il: torch.Tensor, offsets, w: torch.Tensor) -> torch.Tensor:
+    """Interleaved block SpMM from caller-built haloed windows
+    (nvec, R + 2*pr, 128) -> (nvec, R, 128); the halo rows may carry any
+    values (cf. ``dia_matvec_il_window``)."""
+    _, R, _ = vals_il.shape
+    pr = _il_halo(offsets)
+    if w.shape[1] != R + 2 * pr:
+        raise ValueError(
+            f"dia_matmat_il_window: window has {w.shape[1]} sublanes, "
+            f"expected R + 2*pr = {R + 2 * pr}")
+    if vals_il.device.type == "cpu":
+        return dia_matmat_il_window_plain(vals_il, offsets, w)
+    return dia_il_block_kernel(vals_il, offsets,
+                               w.to(torch.promote_types(w.dtype, torch.float32)))

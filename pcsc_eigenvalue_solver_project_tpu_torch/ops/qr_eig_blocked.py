@@ -70,6 +70,13 @@ def _checked(name: str, max_sweeps: int, accumulate_q: bool, q, block: int):
     return int(max_sweeps), int(block)
 
 
+def _schedule(shifts):
+    """``shifts`` as a schedule, or None for Wilkinson shifts: an empty
+    schedule (JAX ``n_shifts = 0``, sent by an AED round that deflated its
+    whole window) means Wilkinson shifts, as in the Pallas kernel (:218-225)."""
+    return None if shifts is None or shifts.shape[0] == 0 else shifts
+
+
 # --------------------------------------------------------------------------
 # Plain PyTorch version
 # --------------------------------------------------------------------------
@@ -77,6 +84,7 @@ def _checked(name: str, max_sweeps: int, accumulate_q: bool, q, block: int):
 def _sweeps_plain(h, max_sweeps, tol, shifts, accumulate_q, q, block):
     """The blocked sweeps in PyTorch: ``(eig, sweeps, hi, T, Q or None)``."""
     n = h.shape[0]
+    shifts = _schedule(shifts)
     H = h.clone()
     Q = (q.clone() if q is not None else eye(n, h)) if accumulate_q else None
     tol_t = torch.tensor(tol, dtype=real_dtype(h.dtype), device=h.device)
@@ -137,9 +145,10 @@ def _sweeps_kernel(h, max_sweeps, tol, shifts, accumulate_q, q, block):
     n = h.shape[0]
     if q is not None and (q.shape != h.shape or q.dtype != h.dtype or q.device != h.device):
         raise ValueError("qr_eig_blocked_kernel: q must match h in shape, dtype and device")
+    if shifts is not None and shifts.ndim != 1:
+        raise ValueError("qr_eig_blocked_kernel: shifts must be a 1-D tensor")
+    shifts = _schedule(shifts)
     if shifts is not None:
-        if shifts.ndim != 1 or shifts.shape[0] == 0:
-            raise ValueError("qr_eig_blocked_kernel: shifts must be a non-empty 1-D tensor")
         shifts = shifts.to(device=h.device, dtype=h.dtype).contiguous()
     lib = _build.load()
     t = h.clone()
@@ -190,7 +199,8 @@ def qr_eig_blocked_step(h: torch.Tensor, max_sweeps: int, tol: float, shifts=Non
     ``qr_eig_blocked_step``, :521): ``(h', eigenvalues, sweeps, hi)``. The
     window ``[lo, hi)`` is re-derived from ``h`` at entry, and ``shifts``
     (a 1-D complex tensor) replaces the Wilkinson shift: sweep ``s`` of this
-    call uses ``shifts[s % len(shifts)]``."""
+    call uses ``shifts[s % len(shifts)]``; an empty ``shifts`` means Wilkinson
+    shifts."""
     eig, sweeps, hi, t, _ = blocked_sweeps(h, max_sweeps, tol, shifts, block=block)
     return t, eig, sweeps, hi
 

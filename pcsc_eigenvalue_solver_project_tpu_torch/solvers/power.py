@@ -19,6 +19,10 @@ masked by ``done`` with ``torch.where``, so the iterations after ``done``
 inside a block change nothing, and the host reads the flag once per block,
 not once per matvec. The result and iteration count are exactly the
 while-loop's.
+
+Split-plane complex operators (``matrix/split_complex.py``) run the same
+loop on (2, n) real planes with a (2,) plane eigenvalue
+(``power_method_split_complex``, JAX ``_power_loop_split``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from ..core.results import EigenResult
 from ..core.tolerance import is_close_relative
 from ..matrix.protocol import (AbstractMatrix, decode_result,
                                require_nonempty, require_square)
+from ..matrix.split_complex import InterleavedSplitComplexDIA, SplitComplexDIA
+from ..ops.split_complex import splitc_is_close_relative, splitc_norm, splitc_vdot
 from ..utils.prng import default_generator, random_unit_vector
 
 # Iterations between two host reads of the convergence flag.
@@ -61,15 +67,18 @@ def power_init_carry(matvec, x0: torch.Tensor):
             flag(), flag(), count(), flag())
 
 
-def power_carry_loop(matvec, vdot, norm, carry, max_iterations: int, tol):
+def power_carry_loop(matvec, vdot, norm, carry, max_iterations: int, tol,
+                     is_close=is_close_relative):
     """Advance the power-iteration carry until ``k == max_iterations`` or
-    convergence/breakdown. Generic over the reduction primitives, like the
-    JAX package's. ``tol`` is a float or a 0-d tensor; the convergence test
-    is decided in float64."""
+    convergence/breakdown. Generic over the reduction primitives and the
+    stopping rule ``is_close(lam_new, lam, tol)``, like the JAX package's.
+    ``tol`` is a float, decided in float64, or a 0-d tensor, decided in its
+    dtype (the split loop's, as JAX decides it in the planes' dtype)."""
     dtype = carry[1].dtype
     rdt = real_dtype_of(dtype)
     device = carry[1].device
-    tol = torch.as_tensor(tol, dtype=torch.float64, device=device)
+    if not isinstance(tol, torch.Tensor):
+        tol = torch.tensor(tol, dtype=torch.float64, device=device)
     one = torch.ones((), dtype=rdt, device=device)
 
     def body(c):
@@ -81,7 +90,7 @@ def power_carry_loop(matvec, vdot, norm, carry, max_iterations: int, tol):
         x_new = y / safe
         z_new = matvec(x_new)
         lam_new = vdot(x_new, z_new)  # x^H (A x): conjugates first arg like Eigen dot
-        conv_now = initialized & is_close_relative(lam_new, lam, tol) & ~breakdown
+        conv_now = initialized & is_close(lam_new, lam, tol) & ~breakdown
         # An iteration after ``done`` changes nothing; breakdown keeps the
         # last good x, z and lambda.
         live = ~done
@@ -121,6 +130,46 @@ def power_iteration_loop(matvec, vdot, norm, x0: torch.Tensor,
     return carry_to_result(carry)
 
 
+def power_method_split_complex(M, opts: SolverOptions = SolverOptions(), *,
+                               generator: torch.Generator | None = None,
+                               x0=None) -> EigenResult:
+    """Power iteration on a split-plane complex operator
+    (``matrix/split_complex.py``), on the device where its planes live.
+    ``EigenResult.eigenvalue`` is a (2,) plane scalar and ``eigenvector`` a
+    (2, n) plane vector; convert on the host with ``ops.split_complex.from_planes``.
+
+    The planes iterate in ``promote(planes dtype, float32)``, so bf16 planes
+    (the bench's complex leg) iterate in float32 as the banded matvec
+    accumulates; the stopping rule is decided in that dtype, as the JAX loop
+    decides it in the planes' dtype."""
+    n = M.shape[0]
+    if M.shape[0] != M.shape[1]:
+        raise ValueError("power_method: matrix must be square")
+    if n == 0:
+        raise ValueError("power_method: matrix has zero size")
+    rdt = torch.promote_types(M.dtype, torch.float32)
+    if x0 is None:
+        # uniform [-1, 1] re/im planes (the Eigen Random-complex analogue)
+        gen = generator if generator is not None else default_generator(M.device)
+        x0 = torch.rand((2, n), generator=gen, dtype=rdt, device=gen.device) * 2 - 1
+        x0 = x0.to(M.device)
+        nrm = torch.sqrt(torch.sum(x0 * x0))
+        x0 = x0 / torch.where(nrm == 0, 1, nrm)
+    else:
+        x0 = torch.as_tensor(x0).to(device=M.device, dtype=rdt)
+        if x0.shape != (2, n):
+            raise ValueError("power_method_split_complex: x0 must be (2, n) planes")
+        nrm = torch.sqrt(torch.sum(x0 * x0))
+        x0 = torch.where(nrm == 0, x0, x0 / torch.where(nrm == 0, 1, nrm))
+    x0 = M.encode_vec(x0)  # identity for SplitComplexDIA; interleave otherwise
+    carry = power_init_carry(M.matvec, x0)
+    carry = carry[:3] + (torch.zeros(2, dtype=rdt, device=x0.device),) + carry[4:]
+    tol = torch.tensor(opts.tolerance, dtype=rdt, device=x0.device)
+    carry = power_carry_loop(M.matvec, splitc_vdot, splitc_norm, carry,
+                             opts.max_iterations, tol, splitc_is_close_relative)
+    return decode_result(M, carry_to_result(carry))
+
+
 def power_method(M: AbstractMatrix, opts: SolverOptions = SolverOptions(), *,
                  dtype=None, generator: torch.Generator | None = None,
                  x0=None) -> EigenResult:
@@ -130,7 +179,11 @@ def power_method(M: AbstractMatrix, opts: SolverOptions = SolverOptions(), *,
     ``dtype`` is the ``Scalar`` template-parameter analogue: when given, a
     mismatch with the stored dtype raises ``TypeError`` (parity with
     power_method.hpp:137-139). ``generator``/``x0`` control the start vector.
+    Split-plane complex operators are routed to the plane loop
+    (``power_method_split_complex``), as in the JAX package.
     """
+    if isinstance(M, (SplitComplexDIA, InterleavedSplitComplexDIA)):
+        return power_method_split_complex(M, opts, generator=generator, x0=x0)
     if dtype is not None:
         check_scalar_type(M.dtype, dtype, "power_method")
     require_square(M, "power_method")

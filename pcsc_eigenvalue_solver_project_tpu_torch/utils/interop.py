@@ -15,6 +15,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.dtypes import as_torch_dtype
 
 
@@ -44,6 +45,8 @@ _LEAVES = {
     "SparseELL": ("data", "indices"),
     "SparseDIA": ("data",),
     "InterleavedDIA": ("data_il",),
+    "SplitComplexDIA": ("planes",),
+    "InterleavedSplitComplexDIA": ("planes_il",),
 }
 
 
@@ -52,23 +55,28 @@ def from_numpy_leaves(kind: str, leaves: Sequence[np.ndarray], static: dict,
     """Build the port's ``kind`` matrix from a JAX matrix's leaves.
 
     ``kind`` is the class name (``"DenseMatrix"``, ``"SparseCSR"``,
-    ``"SparseELL"``, ``"SparseDIA"`` or ``"InterleavedDIA"``); ``leaves`` are
+    ``"SparseELL"``, ``"SparseDIA"``, ``"InterleavedDIA"``, ``"SplitComplexDIA"``
+    or ``"InterleavedSplitComplexDIA"``); ``leaves`` are
     its array leaves in pytree order; ``static`` holds its static fields
-    (``shape``, ``offsets``, ``tile_s`` as the kind has them).
+    (``shape``, ``offsets``, ``tile_s`` as the kind has them). The tensors go
+    to ``device`` (default: the card).
     """
     from ..matrix.dense import DenseMatrix
     from ..matrix.dia import InterleavedDIA, SparseDIA
     from ..matrix.sparse import SparseCSR, SparseELL
+    from ..matrix.split_complex import InterleavedSplitComplexDIA, SplitComplexDIA
 
     classes = {"DenseMatrix": DenseMatrix, "SparseCSR": SparseCSR,
                "SparseELL": SparseELL, "SparseDIA": SparseDIA,
-               "InterleavedDIA": InterleavedDIA}
+               "InterleavedDIA": InterleavedDIA, "SplitComplexDIA": SplitComplexDIA,
+               "InterleavedSplitComplexDIA": InterleavedSplitComplexDIA}
     if kind not in classes:
         raise ValueError(f"from_numpy_leaves: unknown matrix kind {kind!r}")
     names = _LEAVES[kind]
     if len(leaves) != len(names):
         raise ValueError(f"from_numpy_leaves: {kind} has {len(names)} leaves, "
                          f"got {len(leaves)}")
+    device = resolve_device(device)
     fields = {name: to_tensor(leaf, device=device)
               for name, leaf in zip(names, leaves)}
     for key in ("shape", "offsets"):

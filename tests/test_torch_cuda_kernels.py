@@ -36,6 +36,12 @@ The blocked sweeps B13 are held to their plain version like B8: after a fixed
 budget with deflation off, T and Q to ten units (the products sum in another
 order than torch.matmul), the sweep count and window exactly, and
 ``||H - Q T Q^H||`` to one unit; to convergence, the spectrum as B8's.
+
+The split-plane SpMV (B4 interleaved, B3's planes entry row-major) and the
+block SpMM B5 (row-major and interleaved, nvec 1, 3, 8 and 13, so one full
+chunk of 8 and a ragged one) are held to their plain versions as the SpMV
+kernels are, relative to ``max|y|`` (``TOL``), at a ragged n and at offsets
+(-130, 0, 129) that cross the lane seams of the interleaved layout.
 """
 
 import numpy as np
@@ -574,4 +580,151 @@ def test_blocked_sweeps_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="q must match"):
         qb.qr_eig_blocked_kernel(c, 10, 1e-6, accumulate_q=True, q=c[:4, :4].contiguous())
     with pytest.raises(ValueError, match="shifts"):
-        qb.qr_eig_blocked_kernel(c, 10, 1e-6, shifts=c[:0, 0])
+        qb.qr_eig_blocked_kernel(c, 10, 1e-6, shifts=c[:2, :2].contiguous())
+    # an empty schedule is no schedule: Wilkinson shifts (JAX n_shifts = 0)
+    h = qk.hessenberg_kernel(c)
+    e0, s0, hi0 = qb.qr_eig_blocked_kernel(h, 10, 0.0, shifts=c[:0, 0])
+    e1, s1, hi1 = qb.qr_eig_blocked_kernel(h, 10, 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(e0, e1) and int(s0) == int(s1) == 10 and int(hi0) == int(hi1)
+
+
+# --------------------------------------------------------------------------
+# Split-plane complex SpMV (B4, B3's planes entry) and block SpMM (B5)
+# --------------------------------------------------------------------------
+
+PLANES_CASES = [
+    (20000, (-7, -2, 0, 3, 7)),
+    (100_003, (-130, 0, 129)),            # ragged n, lane-seam offsets
+    (1_000_000, tuple(range(-16, 17))),   # the 1M x 33 bench operator
+]
+
+
+def planes_band(n, offsets, dtype, seed, device):
+    """(2, k, n) planes with zeros outside the matrix and (2, n) planes of
+    the accumulation dtype."""
+    rng = np.random.default_rng(seed)
+    planes = rng.uniform(-1, 1, (2, len(offsets), n))
+    for d, off in enumerate(offsets):
+        if off > 0:
+            planes[:, d, n - off:] = 0
+        elif off < 0:
+            planes[:, d, :-off] = 0
+    x = rng.uniform(-1, 1, (2, n))
+    return (torch.from_numpy(planes).to(device=device, dtype=dtype),
+            torch.from_numpy(x).to(device=device, dtype=ds.acc_dtype(dtype)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("n,offsets", PLANES_CASES)
+def test_planes_kernels_match_plain(cuda, n, offsets, dtype):
+    planes, x = planes_band(n, offsets, dtype, seed=21, device=cuda)
+    before = (ds.dia_planes_kernel.launches, ds.dia_il_planes_kernel.launches)
+    y = ds.dia_matvec_planes(planes, offsets, x)
+    R = ds.il_rows(n)
+    planes_il = torch.stack([ds.interleave_dia_vals(p, R) for p in planes])
+    x_il = torch.stack([ds.interleave_vec(v, R) for v in x])
+    y_il = ds.dia_matvec_il_planes(planes_il, offsets, x_il)
+    torch.cuda.synchronize()
+    assert (ds.dia_planes_kernel.launches, ds.dia_il_planes_kernel.launches) == \
+        (before[0] + 1, before[1] + 1)
+    y_ref = ds.dia_matvec_planes_plain(planes, offsets, x)
+    assert y.dtype == y_ref.dtype == ds.acc_dtype(dtype) and y.shape == (2, n)
+    assert rel_err(y, y_ref) <= TOL[dtype]
+    assert rel_err(y_il, ds.dia_matvec_il_planes_plain(planes_il, offsets, x_il)) <= TOL[dtype]
+    y_il_nat = torch.stack([ds.deinterleave_vec(v, n) for v in y_il])
+    assert rel_err(y_il_nat, y_ref) <= TOL[dtype]
+    # the planes product is the complex product of B3
+    if dtype != torch.bfloat16:
+        cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+        yc = ds.dia_matvec(torch.complex(planes[0], planes[1]).to(cdt), offsets,
+                           torch.complex(x[0], x[1]).to(cdt))
+        assert rel_err(torch.complex(y[0], y[1]), yc) <= TOL[dtype]
+
+
+# nvec 1, 3, 8 (one full chunk) and 13 (a ragged second chunk) in every
+# dtype; the 1M operator in the wide dtypes at the path's nvec = 8 only
+BLOCK_CASES = [(n, offsets, nvec, dtype)
+               for n, offsets in PLANES_CASES for nvec in (1, 3, 8, 13)
+               for dtype in (torch.float32, torch.bfloat16, torch.float64,
+                             torch.complex64, torch.complex128)
+               if n < 1_000_000 or nvec == 8 or dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("n,offsets,nvec,dtype", BLOCK_CASES)
+def test_block_kernels_match_plain(cuda, n, offsets, nvec, dtype):
+    rng = np.random.default_rng(nvec)
+    vals, _ = band(n, offsets, dtype, seed=22, device=cuda)
+    xs = rng.uniform(-1, 1, (nvec, n))
+    if dtype.is_complex:
+        xs = xs + 1j * rng.uniform(-1, 1, (nvec, n))
+    xs = torch.from_numpy(xs).to(device=cuda, dtype=ds.acc_dtype(dtype))
+    before = (ds.dia_block_kernel.launches, ds.dia_il_block_kernel.launches)
+    ys = ds.dia_matmat(vals, offsets, xs)
+    R = ds.il_rows(n)
+    vals_il = ds.interleave_dia_vals(vals, R)
+    xs_il = torch.stack([ds.interleave_vec(v, R) for v in xs])
+    ys_il = ds.dia_matmat_il(vals_il, offsets, xs_il)
+    torch.cuda.synchronize()
+    assert (ds.dia_block_kernel.launches, ds.dia_il_block_kernel.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = ds.dia_matmat_plain(vals, offsets, xs)
+    assert ys.dtype == ref.dtype == ds.acc_dtype(dtype) and ys.shape == (nvec, n)
+    assert rel_err(ys, ref) <= TOL[dtype]
+    assert rel_err(ys_il, ds.dia_matmat_il_plain(vals_il, offsets, xs_il)) <= TOL[dtype]
+    # every vector of the block is the single-vector SpMV
+    for v in range(nvec):
+        assert rel_err(ys[v], ds.dia_matvec_plain(vals, offsets, xs[v])) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("nvec", [3, 8])
+def test_block_window_kernel_with_halo_values(cuda, nvec):
+    n, offsets = 100_003, (-9, 0, 3, 9)
+    vals, _ = band(n, offsets, torch.float32, seed=23, device=cuda)
+    R = ds.il_rows(n)
+    pr = ds.il_window_halo(offsets)
+    vals_il = ds.interleave_dia_vals(vals, R)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    w = torch.rand((nvec, R + 2 * pr, ds.LANES), generator=gen, device=cuda) * 2 - 1
+    ys = ds.dia_matmat_il_window(vals_il, offsets, w)
+    assert rel_err(ys, ds.dia_matmat_il_window_plain(vals_il, offsets, w)) <= 1e-5
+
+
+def test_new_kernels_reject_what_they_do_not_take(cuda):
+    planes, x = planes_band(1000, (-1, 0, 1), torch.float32, seed=0, device=cuda)
+    with pytest.raises(TypeError, match="planes must be real"):
+        ds.dia_planes_kernel(planes.to(torch.complex64), (-1, 0, 1), x)
+    with pytest.raises(TypeError, match="does not match"):
+        ds.dia_planes_kernel(planes, (-1, 0, 1), x.double())
+    with pytest.raises(ValueError, match="expected \\(2, k, n\\) planes"):
+        ds.dia_planes_kernel(planes[0], (-1, 0, 1), x)
+    vals, _ = band(1000, (-1, 0, 1), torch.float32, seed=0, device=cuda)
+    xs = torch.zeros((4, 1000), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ds.dia_block_kernel(vals, (-1, 0, 1), xs.T.contiguous().T)
+    with pytest.raises(ValueError, match="expected \\(k, n\\) diagonals"):
+        ds.dia_block_kernel(vals, (-1, 0, 1), xs[:, :999].contiguous())
+    with pytest.raises(ValueError, match="window shape"):
+        ds.dia_il_block_kernel(ds.interleave_dia_vals(vals, 64), (-1, 0, 1),
+                               torch.zeros((4, 64, ds.LANES), device=cuda))
+
+
+def test_block_solvers_launch_the_block_kernels(cuda):
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    from pcsc_eigenvalue_solver_project_tpu_torch.models.generators import banded_full
+    op = banded_full(20000, bandwidth=4, dtype=np.float32, seed=9, diag_boost=1.0, device=cuda)
+    X0 = np.random.default_rng(2).uniform(-1, 1, (20000, 8))
+    opts = eigsol.SolverOptions(max_iterations=30, tolerance=1e-7)
+    ds.reset_launch_counts()
+    r = eigsol.subspace_iteration(op, k=4, opts=opts, X0=X0)
+    r_il = eigsol.subspace_iteration(op.interleaved(), k=4, opts=opts, X0=X0)
+    torch.cuda.synchronize()
+    assert ds.dia_block_kernel.launches > 0 and ds.dia_il_block_kernel.launches > 0
+    cpu = eigsol.subspace_iteration(
+        eigsol.SparseDIA(data=op.data.cpu(), offsets=op.offsets, shape=op.shape), k=4,
+        opts=opts, X0=X0)
+    for res in (r, r_il):
+        assert int(res.iterations) == int(cpu.iterations)
+        got, want = res.eigenvalues.cpu().numpy(), cpu.eigenvalues.numpy()
+        assert matched_err(got, want) <= 1e-4 * np.abs(want).max()
+

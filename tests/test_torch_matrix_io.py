@@ -21,6 +21,7 @@ from pcsc_eigenvalue_solver_project_tpu.core import dtypes as jdt
 from pcsc_eigenvalue_solver_project_tpu.matrix import protocol as jproto
 from pcsc_eigenvalue_solver_project_tpu.models import generators as jgen
 from pcsc_eigenvalue_solver_project_tpu_torch.core import dtypes as tdt
+from pcsc_eigenvalue_solver_project_tpu_torch.core.device import resolve_device
 from pcsc_eigenvalue_solver_project_tpu_torch.matrix import protocol as tproto
 from pcsc_eigenvalue_solver_project_tpu_torch.models import generators as tgen
 from pcsc_eigenvalue_solver_project_tpu_torch.utils.interop import from_numpy_leaves
@@ -33,7 +34,7 @@ def to_port(m):
     leaves = [np.asarray(leaf) for leaf in jax.tree_util.tree_leaves(m)]
     static = {f.name: getattr(m, f.name) for f in dataclasses.fields(m)
               if f.metadata.get("static")}
-    return from_numpy_leaves(type(m).__name__, leaves, static)
+    return from_numpy_leaves(type(m).__name__, leaves, static, device="cpu")
 
 
 def np_of(t):
@@ -64,7 +65,7 @@ class TestDIAConversions:
     def test_from_csr_matches_jax(self, n, offsets):
         a = sparse_band(n, offsets, seed=n)
         dj = J.SparseDIA.from_csr(J.SparseCSR.from_dense(a))
-        dt = T.SparseDIA.from_csr(T.SparseCSR.from_dense(a))
+        dt = T.SparseDIA.from_csr(T.SparseCSR.from_dense(a, device="cpu"))
         assert dt.offsets == dj.offsets == offsets
         np.testing.assert_array_equal(dt.data.numpy(), np.asarray(dj.data))
         np.testing.assert_array_equal(dt.to_dense().numpy(), a)
@@ -74,7 +75,7 @@ class TestDIAConversions:
                                               (64, "bfloat16"), (8, "bfloat16")])
     def test_interleaved_matches_jax(self, tile_s, dtype):
         mj = jgen.banded_full(3000, bandwidth=5, dtype=np.float32, seed=4)
-        mt = tgen.banded_full(3000, bandwidth=5, dtype=np.float32, seed=4)
+        mt = tgen.banded_full(3000, bandwidth=5, dtype=np.float32, seed=4, device="cpu")
         il_j = mj.interleaved(tile_s, dtype=None if dtype is None else jnp.bfloat16)
         il_t = mt.interleaved(tile_s, dtype=None if dtype is None else torch.bfloat16)
         assert (il_t.R, il_t.tile_s, il_t.offsets) == (il_j.R, il_j.tile_s, il_j.offsets)
@@ -91,7 +92,7 @@ class TestDIAConversions:
     def test_from_diagonals_matches_jax(self):
         diags = [np.arange(6.0), np.ones(6), np.full(6, 2.0)]
         dj = J.SparseDIA.from_diagonals(diags, (-2, 0, 1), 6, dtype=np.float64)
-        dt = T.SparseDIA.from_diagonals(diags, (-2, 0, 1), 6, dtype=np.float64)
+        dt = T.SparseDIA.from_diagonals(diags, (-2, 0, 1), 6, dtype=np.float64, device="cpu")
         np.testing.assert_array_equal(dt.data.numpy(), np.asarray(dj.data))
 
     def test_interleaved_queries_match_jax(self):
@@ -115,14 +116,53 @@ class TestDIAConversions:
 
     def test_complex_adjoint_matches_jax(self):
         mj = jgen.banded_full(50, bandwidth=3, dtype=np.complex128, seed=6)
-        mt = tgen.banded_full(50, bandwidth=3, dtype=np.complex128, seed=6)
+        mt = tgen.banded_full(50, bandwidth=3, dtype=np.complex128, seed=6, device="cpu")
         np.testing.assert_array_equal(mt.adjoint().to_dense().numpy(),
                                       np.asarray(mj.adjoint().to_dense()))
 
     def test_matmat_waits_for_its_kernel(self):
-        il = tgen.banded_full(100, bandwidth=2).interleaved(8)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item 8"):
-            il.matmat(torch.zeros((2, il.R, 128)))
+        # the block kernel B5 is ported: matmat is the JAX block SpMM
+        mj = jgen.banded_full(100, bandwidth=2, dtype=np.float32, seed=3).interleaved(8)
+        il = to_port(mj)
+        xs = np.random.default_rng(4).standard_normal((2, il.R, 128)).astype(np.float32)
+        np.testing.assert_allclose(il.matmat(torch.from_numpy(xs)).numpy(),
+                                   np.asarray(mj.matmat(jnp.asarray(xs))), rtol=1e-5,
+                                   atol=1e-5)
+
+
+class TestDefaultDevice:
+    """Constructors put their data on the card unless asked for the CPU."""
+
+    def test_resolve_device(self):
+        assert resolve_device(None).type == "cuda"
+        assert resolve_device("cpu") == torch.device("cpu")
+        assert resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
+
+    @pytest.mark.parametrize("build", [
+        lambda: T.SparseDIA.from_diagonals([[1.0, 2.0]], (0,), 2),
+        lambda: T.read_matrix_from_file(os.path.join(DATA, "A.txt"), torch.complex128),
+        lambda: T.read_matrix_from_file(os.path.join(DATA, "B.txt"), torch.complex128,
+                                        use_native=False),
+        lambda: T.read_matrix_from_text("dense\n1 1\n2\n", np.float64),
+        lambda: T.DenseMatrix.from_array(np.eye(2)),
+        lambda: T.DenseMatrix.from_flat([1.0, 2.0], 1, 2),
+        lambda: T.SparseCSR.from_coo([0], [0], [1.0], (1, 1)),
+        lambda: T.SparseCSR.from_dense(np.eye(2)),
+        lambda: tgen.dense_random(3),
+        lambda: tgen.laplacian_1d(4),
+        lambda: tgen.banded_full(10, bandwidth=1),
+        lambda: from_numpy_leaves("SparseDIA", [np.ones((1, 3))], {"offsets": (0,),
+                                                                   "shape": (3, 3)}),
+    ], ids=["from_diagonals", "read_native", "read_python", "read_text", "from_array",
+            "from_flat", "from_coo", "from_dense", "dense_random", "laplacian_1d",
+            "banded_full", "from_numpy_leaves"])
+    def test_no_device_is_not_the_cpu(self, build):
+        if torch.cuda.is_available():
+            m = build()
+            assert next(v for v in vars(m).values() if isinstance(v, torch.Tensor)).is_cuda
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                build()
 
 
 class TestInterop:
@@ -148,7 +188,7 @@ class TestInterop:
 
     def test_unknown_kind(self):
         with pytest.raises(ValueError, match="unknown matrix kind"):
-            from_numpy_leaves("SparseGELL", [], {})
+            from_numpy_leaves("SparseGELL", [], {}, device="cpu")
 
 
 class TestGenerators:
@@ -162,7 +202,7 @@ class TestGenerators:
     ])
     def test_same_matrix_as_jax(self, name, args, kwargs):
         mj = getattr(jgen, name)(*args, **kwargs)
-        mt = getattr(tgen, name)(*args, **kwargs)
+        mt = getattr(tgen, name)(*args, **kwargs, device="cpu")
         assert type(mt).__name__ == type(mj).__name__
         np.testing.assert_array_equal(mt.to_dense().numpy(), np.asarray(mj.to_dense()))
 
@@ -177,7 +217,7 @@ class TestMatrices:
         a = (rng.random((7, 7)) + 1j * rng.random((7, 7))) * (rng.random((7, 7)) < 0.5)
         a[3, 3] = 2.0
         cj = J.SparseCSR.from_dense(a, dtype=np.complex128)
-        ct = T.SparseCSR.from_dense(a, dtype=np.complex128)
+        ct = T.SparseCSR.from_dense(a, dtype=np.complex128, device="cpu")
         for name in ("data", "indices", "rows", "indptr"):
             np.testing.assert_array_equal(getattr(ct, name).numpy(),
                                           np.asarray(getattr(cj, name)))
@@ -195,38 +235,43 @@ class TestMatrices:
 
     def test_dense_queries(self):
         a = np.array([[1.0, 2.0], [3.0, 4.0]])
-        m = T.DenseMatrix.from_array(a)
+        m = T.DenseMatrix.from_array(a, device="cpu")
         assert m.shape == (2, 2) and m.is_dense and m.dtype == torch.float64
         np.testing.assert_array_equal(m.matvec(torch.ones(2, dtype=torch.float64)).numpy(),
                                       [3.0, 7.0])
         np.testing.assert_array_equal(m.rmatvec(torch.ones(2, dtype=torch.float64)).numpy(),
                                       [4.0, 6.0])
-        flat = T.DenseMatrix.from_flat([1, 2, 3, 4, 5, 6], 2, 3, dtype=np.float64)
+        flat = T.DenseMatrix.from_flat([1, 2, 3, 4, 5, 6], 2, 3, dtype=np.float64,
+                                      device="cpu")
         np.testing.assert_array_equal(flat.array.numpy(), [[1, 2, 3], [4, 5, 6]])
         a[0, 0] = 9.0  # the matrix holds a copy
         assert float(m.array[0, 0]) == 1.0
 
     @pytest.mark.parametrize("case", [
-        ("flat size", lambda M: M.DenseMatrix.from_flat([1, 2, 3], 2, 2)),
-        ("not 2-D", lambda M: M.DenseMatrix.from_array([1.0, 2.0])),
-        ("int dtype", lambda M: M.DenseMatrix.from_array([[1, 2]], dtype=np.int32)),
-        ("dense as_csr", lambda M: M.DenseMatrix.from_array([[1.0]]).as_csr()),
-        ("csr as_dense", lambda M: M.SparseCSR.from_coo([0], [0], [1.0], (1, 1)).as_dense()),
-        ("ell as_csr", lambda M: M.SparseCSR.from_coo([0], [0], [1.0], (1, 1)).to_ell().as_csr()),
-        ("dia as_csr", lambda M: M.SparseDIA.from_diagonals([[1.0]], (0,), 1).as_csr()),
-        ("il as_csr", lambda M: M.SparseDIA.from_diagonals([[1.0]], (0,), 1).interleaved(8).as_csr()),
-        ("coo range", lambda M: M.SparseCSR.from_coo([0, 2], [0, 0], [1.0, 1.0], (2, 2))),
-        ("coo dup", lambda M: M.SparseCSR.from_coo([0, 0], [0, 0], [1.0, 2.0], (1, 1),
-                                                   sum_duplicates=False)),
-        ("coo ragged", lambda M: M.SparseCSR.from_coo([0, 1], [0], [1.0], (2, 2))),
-        ("dia non-square", lambda M: M.SparseDIA.from_csr(
-            M.SparseCSR.from_coo([0], [1], [1.0], (2, 3)))),
-        ("options", lambda M: M.SolverOptions(max_iterations=-1)),
-        ("tolerance", lambda M: M.SolverOptions(tolerance=-1e-3)),
+        ("flat size", lambda M, cpu: M.DenseMatrix.from_flat([1, 2, 3], 2, 2, **cpu)),
+        ("not 2-D", lambda M, cpu: M.DenseMatrix.from_array([1.0, 2.0], **cpu)),
+        ("int dtype", lambda M, cpu: M.DenseMatrix.from_array([[1, 2]], dtype=np.int32, **cpu)),
+        ("dense as_csr", lambda M, cpu: M.DenseMatrix.from_array([[1.0]], **cpu).as_csr()),
+        ("csr as_dense", lambda M, cpu: M.SparseCSR.from_coo([0], [0], [1.0], (1, 1),
+                                                         **cpu).as_dense()),
+        ("ell as_csr", lambda M, cpu: M.SparseCSR.from_coo([0], [0], [1.0], (1, 1),
+                                                       **cpu).to_ell().as_csr()),
+        ("dia as_csr", lambda M, cpu: M.SparseDIA.from_diagonals([[1.0]], (0,), 1, **cpu).as_csr()),
+        ("il as_csr", lambda M, cpu: M.SparseDIA.from_diagonals([[1.0]], (0,), 1,
+                                                            **cpu).interleaved(8).as_csr()),
+        ("coo range", lambda M, cpu: M.SparseCSR.from_coo([0, 2], [0, 0], [1.0, 1.0], (2, 2),
+                                                        **cpu)),
+        ("coo dup", lambda M, cpu: M.SparseCSR.from_coo([0, 0], [0, 0], [1.0, 2.0], (1, 1),
+                                                        sum_duplicates=False, **cpu)),
+        ("coo ragged", lambda M, cpu: M.SparseCSR.from_coo([0, 1], [0], [1.0], (2, 2), **cpu)),
+        ("dia non-square", lambda M, cpu: M.SparseDIA.from_csr(
+            M.SparseCSR.from_coo([0], [1], [1.0], (2, 3), **cpu))),
+        ("options", lambda M, cpu: M.SolverOptions(max_iterations=-1)),
+        ("tolerance", lambda M, cpu: M.SolverOptions(tolerance=-1e-3)),
     ], ids=lambda c: c[0])
     def test_errors_match_jax(self, case):
         _, fn = case
-        assert raised(lambda: fn(T)) == raised(lambda: fn(J))
+        assert raised(lambda: fn(T, {"device": "cpu"})) == raised(lambda: fn(J, {}))
 
 
 class TestProtocolAndDtypes:
@@ -234,7 +279,7 @@ class TestProtocolAndDtypes:
                                              ("require_nonempty", (0, 0)),
                                              ("require_nonempty", (3, 0))])
     def test_guards_match_jax(self, guard, shape):
-        mt = T.DenseMatrix.from_array(np.ones(shape))
+        mt = T.DenseMatrix.from_array(np.ones(shape), device="cpu")
         mj = J.DenseMatrix.from_array(np.ones(shape))
         fj, ft = getattr(jproto, guard), getattr(tproto, guard)
         assert raised(lambda: ft(mt, "power_method")) == \
@@ -257,7 +302,7 @@ class TestProtocolAndDtypes:
             == raised(lambda: jdt.check_scalar_type(np.float32, np.float64, "power_method"))
 
     def test_decode_result(self):
-        il = tgen.banded_full(300, bandwidth=2).interleaved(8)
+        il = tgen.banded_full(300, bandwidth=2, device="cpu").interleaved(8)
         x = torch.arange(300, dtype=torch.float32)
         res = T.EigenResult(eigenvalue=torch.tensor(1.0), eigenvector=il.encode_vec(x),
                             iterations=torch.tensor(3, dtype=torch.int32),
@@ -291,15 +336,17 @@ class TestReader:
     def test_reference_files_match_jax(self, name, use_native):
         path = os.path.join(DATA, name)
         mj = J.read_matrix_from_file(path, np.complex128, use_native=use_native)
-        mt = T.read_matrix_from_file(path, torch.complex128, use_native=use_native)
+        mt = T.read_matrix_from_file(path, torch.complex128, use_native=use_native,
+                                     device="cpu")
         assert type(mt).__name__ == type(mj).__name__
         assert mt.dtype == torch.complex128
         np.testing.assert_array_equal(mt.to_dense().numpy(), np.asarray(mj.to_dense()))
 
     def test_real_text(self):
-        mt = T.read_matrix_from_text("dense\n2 2\n1 2\n3 4\n", np.float64)
+        mt = T.read_matrix_from_text("dense\n2 2\n1 2\n3 4\n", np.float64, device="cpu")
         np.testing.assert_array_equal(mt.array.numpy(), [[1, 2], [3, 4]])
-        st = T.read_matrix_from_text("sparse\n2 2\n2\n0 1 5\n1 0 -1\n", np.float32)
+        st = T.read_matrix_from_text("sparse\n2 2\n2\n0 1 5\n1 0 -1\n", np.float32,
+                                    device="cpu")
         assert st.dtype == torch.float32 and st.nnz == 2
 
     @pytest.mark.parametrize("text,dtype", MALFORMED)
@@ -308,11 +355,11 @@ class TestReader:
         with open(path, "w") as f:
             f.write(text)
         expect = raised(lambda: J.read_matrix_from_file(path, dtype))
-        assert raised(lambda: T.read_matrix_from_file(path, dtype)) == expect
-        assert raised(lambda: T.read_matrix_from_text(text, dtype)) == \
+        assert raised(lambda: T.read_matrix_from_file(path, dtype, device="cpu")) == expect
+        assert raised(lambda: T.read_matrix_from_text(text, dtype, device="cpu")) == \
             raised(lambda: J.read_matrix_from_text(text, dtype))
 
     def test_missing_file_matches_jax(self, tmp_path):
         path = str(tmp_path / "absent.txt")
-        assert raised(lambda: T.read_matrix_from_file(path, np.float64)) == \
+        assert raised(lambda: T.read_matrix_from_file(path, np.float64, device="cpu")) == \
             raised(lambda: J.read_matrix_from_file(path, np.float64))

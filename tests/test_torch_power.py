@@ -35,7 +35,7 @@ def to_port(m):
     leaves = [np.asarray(leaf) for leaf in jax.tree_util.tree_leaves(m)]
     static = {f.name: getattr(m, f.name) for f in dataclasses.fields(m)
               if f.metadata.get("static")}
-    return from_numpy_leaves(type(m).__name__, leaves, static)
+    return from_numpy_leaves(type(m).__name__, leaves, static, device="cpu")
 
 
 def planted_band(n, bandwidth, dtype, seed):
@@ -155,7 +155,7 @@ def test_whole_slice_matches_jax():
     # generator -> interleaved layout -> power_method, as tests/test_dia.py's
     # operator-protocol test runs it on the JAX side
     dj = j_banded_full(4000, bandwidth=5, dtype=np.float32, seed=3)
-    dt = t_banded_full(4000, bandwidth=5, dtype=np.float32, seed=3)
+    dt = t_banded_full(4000, bandwidth=5, dtype=np.float32, seed=3, device="cpu")
     np.testing.assert_array_equal(dt.data.numpy(), np.asarray(dj.data))
     mj, il = dj.interleaved(), dt.interleaved()
     x0 = np.random.default_rng(0).standard_normal(4000)
@@ -168,16 +168,16 @@ def test_whole_slice_matches_jax():
 
 
 @pytest.mark.parametrize("call", [
-    lambda M: M.power_method(M.DenseMatrix.from_array(np.ones((2, 3)))),
-    lambda M: M.power_method(M.DenseMatrix.from_array(np.zeros((0, 0)))),
-    lambda M: M.power_method(M.DenseMatrix.from_array(np.eye(2, dtype=np.float32)),
-                             dtype=np.float64),
+    lambda M, cpu: M.power_method(M.DenseMatrix.from_array(np.ones((2, 3)), **cpu)),
+    lambda M, cpu: M.power_method(M.DenseMatrix.from_array(np.zeros((0, 0)), **cpu)),
+    lambda M, cpu: M.power_method(M.DenseMatrix.from_array(np.eye(2, dtype=np.float32), **cpu),
+                                  dtype=np.float64),
 ], ids=["non-square", "zero-size", "dtype"])
 def test_errors_match_jax(call):
     errors = []
-    for M in (T, J):
+    for M, cpu in ((T, {"device": "cpu"}), (J, {})):
         with pytest.raises((TypeError, ValueError)) as err:
-            call(M)
+            call(M, cpu)
         errors.append((type(err.value), str(err.value)))
     assert errors[0] == errors[1]
 
@@ -187,7 +187,7 @@ def test_reference_files_default_start():
     # generator, so the counts differ from JAX's but the eigenvalues agree
     opts = T.SolverOptions(max_iterations=1000, tolerance=1e-10)
     for name, expected in (("A.txt", 5 - 1j), ("B.txt", 4 + 5j)):
-        m = T.read_matrix_from_file(os.path.join(DATA, name), torch.complex128)
+        m = T.read_matrix_from_file(os.path.join(DATA, name), torch.complex128, device="cpu")
         r1 = T.power_method(m, opts)
         r2 = T.power_method(m, opts, generator=default_generator())
         assert bool(r1.converged)

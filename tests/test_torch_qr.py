@@ -59,7 +59,8 @@ def geometric_symmetric(n, ratio, dtype, seed):
 
 def both(a, dtype=None):
     dtype = dtype or a.dtype
-    return J.DenseMatrix.from_array(a, dtype=dtype), T.DenseMatrix.from_array(a, dtype=dtype)
+    return (J.DenseMatrix.from_array(a, dtype=dtype),
+            T.DenseMatrix.from_array(a, dtype=dtype, device="cpu"))
 
 
 def spectrum_distance(got, expected):
@@ -127,7 +128,7 @@ class TestHessenberg:
     def test_spectrum_preserved(self):
         # qr_algorithms_test.cpp:94-136
         a = random_matrix(7, np.float64, seed=2)
-        H = T.to_hessenberg(T.DenseMatrix.from_array(a)).numpy()
+        H = T.to_hessenberg(T.DenseMatrix.from_array(a, device="cpu")).numpy()
         assert spectrum_distance(np.linalg.eigvals(H), np.linalg.eigvals(a)) < 1e-8
 
 
@@ -189,7 +190,7 @@ class TestQREigenvalues:
 
     def test_complex_triangular(self):
         a = np.array([[1 + 3j, 3 + 5j, 1 + 4j], [0, 2 + 4j, 3 + 2j], [0, 0, 5 - 1j]])
-        r = T.qr_eigenvalues(T.DenseMatrix.from_array(a, dtype=np.complex128))
+        r = T.qr_eigenvalues(T.DenseMatrix.from_array(a, dtype=np.complex128, device="cpu"))
         assert spectrum_distance(r.eigenvalues.numpy(), [1 + 3j, 2 + 4j, 5 - 1j]) < 1e-8
 
     def test_nonconvergence_iteration_count(self):
@@ -227,7 +228,7 @@ class TestQREigenvalues:
     def test_reference_data_a(self, mode):
         # the reference demo's dense matrix, complex128 (upper triangular)
         Mj = J.read_matrix_from_file(os.path.join(DATA, "A.txt"), dtype=np.complex128)
-        Mt = T.read_matrix_from_file(os.path.join(DATA, "A.txt"), torch.complex128)
+        Mt = T.read_matrix_from_file(os.path.join(DATA, "A.txt"), torch.complex128, device="cpu")
         opts = dict(mode=mode, tolerance=1e-10)
         rj, rt = J.qr_eigenvalues(Mj, J.QROptions(**opts)), T.qr_eigenvalues(Mt, T.QROptions(**opts))
         assert_same_solve(rj, rt, np.complex128)
@@ -245,13 +246,13 @@ class TestProbes:
     def test_non_square(self, fn, name):
         # qr_algorithms_test.cpp:83-92, :335-348
         with pytest.raises(ValueError, match=f"{name}: A must be square"):
-            fn(T.DenseMatrix.from_array(np.ones((2, 3))))
+            fn(T.DenseMatrix.from_array(np.ones((2, 3)), device="cpu"))
 
     @pytest.mark.parametrize("fn,name", [(T.to_hessenberg, "to_hessenberg"),
                                          (T.qr_decompose, "qr_decompose"),
                                          (T.qr_eigenvalues, "qr_eigenvalues")])
     def test_sparse_rejected(self, fn, name):
-        m = T.SparseCSR.from_coo([0], [0], [1.0], (2, 2))
+        m = T.SparseCSR.from_coo([0], [0], [1.0], (2, 2), device="cpu")
         with pytest.raises(ValueError, match=f"{name}: only dense matrices are supported"):
             fn(m)
 
@@ -260,11 +261,11 @@ class TestProbes:
                                          (T.qr_eigenvalues, "qr_eigenvalues")])
     def test_scalar_type_mismatch(self, fn, name):
         with pytest.raises(TypeError, match=f"{name}: scalar type mismatch"):
-            fn(T.DenseMatrix.from_array(np.eye(2)), dtype=np.complex128)
+            fn(T.DenseMatrix.from_array(np.eye(2), device="cpu"), dtype=np.complex128)
 
     def test_reference_data_b_is_sparse(self):
         # data/B.txt is CSR: every QR entry point raises like the reference
-        Mt = T.read_matrix_from_file(os.path.join(DATA, "B.txt"), torch.complex128)
+        Mt = T.read_matrix_from_file(os.path.join(DATA, "B.txt"), torch.complex128, device="cpu")
         Mj = J.read_matrix_from_file(os.path.join(DATA, "B.txt"), dtype=np.complex128)
         for fn_j, fn_t in ((J.qr_eigenvalues, T.qr_eigenvalues),
                            (J.to_hessenberg, T.to_hessenberg),
@@ -278,7 +279,7 @@ class TestProbes:
     def test_empty_qr_decompose_raises(self):
         # qr_decompose.hpp:38-40
         with pytest.raises(ValueError, match="qr_decompose_dense: empty matrix"):
-            T.qr_decompose(T.DenseMatrix.from_array(np.zeros((0, 0))))
+            T.qr_decompose(T.DenseMatrix.from_array(np.zeros((0, 0)), device="cpu"))
 
 
 def eig_residual(a, lam, V):
@@ -338,7 +339,7 @@ class TestEigenpairs:
     def test_reference_data_a(self):
         # upper triangular already: no sweep, eigenvectors by back-substitution
         Mj = J.read_matrix_from_file(os.path.join(DATA, "A.txt"), dtype=np.complex128)
-        Mt = T.read_matrix_from_file(os.path.join(DATA, "A.txt"), torch.complex128)
+        Mt = T.read_matrix_from_file(os.path.join(DATA, "A.txt"), torch.complex128, device="cpu")
         opts = dict(mode="accelerated", compute_vectors=True, tolerance=1e-10)
         rj, rt = J.qr_eigenvalues(Mj, J.QROptions(**opts)), T.qr_eigenvalues(Mt, T.QROptions(**opts))
         assert_same_solve(rj, rt, np.complex128)

@@ -19,6 +19,10 @@ Tolerances:
   deflation off: H entry by entry to 1e-6 * n of max|H| (one unit of float32
   rounding per row, the unit of tests/test_torch_qr_kernels.py; measured
   0.011 units), the port in complex128.
+- An empty schedule (JAX ``n_shifts = 0``) against ``qr_eig_blocked_step``
+  and ``qr_eig_blocked_step_q``: Wilkinson sweeps, the same sweep count and
+  hi, H as for the schedule after 4 sweeps at tol 0 and eigenvalues as above
+  at convergence; ``||H - Q T Q^H||`` to one unit.
 - Schur mode: eigenvalues as above; ``||H - Q T Q^H||`` and ``||Q^H Q - I||``
   to 1e-6 * n (one unit; measured 0.03-0.04); T upper triangular below the
   deflation rule, every entry under the diagonal within
@@ -38,8 +42,8 @@ import torch
 import jax.numpy as jnp
 
 from pcsc_eigenvalue_solver_project_tpu.ops.pallas.qr_eig_blocked import (
-    pad_for_blocked, qr_eig_blocked_planes, qr_eig_blocked_step,
-    qr_eigenvalues_pallas_blocked)
+    pad_for_blocked, pad_q_identity, qr_eig_blocked_planes, qr_eig_blocked_step,
+    qr_eig_blocked_step_q, qr_eigenvalues_pallas_blocked)
 from pcsc_eigenvalue_solver_project_tpu.ops.pallas.qr_kernels import hessenberg_planes
 from pcsc_eigenvalue_solver_project_tpu_torch import DenseMatrix, QROptions
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import _build
@@ -131,6 +135,41 @@ def test_shift_schedule_matches_pallas_step():
     # and the schedule is what moved it: Wilkinson shifts give another H
     hw, _, _, _ = qb.qr_eig_blocked_step(torch.from_numpy(H.astype(np.complex128)), sweeps, 0.0)
     assert np.abs(hw.numpy() - Hj).max() > 1e-2 * scale
+
+
+@pytest.mark.parametrize("sweeps,tol", [(4, 0.0), (40 * 33, TOL)], ids=["budget", "converge"])
+def test_empty_schedule_is_wilkinson_like_pallas_step(sweeps, tol):
+    # JAX n_shifts = 0 (an AED round that deflated its whole window): Wilkinson
+    # shifts, in the plain step and in Schur mode
+    n = 33
+    a = random_matrix(n, True, seed=11)
+    h, H = pallas_hessenberg(a)
+    p, np_ = pad_for_blocked(h)
+    empty = jnp.zeros((2, 1, 128), jnp.float32)
+    pj, ej, sj, hij = qr_eig_blocked_step(p, n, sweeps, tol, empty, 0, interpret=True)
+    pq, _ = pad_for_blocked(h)
+    _, qj, ejq, sjq, hijq = qr_eig_blocked_step_q(pq, pad_q_identity(np_), n, sweeps, tol,
+                                                  empty, 0, interpret=True)
+    h_t = torch.from_numpy(H.astype(np.complex128))
+    none = torch.zeros(0, dtype=torch.complex128)
+    hp, e, s, hi = qb.qr_eig_blocked_step(h_t, sweeps, tol, none)
+    tq_, qq, eq, sq, hiq = qb.qr_eig_blocked_step_q(h_t, torch.eye(n, dtype=h_t.dtype), sweeps,
+                                                    tol, none)
+    assert int(s) == int(sj) == int(sq) == int(sjq)
+    assert int(hi) == int(hij) == int(hiq) == int(hijq)
+    hw, ew, sw, _ = qb.qr_eig_blocked_step(h_t, sweeps, tol)  # no schedule at all
+    assert torch.equal(hp, hw) and int(s) == int(sw)
+    if tol == 0.0:
+        assert int(s) == sweeps and int(hi) == n
+        scale = np.abs(H).max()
+        assert np.abs(hp.numpy() - from_planes(np.asarray(pj)[:, :n, :n])).max() \
+            <= 1e-6 * n * scale
+    else:
+        assert int(hi) <= 1
+        assert nn_err(from_planes(ej)[0, :n], e.numpy()) <= EIG_LIMIT
+        assert nn_err(from_planes(ejq)[0, :n], eq.numpy()) <= EIG_LIMIT
+    T, Q = tq_.numpy(), qq.numpy()
+    assert np.abs(Q @ T @ Q.conj().T - H).max() <= 1e-6 * n * np.abs(H).max()
 
 
 def test_schur_mode_matches_pallas():
