@@ -62,11 +62,27 @@ Phases, each of which raises on failure (the exit code is then non-zero):
     tensors: eigenvalues of the bench operand at 4096 float32, of the
     complex64 normal operand at 2048 and of a non-symmetric float32 matrix at
     2048 (against numpy in float64), eigenpairs of the bench operand at 2048
-    and 4096.
+    and 4096;
+15. the split-plane SpMV (B4, B3's planes entry) and the block SpMM B5
+    against their plain versions at 1M x 33, with ``torch.sparse.mm``;
+16. ``power_method`` on the split-plane operators and the block solvers
+    ``subspace_iteration`` / ``chebyshev_subspace_iteration`` at 1M x 33;
+17. the general sparse SpMV B6 against its plain version on bench.py's
+    general operators at 1M rows x 33 entries a row (uniform and local): f32,
+    bf16 values, f64, complex64 native and on planes, complex128, and small
+    cases, with ``torch.sparse.mm`` beside it;
+18. the general-sparse path: ``from_coo(layout="auto")`` on bench.py's three
+    auto patterns at 100,000, ``power_method`` on each pick and on the
+    hand-picked layout, on ``SparseGELL`` at 1M x 33 (budget and a planted
+    variant against scipy), on a planted shuffled band through the
+    ``PermutedOperator`` (residual in the caller's indexing), on
+    ``data/B.txt`` as complex128 ``to_gell()``, and on the complex operator
+    through the planes entry.
 
 The banded kernels' launch counts are zeroed just before phases 4-5 and
 read just after, the QR kernels' just before and after phases 7, 10, 14 and
-each run of phase 11; each kernel must have run on its path. The script then
+each run of phase 11, the banded ones again around phase 16, and B6's and
+the banded ones around phase 18; each kernel must have run on its path. The script then
 prints one JSON line with each kernel's numbers (time, plain time, the
 least time the card could take for the same work, the library call's time
 where one PyTorch call computes the same function), the card's name and
@@ -104,6 +120,10 @@ QRB_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/qr_eig_blocked.
 BOUNDARY_SIZES = (128, 256, 512, 1024, 2048, 4096)  # B8 against B13
 B13_SWEEPS = 3  # B13 against its plain version at n >= 512 (the plain version is slow)
 NONSYM_MAX_N = 1024  # whole non-symmetric solves in the boundary sweep (B8 is slow beyond)
+GELL_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/gell_spmv.cu"
+GELL_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/gell_spmv.py"
+GELL_PER_ROW = 33  # bench.py --general: 1M rows x 33 entries a row
+AUTO_N = 100_000   # bench.py's auto leg (BENCH_R05_SET.jsonl:8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}  # H100 SXM data sheet, outside the tensor cores
 
@@ -1285,6 +1305,413 @@ def banded_block_path_phase(ctx):
     return launches
 
 
+def general_coo(n, per_row, pattern, seed=0):
+    """bench.py:127-143's operator: ``per_row`` entries a row, columns
+    uniform or within +-8192 of the row (wrapping), standard normal float32
+    values, duplicates removed, as numpy COO sorted by (row, col)."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    if pattern == "local":
+        cols = (rows + rng.integers(-8192, 8193, n * per_row)) % n
+    else:
+        cols = rng.integers(0, n, n * per_row)
+    vals = rng.standard_normal(n * per_row).astype(np.float32)
+    _, uniq = np.unique(rows.astype(np.int64) * n + cols, return_index=True)
+    return rows[uniq], cols[uniq], vals[uniq]
+
+
+def auto_cases(n):
+    """bench.py:338-376's three patterns at n, in its order of draws:
+    banded (bandwidth 16), the same band under shuffled labels, and uniform
+    with 6 entries a row (duplicates removed)."""
+    rng = np.random.default_rng(0)
+
+    def banded(shuffle=None):
+        i = np.repeat(np.arange(n), 2 * BANDWIDTH + 1)
+        j = i + np.tile(np.arange(-BANDWIDTH, BANDWIDTH + 1), n)
+        keep = (j >= 0) & (j < n)
+        i, j = i[keep], j[keep]
+        v = rng.standard_normal(len(i)).astype(np.float32)
+        if shuffle is not None:
+            i, j = shuffle[i], shuffle[j]
+        return i, j, v
+
+    def uniform(k=6):
+        i = np.repeat(np.arange(n), k)
+        j = rng.integers(0, n, k * n)
+        v = rng.standard_normal(k * n).astype(np.float32)
+        _, uniq = np.unique(i.astype(np.int64) * n + j, return_index=True)
+        return i[uniq], j[uniq], v[uniq]
+
+    return {"banded": banded(), "shuffled_banded": banded(rng.permutation(n)),
+            "uniform": uniform()}
+
+
+def coo_csr64(r, c, v, n_rows, n_cols):
+    """scipy CSR of the COO in float64 (complex128), duplicates summed."""
+    import scipy.sparse as sp
+    dt = np.complex128 if np.iscomplexobj(v) else np.float64
+    return sp.csr_matrix((np.asarray(v, dt), (r, c)), shape=(n_rows, n_cols))
+
+
+class GELLPlanes:
+    """A complex GELL pack seen through its planes entry, as a split-plane
+    operator: the loop the JAX package runs for a complex GELL operator on a
+    backend without complex dtypes (``gell_matvec`` through
+    ``gell_matvec_planes``), driven by ``power_method_split_complex``."""
+
+    def __init__(self, pack, matvec):
+        self.pack, self.matvec = pack, matvec
+        self.shape, self.device = pack.shape, pack.device
+        self.dtype = pack.vector_dtype.to_real()
+
+    def encode_vec(self, x):
+        return x
+
+    def decode_vec(self, x):
+        return x
+
+
+def general_sparse_kernel_phase(ctx):
+    """Phase 17: B6 against its plain version on the card, on bench.py's
+    general operators at 1M rows x 33 entries a row (uniform and local
+    columns): f32 values, bf16 values (f32 sums), f64, complex64 on native
+    vectors and on re/im planes, complex128; small cases (the empty matrix,
+    empty rows, duplicates, a 5000-entry row, the 700 x 40000 rectangle).
+    Times per call from a CUDA-graph replay, plain versions (which read the
+    device to size their row ids) between CUDA events, ``torch.sparse.mm``
+    of the CSR times the (n, 1) block beside them. Returns ({tag: max abs
+    error}, {tag: (kernel ms, plain ms, bytes)}, {tag: library ms}, the
+    uniform COO)."""
+    import dataclasses
+
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import gell_spmv as gs
+
+    dev, card_name, card_limit = ctx["dev"], ctx["card_name"], ctx["card_limit"]
+    rng = np.random.default_rng(170)
+    errors, timings, library = {}, {}, {}
+
+    def compare(label, y, y_ref, limit, tag=None):
+        torch.cuda.synchronize()
+        err = rel_err(y, y_ref)
+        print(f"check {label}: rel err {err:.3e} (limit {limit:.0e})")
+        check(y.shape == y_ref.shape and y.dtype == y_ref.dtype, f"{label}: shape or dtype")
+        check(torch.isfinite(y).all().item(), f"{label}: non-finite output")
+        check(err <= limit, f"{label}: rel err {err:.3e} above {limit:.0e}")
+        if tag:
+            errors[tag] = float((y - y_ref).abs().max())
+
+    def nbytes(pack, x, y):
+        return sum(t.numel() * t.element_size()
+                   for t in (pack.values, pack.indices, pack.indptr, x, y))
+
+    def plain_timer(fn):
+        return time_events_ms(fn, reps=3)
+
+    uniform_coo = None
+    for pattern in ("uniform", "local"):
+        t0 = time.perf_counter()
+        r, c, v = general_coo(N, GELL_PER_ROW, pattern)
+        if pattern == "uniform":
+            uniform_coo = (r, c, v)
+        pack = gs.pack_gell(r, c, v, (N, N), device=dev)
+        im = torch.from_numpy(rng.standard_normal(pack.nnz).astype(np.float32)).to(dev)
+        cpack = dataclasses.replace(pack, values=torch.stack([pack.values, im], -1),
+                                    is_complex=True)
+        print(f"B6 {pattern} {N}x{GELL_PER_ROW}: nnz {pack.nnz}, group {pack.group} lanes a "
+              f"row, packed in {time.perf_counter() - t0:.1f} s")
+        cases = {"f32": pack, "bf16": pack.with_values_dtype(torch.bfloat16),
+                 "f64": pack.with_values_dtype(torch.float64), "c64": cpack,
+                 "c128": cpack.with_values_dtype(torch.float64)}
+        xr, xi = rng.uniform(-1, 1, N), rng.uniform(-1, 1, N)
+        for name, p in cases.items():
+            x = torch.from_numpy(xr + 1j * xi if p.is_complex else xr).to(dev, p.vector_dtype)
+            limit = 1e-12 if name in ("f64", "c128") else 1e-5
+            main = pattern == "uniform" and name == "f32"
+            y = gs.gell_matvec(p, x)
+            compare(f"B6 gell_kernel {name} {pattern} {N}x{GELL_PER_ROW}", y,
+                    gs.gell_matvec_plain(p, x), limit, "B6" if main else None)
+            if name == "c64":
+                planes = torch.stack([x.real, x.imag])
+                yp = gs.gell_matvec_planes(p, planes)
+                compare(f"B6 gell_planes_kernel c64 planes {pattern} {N}x{GELL_PER_ROW}", yp,
+                        gs.gell_matvec_planes_plain(p, planes), limit,
+                        "B6cpx" if pattern == "uniform" else None)
+                compare(f"B6 planes against native c64 {pattern}", torch.complex(yp[0], yp[1]),
+                        y, limit)
+                k_ms, p_ms = timed_pair(lambda: gs.gell_planes_kernel(p, planes),
+                                        lambda: gs.gell_matvec_planes_plain(p, planes),
+                                        plain_timer=plain_timer)
+                timings[("B6cpx", pattern)] = (k_ms, p_ms, nbytes(p, planes, yp), 8 * p.nnz)
+            if name in ("f32", "c64"):
+                k_ms, p_ms = timed_pair(lambda: gs.gell_kernel(p, x),
+                                        lambda: gs.gell_matvec_plain(p, x),
+                                        plain_timer=plain_timer)
+                # the library call: torch.sparse.mm of the CSR times the
+                # (n, 1) block (timed only; the port never calls it)
+                vals = p.values if not p.is_complex else torch.complex(p.values[:, 0],
+                                                                       p.values[:, 1])
+                csr = torch.sparse_csr_tensor(p.indptr.long(), p.indices.long(), vals, (N, N))
+                y_lib = torch.sparse.mm(csr, x[:, None])[:, 0]
+                compare(f"library torch.sparse.mm (CSR) {name} {pattern} against the kernel",
+                        y_lib, y, limit)
+                library[(name, pattern)] = time_events_ms(
+                    lambda: torch.sparse.mm(csr, x[:, None]), reps=20)
+                timings[(name, pattern)] = (k_ms, p_ms, nbytes(p, x, y),
+                                            (8 if p.is_complex else 2) * p.nnz)
+                del csr, y_lib
+            elif name == "bf16":
+                k_ms = min(time_ms(lambda: gs.gell_kernel(p, x)) for _ in range(2))
+                timings[(name, pattern)] = (k_ms, None, nbytes(p, x, y), 2 * p.nnz)
+        del cases, pack, cpack
+    for (name, pattern), (k_ms, p_ms, nb, _) in timings.items():
+        lib = library.get((name, pattern))
+        print(f"time B6 {name} {pattern} {N}x{GELL_PER_ROW}: kernel {k_ms * 1e3:.1f} us "
+              f"({nb / 1e6:.0f} MB, bound {nb / HBM_BYTES_PER_S * 1e6:.1f} us, "
+              f"{nb / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s)"
+              + (f", plain {p_ms * 1e3:.1f} us" if p_ms is not None else "")
+              + (f", torch.sparse.mm {lib * 1e3:.1f} us" if lib is not None else "")
+              + f" [{card_name}, {card_limit}]")
+
+    # small cases, f32 and complex64, against the plain version
+    none = np.zeros(0, np.int64)
+    small = {
+        "empty 64x64": (none, none, np.zeros(0, np.float32), (64, 64)),
+        "empty rows": (np.array([2, 2, 9]), np.array([1, 7, 3]), np.float32([1, 2, 3]),
+                       (12, 10)),
+        "duplicates": (np.array([3, 3, 3, 3, 7, 7]), np.array([5] * 6),
+                       np.float32([1, 2, 3, 4, 10, 20]), (10, 10)),
+        "5000-entry row": (np.concatenate([np.full(5000, 3), np.arange(40)]),
+                           np.concatenate([rng.integers(0, 6000, 5000), np.arange(40)]),
+                           rng.standard_normal(5040).astype(np.float32), (40, 6000)),
+        "700x40000": (rng.integers(0, 700, 15_000), rng.integers(0, 40_000, 15_000),
+                      rng.standard_normal(15_000).astype(np.float32), (700, 40_000)),
+    }
+    for label, (r, c, v, shape) in small.items():
+        for cplx in (False, True):
+            vv = (v + 1j * v[::-1]).astype(np.complex64) if cplx else v
+            p = gs.pack_gell(r, c, vv, shape, device=dev)
+            x = torch.from_numpy(rng.uniform(-1, 1, shape[1])).to(dev, p.vector_dtype)
+            y, y_ref = gs.gell_matvec(p, x), gs.gell_matvec_plain(p, x)
+            torch.cuda.synchronize()
+            if label == "empty 64x64":
+                check(torch.equal(y, y_ref) and not y.any().item(), f"B6 {label}: not zero")
+                continue
+            compare(f"B6 {label} {'c64' if cplx else 'f32'}", y, y_ref, 1e-5)
+            if label == "duplicates" and not cplx:
+                want = torch.tensor([10.0, 30.0], device=dev) * x[5]
+                check(torch.allclose(y[[3, 7]], want, rtol=1e-6), "B6 duplicates do not sum")
+    return errors, timings, library, uniform_coo
+
+
+def general_sparse_path_phase(ctx, uniform_coo):
+    """Phase 18: the general-sparse path through the public API on CUDA
+    tensors. (a) ``from_coo(layout="auto")`` on bench.py's three auto
+    patterns at n = 100,000 (kinds as ``BENCH_R05_SET.jsonl:8`` records
+    them), ``power_method`` with a budget of 200 iterations (tolerance 0) on
+    each auto pick and on the hand-picked layout (GELL for the shuffled
+    band), held to the loop driven by the plain matvec; (b)
+    ``power_method`` on ``SparseGELL`` at 1M x 33 uniform, with the budget
+    against the plain loop and converging on a planted variant (values /
+    sqrt(33), 14, 10, 8 on the first three diagonal entries) against scipy's
+    ``eigs`` and the residual with scipy's CSR in float64; (c) a planted
+    shuffled band through the auto layout (``PermutedOperator``), its
+    eigenvector in the caller's indexing held to the residual of the COO in
+    float64; (d) ``data/B.txt`` as complex128 ``to_gell()`` against numpy;
+    (e) the complex64 uniform operator through the planes entry
+    (``GELLPlanes``), the JAX package's complex GELL loop, against the plain
+    planes loop and the native complex loop. The launch counts of B6 and of
+    the banded kernels are zeroed before the runs and read after them (the
+    plain loops launch nothing). Returns the launch counts."""
+    import dataclasses
+
+    import torch
+
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import gell_spmv as gs
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import split_complex as sc_ops
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers.power import (
+        norm, power_iteration_loop, vdot)
+
+    dev, card_name, card_limit = ctx["dev"], ctx["card_name"], ctx["card_limit"]
+    budget = eigsol.SolverOptions(max_iterations=200, tolerance=0.0)
+    converge = eigsol.SolverOptions(max_iterations=1000, tolerance=1e-6)
+
+    def plain_matvec(M):
+        inner = M.inner if isinstance(M, eigsol.PermutedOperator) else M
+        if isinstance(inner, eigsol.InterleavedDIA):
+            return lambda v: ds.dia_matvec_il_plain(inner.data_il, inner.offsets, v)
+        return lambda v: gs.gell_matvec_plain(inner.pack, v)
+
+    # (a) the auto layout at 100k
+    ops, coo = {}, {}
+    want = {"banded": ("InterleavedDIA", False), "shuffled_banded": ("InterleavedDIA", True),
+            "uniform": ("SparseGELL", False)}
+    for name, (i, j, v) in auto_cases(AUTO_N).items():
+        t0 = time.perf_counter()
+        dec = eigsol.suggest_layout(i, j, v, (AUTO_N, AUTO_N))
+        t1 = time.perf_counter()
+        auto = eigsol.from_coo(i, j, v, (AUTO_N, AUTO_N), layout="auto", device=dev)
+        t2 = time.perf_counter()
+        hand = eigsol.from_coo(i, j, v, (AUTO_N, AUTO_N),
+                               layout="dia_il" if name == "banded" else "gell", device=dev)
+        kind = type(getattr(auto, "inner", auto)).__name__
+        print(f"auto {name} n={AUTO_N} nnz={len(i)}: {kind}"
+              f"{' (permuted)' if isinstance(auto, eigsol.PermutedOperator) else ''}, "
+              f"suggest_layout {t1 - t0:.2f} s, from_coo {t2 - t1:.2f} s host; stats {dec.stats}")
+        check((kind, isinstance(auto, eigsol.PermutedOperator)) == want[name],
+              f"auto {name}: picked {kind}")
+        check(auto.device.type == "cuda", f"auto {name}: not on the card")
+        ops[(name, "auto")], ops[(name, "hand")] = auto, hand
+        coo[name] = (i, j, v)
+    # (b) SparseGELL at 1M x 33, budget and planted
+    r, c, v = uniform_coo
+    t0 = time.perf_counter()
+    ops[("gell 1M", "budget")] = eigsol.SparseGELL.from_coo(r, c, v, (N, N), device=dev)
+    plant = np.arange(3)
+    r2, c2 = np.concatenate([r, plant]), np.concatenate([c, plant])
+    v2 = np.concatenate([v / np.sqrt(GELL_PER_ROW), [14.0, 10.0, 8.0]]).astype(np.float32)
+    ops[("gell 1M", "planted")] = eigsol.SparseGELL.from_coo(r2, c2, v2, (N, N), device=dev)
+    print(f"SparseGELL.from_coo at {N}x{GELL_PER_ROW}: {(time.perf_counter() - t0) / 2:.1f} s "
+          f"host each")
+    # (c) a planted shuffled band, through the auto layout
+    rng = np.random.default_rng(18)
+    i = np.repeat(np.arange(AUTO_N), 2 * BANDWIDTH + 1)
+    j = i + np.tile(np.arange(-BANDWIDTH, BANDWIDTH + 1), AUTO_N)
+    keep = (j >= 0) & (j < AUTO_N)
+    i, j = i[keep], j[keep]
+    vb = (rng.uniform(-1, 1, len(i)) / np.sqrt(2 * BANDWIDTH + 1)).astype(np.float32)
+    vb[(i == j) & (i < 3)] = (14.0, 10.0, 8.0)
+    shuffle = rng.permutation(AUTO_N)
+    coo["planted shuffled"] = (shuffle[i], shuffle[j], vb)
+    ops[("planted shuffled", "auto")] = eigsol.from_coo(*coo["planted shuffled"],
+                                                        (AUTO_N, AUTO_N), device=dev)
+    check(isinstance(ops[("planted shuffled", "auto")], eigsol.PermutedOperator),
+          "planted shuffled band: not permuted")
+    # (d) the reference's sparse file as complex128 GELL
+    B_csr = eigsol.read_matrix_from_file("data/B.txt", torch.complex128, device=dev)
+    B = B_csr.to_gell()
+    # (e) the complex64 operator through the planes entry
+    im = np.random.default_rng(19).standard_normal(len(v)).astype(np.float32)
+    cgell = eigsol.SparseGELL.from_coo(r, c, (v + 1j * im).astype(np.complex64), (N, N),
+                                       device=dev)
+    planes_op = GELLPlanes(cgell.pack, lambda x: gs.gell_matvec_planes(cgell.pack, x))
+
+    runs = {key: (M, converge if key[1] == "planted" or key[0] == "planted shuffled"
+                  else budget) for key, M in ops.items()}
+    runs[("B.txt", "gell c128")] = (B, eigsol.SolverOptions(max_iterations=1000,
+                                                            tolerance=1e-10))
+    runs[("gell 1M c64", "native")] = (cgell, budget)
+    runs[("gell 1M c64", "planes")] = (planes_op, budget)
+    x0s = {N: np.random.default_rng(1).uniform(-1, 1, N),
+           AUTO_N: np.random.default_rng(1).uniform(-1, 1, AUTO_N),
+           5: np.ones(5)}
+
+    def start(M):
+        x0 = x0s[M.shape[0]]
+        return np.stack([x0, np.zeros_like(x0)]) if isinstance(M, GELLPlanes) else x0
+
+    def solve(M, opts):
+        if isinstance(M, GELLPlanes):
+            return eigsol.power_method_split_complex(M, opts, x0=start(M))
+        return eigsol.power_method(M, opts, x0=start(M))
+
+    for M, _ in runs.values():  # warm-up (allocator, library handles)
+        solve(M, eigsol.SolverOptions(max_iterations=3))
+    torch.cuda.synchronize()
+
+    t_path = time.perf_counter()
+    gs.reset_launch_counts()
+    ds.reset_launch_counts()
+    results, seconds = {}, {}
+    for key, (M, opts) in runs.items():
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        results[key] = solve(M, opts)
+        end.record()
+        end.synchronize()
+        seconds[key] = begin.elapsed_time(end) / 1e3
+    launches = {k.__name__: k.launches for k in (*gs.KERNELS, *ds.KERNELS)}
+    print(f"phase-18 launches: {launches}")
+    for name in ("gell_kernel", "gell_planes_kernel", "dia_il_kernel"):
+        check(launches[name] > 0, f"{name} was not launched by the phase-18 paths")
+    print(f"phase-18 paths: {time.perf_counter() - t_path:.1f} s")
+
+    # the budget runs against the loop driven by the plain matvec; the
+    # eigenvalue is held relative to max(|lambda|, ||A x||) of the plain
+    # loop, since an unconverged Rayleigh quotient may sit far below ||A||
+    per_iter = {}
+    for key, (M, opts) in runs.items():
+        if opts is not budget:
+            continue
+        r_k = results[key]
+        if isinstance(M, GELLPlanes):
+            plain = PlainMatvec(M, lambda x: gs.gell_matvec_planes_plain(M.pack, x))
+            ref = eigsol.power_method_split_complex(plain, budget, x0=start(M))
+            lam = complex(sc_ops.from_planes(r_k.eigenvalue))
+            lam_ref = complex(sc_ops.from_planes(ref.eigenvalue))
+            scale = max(abs(lam_ref), float(sc_ops.splitc_norm(plain.matvec(ref.eigenvector))))
+        else:
+            vec_dt = torch.promote_types(M.dtype, torch.float32)
+            xs = torch.from_numpy(start(M)).to(dev, vec_dt)
+            plain = plain_matvec(M)
+            ref = power_iteration_loop(plain, vdot, norm, M.encode_vec(xs / norm(xs)),
+                                       opts.max_iterations, opts.tolerance)
+            lam, lam_ref = complex(r_k.eigenvalue), complex(ref.eigenvalue)
+            scale = max(abs(lam_ref), float(norm(plain(ref.eigenvector))))
+        err = abs(lam - lam_ref) / scale
+        per_iter[key] = seconds[key] / int(r_k.iterations)
+        print(f"power {key[0]} {key[1]} budget: lambda {lam:.7g} vs plain loop {lam_ref:.7g} "
+              f"(err {err:.2e} of {scale:.4g}, limit 1e-4), {int(r_k.iterations)} iterations "
+              f"(plain {int(ref.iterations)}), {per_iter[key] * 1e6:.1f} us/iteration "
+              f"[{card_name}, {card_limit}]")
+        # tolerance 0 still stops where the Rayleigh quotient repeats exactly
+        check(0 < int(r_k.iterations) <= budget.max_iterations, f"{key}: iteration count")
+        check(torch.isfinite(r_k.eigenvector).all().item(), f"{key}: bad eigenvector")
+        check(err <= 1e-4, f"{key}: eigenvalue off the plain loop by {err:.2e}")
+    for name in ("banded", "shuffled_banded", "uniform"):
+        print(f"auto/hand-pick {name}: {per_iter[(name, 'auto')] * 1e6:.1f} / "
+              f"{per_iter[(name, 'hand')] * 1e6:.1f} us/iteration, ratio "
+              f"{per_iter[(name, 'hand')] / per_iter[(name, 'auto')]:.2f}x")
+    lam_n = complex(results[("gell 1M c64", "native")].eigenvalue)
+    lam_p = complex(sc_ops.from_planes(results[("gell 1M c64", "planes")].eigenvalue))
+    print(f"complex GELL native against planes: {lam_n:.7g} vs {lam_p:.7g}")
+
+    # converging runs against scipy in float64, residuals in the caller's indexing
+    from scipy.sparse.linalg import eigs
+    for key, (rr, cc, vv, n) in ((("gell 1M", "planted"), (r2, c2, v2, N)),
+                                 (("planted shuffled", "auto"),
+                                  (*coo["planted shuffled"], AUTO_N))):
+        A = coo_csr64(rr, cc, vv, n, n)
+        lam_ref = complex(eigs(A, k=1, which="LM", v0=np.ones(n), ncv=20,
+                               return_eigenvectors=False)[0])
+        res = results[key]
+        lam = complex(res.eigenvalue)
+        x = res.eigenvector.cpu().numpy().astype(np.float64)
+        resid = np.linalg.norm(A @ x - lam * x) / abs(lam) / np.linalg.norm(x)
+        err = abs(lam - lam_ref) / abs(lam_ref)
+        print(f"power {key[0]} converge: lambda {lam:.7g} vs scipy eigs {lam_ref:.7g} (rel "
+              f"{err:.2e}, limit 1e-4), {int(res.iterations)} iterations, "
+              f"converged={bool(res.converged)}, |A v - lambda v| / |lambda| {resid:.2e} "
+              f"(limit 1e-3), {seconds[key]:.3f} s")
+        check(bool(res.converged), f"{key}: did not converge")
+        check(err <= 1e-4, f"{key}: eigenvalue off scipy by {err:.2e}")
+        check(resid <= 1e-3, f"{key}: residual {resid:.2e}")
+    res = results[("B.txt", "gell c128")]
+    ev = np.linalg.eigvals(B_csr.to_dense().cpu().numpy())
+    lam_ref = complex(ev[np.argmax(np.abs(ev))])
+    err = abs(complex(res.eigenvalue) - lam_ref) / abs(lam_ref)
+    print(f"data/B.txt to_gell complex128: lambda {complex(res.eigenvalue):.10g} vs numpy "
+          f"{lam_ref:.10g} (rel {err:.2e}, limit 1e-6), {int(res.iterations)} iterations")
+    check(bool(res.converged) and err <= 1e-6, "data/B.txt to_gell: eigenvalue")
+    del ops, runs, results, cgell, planes_op, B
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1600,6 +2027,14 @@ def main() -> None:
     block_launches = banded_block_path_phase(ctx)
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 17/18. the general sparse kernel and its paths ---------------------
+    t0 = time.perf_counter()
+    gell_errors, gell_timings, gell_library, uniform_coo = general_sparse_kernel_phase(ctx)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gell_launches = general_sparse_path_phase(ctx, uniform_coo)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
     # ---- report ------------------------------------------------------------
     rows = []
 
@@ -1669,6 +2104,15 @@ def main() -> None:
         add_row(name, KERNEL_SOURCE, f"{TPU_KERNELS}:{line}", block_launches[name],
                 blk_kernel_errors[tag], k_ms, p_ms, nbytes, flops,
                 tag if tag.startswith("B5") else "B3")
+    # B6 per call at 1M x 33 uniform: f32 values on a native vector, and
+    # complex64 pairs on re/im planes (one FMA per entry, four for complex)
+    for name, tag, key, lib_key, line in (
+            ("gell_kernel", "B6", ("f32", "uniform"), ("f32", "uniform"), 356),
+            ("gell_planes_kernel", "B6cpx", ("B6cpx", "uniform"), ("c64", "uniform"), 367)):
+        k_ms, p_ms, nbytes, flops = gell_timings[key]
+        library[tag] = gell_library[lib_key]
+        add_row(name, GELL_SOURCE, f"{GELL_TPU_KERNELS}:{line}", gell_launches[name],
+                gell_errors[tag], k_ms, p_ms, nbytes, flops, tag)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,15 @@ PyTorch on an NVIDIA H100, under the same module tree and public names.
 This package holds the power-method path on dense, CSR/ELL and banded
 (DIA and interleaved DIA) operators and on the split-plane complex banded
 operators (``SplitComplexDIA``, ``InterleavedSplitComplexDIA``,
-``power_method_split_complex``); the block top-k solvers
-``subspace_iteration`` and ``chebyshev_subspace_iteration``; and the dense
-QR stack (Hessenberg reduction, QR decomposition, QR eigenvalues in parity
-and accelerated modes, with eigenvectors). The banded SpMV and block SpMM
-and the QR stack run as CUDA kernels written for Hopper (``csrc/``), built
-with nvcc at the first CUDA launch. Constructors put their data on the card
+``power_method_split_complex``); general unstructured sparse operators
+(``SparseGELL``, ``SparseCSR.to_gell``) and the automatic layout
+(``from_coo(layout="auto")``, ``suggest_layout``, ``PermutedOperator``); the
+block top-k solvers ``subspace_iteration`` and
+``chebyshev_subspace_iteration``; and the dense QR stack (Hessenberg
+reduction, QR decomposition, QR eigenvalues in parity and accelerated modes,
+with eigenvectors). The banded and general sparse SpMV, the block SpMM and
+the QR stack run as CUDA kernels written for Hopper (``csrc/``), built with
+nvcc at the first CUDA launch. Constructors put their data on the card
 unless given ``device`` (``device="cpu"`` for the CPU); on CPU tensors every
 operation runs its plain PyTorch version.
 
@@ -28,8 +31,10 @@ Typical usage::
 from .core.options import QROptions, SolverOptions
 from .core.results import EigenResult, QRResult
 from .core.tolerance import is_close_relative
+from .matrix.auto import LayoutDecision, PermutedOperator, from_coo, suggest_layout
 from .matrix.dense import DenseMatrix
 from .matrix.dia import InterleavedDIA, SparseDIA
+from .matrix.gell import SparseGELL
 from .matrix.protocol import AbstractMatrix
 from .matrix.sparse import SparseCSR, SparseELL
 from .matrix.split_complex import InterleavedSplitComplexDIA, SplitComplexDIA
@@ -48,14 +53,18 @@ __all__ = [
     "EigenResult",
     "InterleavedDIA",
     "InterleavedSplitComplexDIA",
+    "LayoutDecision",
+    "PermutedOperator",
     "QROptions",
     "QRResult",
     "SolverOptions",
     "SparseCSR",
     "SparseDIA",
     "SparseELL",
+    "SparseGELL",
     "SplitComplexDIA",
     "chebyshev_subspace_iteration",
+    "from_coo",
     "is_close_relative",
     "power_method",
     "power_method_split_complex",
@@ -63,6 +72,7 @@ __all__ = [
     "qr_eigenvalues",
     "read_matrix_from_file",
     "read_matrix_from_text",
+    "suggest_layout",
     "subspace_iteration",
     "to_hessenberg",
 ]

@@ -8,8 +8,8 @@ expanded row-id array so SpMV is a gather plus an index-add.
 
 ``SparseELL`` is the padded fixed-row-width layout: every row is padded to
 the maximum row nnz so the SpMV becomes one 2-D gather + row reduction.
-The packed gather-ELL format of the JAX package (``to_gell``) is not ported
-yet (ROADMAP.md, Queue A item 5).
+``to_gell`` re-packs a CSR matrix as ``SparseGELL`` (``matrix/gell.py``),
+whose matvec is the CUDA kernel B6 on the card.
 """
 
 from __future__ import annotations
@@ -162,6 +162,12 @@ class SparseCSR(AbstractMatrix):
         return SparseELL(data=torch.from_numpy(val).to(self.device),
                          indices=torch.from_numpy(idx).to(self.device),
                          shape=self.shape)
+
+    def to_gell(self, tile_rows: int | None = None):
+        """Re-pack as ``SparseGELL`` (``matrix/gell.py``) on this matrix's
+        device: the fast path for unstructured SpMV."""
+        from .gell import SparseGELL
+        return SparseGELL.from_csr(self, tile_rows=tile_rows)
 
     # --- checked access ---
     def as_csr(self):

@@ -150,6 +150,11 @@ def load() -> ctypes.CDLL:
             lib.qr_eig_blocked_sweeps.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                                   i32, i64, i32, f64, i32, i32, ptr]
             lib.qr_eig_blocked_sweeps.restype = i32
+            # dtype, device, mode, indptr, indices, values, x, x plane stride, n_rows, group,
+            # y, stream
+            lib.gell_csr_spmv.argtypes = [i32, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i32, ptr,
+                                          ptr]
+            lib.gell_csr_spmv.restype = i32
             lib.dia_cuda_error_string.argtypes = [i32]
             lib.dia_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

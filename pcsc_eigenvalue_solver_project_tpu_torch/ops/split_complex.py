@@ -16,13 +16,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..utils.interop import to_tensor
 
 
 def to_planes(z, device=None) -> torch.Tensor:
     """Complex (or real) array-like -> (2, ...) real planes, float32 for
-    complex64/float32 input and float64 otherwise, on ``device`` (default:
-    where ``z`` lies, the CPU for host arrays)."""
+    complex64/float32 input and float64 otherwise, on ``device``. Without
+    ``device`` a tensor keeps its device and a host array goes to the card,
+    as a constructor's data does (``core/device.py``)."""
+    if not isinstance(z, torch.Tensor):
+        device = resolve_device(device)
     t = to_tensor(z, device=device)
     rdt = torch.float32 if t.dtype in (torch.complex64, torch.float32) else torch.float64
     if not t.is_complex():

@@ -47,6 +47,8 @@ _LEAVES = {
     "InterleavedDIA": ("data_il",),
     "SplitComplexDIA": ("planes",),
     "InterleavedSplitComplexDIA": ("planes_il",),
+    "SparseGELL": ("seg_packed", "val", "inv", "sp_rows", "sp_cols", "sp_vals", "chunk_ids",
+                   "diag"),
 }
 
 
@@ -55,21 +57,27 @@ def from_numpy_leaves(kind: str, leaves: Sequence[np.ndarray], static: dict,
     """Build the port's ``kind`` matrix from a JAX matrix's leaves.
 
     ``kind`` is the class name (``"DenseMatrix"``, ``"SparseCSR"``,
-    ``"SparseELL"``, ``"SparseDIA"``, ``"InterleavedDIA"``, ``"SplitComplexDIA"``
-    or ``"InterleavedSplitComplexDIA"``); ``leaves`` are
+    ``"SparseELL"``, ``"SparseDIA"``, ``"InterleavedDIA"``, ``"SplitComplexDIA"``,
+    ``"InterleavedSplitComplexDIA"`` or ``"SparseGELL"``); ``leaves`` are
     its array leaves in pytree order; ``static`` holds its static fields
-    (``shape``, ``offsets``, ``tile_s`` as the kind has them). The tensors go
-    to ``device`` (default: the card).
+    (``shape``, ``offsets``, ``tile_s`` as the kind has them; for
+    ``SparseGELL`` the pack's ``shape``, ``tile_rows`` and ``is_complex`` and
+    the matrix's ``nnz``). The tensors go to ``device`` (default: the card).
+
+    A JAX ``SparseGELL`` is decoded back to COO (``unpack_gell_leaves``) and
+    packed in the port's own layout; its ``chunk_ids`` leaf is not needed.
     """
     from ..matrix.dense import DenseMatrix
     from ..matrix.dia import InterleavedDIA, SparseDIA
+    from ..matrix.gell import SparseGELL
     from ..matrix.sparse import SparseCSR, SparseELL
     from ..matrix.split_complex import InterleavedSplitComplexDIA, SplitComplexDIA
 
     classes = {"DenseMatrix": DenseMatrix, "SparseCSR": SparseCSR,
                "SparseELL": SparseELL, "SparseDIA": SparseDIA,
                "InterleavedDIA": InterleavedDIA, "SplitComplexDIA": SplitComplexDIA,
-               "InterleavedSplitComplexDIA": InterleavedSplitComplexDIA}
+               "InterleavedSplitComplexDIA": InterleavedSplitComplexDIA,
+               "SparseGELL": SparseGELL}
     if kind not in classes:
         raise ValueError(f"from_numpy_leaves: unknown matrix kind {kind!r}")
     names = _LEAVES[kind]
@@ -77,6 +85,8 @@ def from_numpy_leaves(kind: str, leaves: Sequence[np.ndarray], static: dict,
         raise ValueError(f"from_numpy_leaves: {kind} has {len(names)} leaves, "
                          f"got {len(leaves)}")
     device = resolve_device(device)
+    if kind == "SparseGELL":
+        return _gell_from_leaves(leaves, static, device)
     fields = {name: to_tensor(leaf, device=device)
               for name, leaf in zip(names, leaves)}
     for key in ("shape", "offsets"):
@@ -85,3 +95,17 @@ def from_numpy_leaves(kind: str, leaves: Sequence[np.ndarray], static: dict,
     if "tile_s" in static:
         fields["tile_s"] = int(static["tile_s"])
     return classes[kind](**fields)
+
+
+def _gell_from_leaves(leaves, static: dict, device: torch.device):
+    """The port's ``SparseGELL`` holding the entries of a JAX GELL pack."""
+    from ..matrix.gell import SparseGELL
+    from ..ops.gell_spmv import build_pack, unpack_gell_leaves
+
+    seg_packed, val, inv, sp_rows, sp_cols, sp_vals, _, diag = leaves
+    is_complex = bool(static["is_complex"])
+    row, col, values = unpack_gell_leaves(seg_packed, val, inv, sp_rows, sp_cols, sp_vals,
+                                          int(static["tile_rows"]), is_complex)
+    pack = build_pack(row, col, to_tensor(values), tuple(int(v) for v in static["shape"]),
+                      is_complex=is_complex, tile_rows=int(static["tile_rows"]), device=device)
+    return SparseGELL(pack=pack, diag=to_tensor(diag, device=device), nnz=int(static["nnz"]))

@@ -42,6 +42,12 @@ block SpMM B5 (row-major and interleaved, nvec 1, 3, 8 and 13, so one full
 chunk of 8 and a ragged one) are held to their plain versions as the SpMV
 kernels are, relative to ``max|y|`` (``TOL``), at a ragged n and at offsets
 (-130, 0, 129) that cross the lane seams of the interleaved layout.
+
+The general sparse SpMV B6 (``gell_kernel`` on real and native complex
+vectors, ``gell_planes_kernel`` on re/im planes) is held to its plain version
+the same way, relative to ``max|y|`` (``TOL`` of the vector dtype), for every
+value type, at mean row lengths that give each group width, on rows of 0 to
+5000 entries, duplicates, a rectangle and planes x whose planes lie apart.
 """
 
 import numpy as np
@@ -49,6 +55,7 @@ import pytest
 import torch
 
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+from pcsc_eigenvalue_solver_project_tpu_torch.ops import gell_spmv as gs
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import hessenberg_blocked as hb
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_eig_blocked as qb
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
@@ -728,3 +735,164 @@ def test_block_solvers_launch_the_block_kernels(cuda):
         got, want = res.eigenvalues.cpu().numpy(), cpu.eigenvalues.numpy()
         assert matched_err(got, want) <= 1e-4 * np.abs(want).max()
 
+
+
+# --------------------------------------------------------------------------
+# General sparse SpMV (B6)
+# --------------------------------------------------------------------------
+
+# (value dtype of the pack, complex): f32, bf16 and f64 values, real and as
+# the halves of complex pairs (c64, c64 with bf16 pairs, c128)
+GELL_TYPES = [(torch.float32, False), (torch.bfloat16, False), (torch.float64, False),
+              (torch.float32, True), (torch.bfloat16, True), (torch.float64, True)]
+
+
+def gell_operands(rows, n_cols, vtype, is_complex, seed, device):
+    """A pack with the given row lengths (uniform random columns) and an x of
+    its vector dtype, from numpy."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(rows)
+    r = np.repeat(np.arange(len(lengths)), lengths)
+    c = rng.integers(0, n_cols, len(r))
+    v = rng.uniform(-1, 1, len(r))
+    x = rng.uniform(-1, 1, n_cols)
+    if is_complex:
+        v = v + 1j * rng.uniform(-1, 1, len(r))
+        x = x + 1j * rng.uniform(-1, 1, n_cols)
+    v = v.astype(np.complex128 if vtype == torch.float64 else np.complex64) if is_complex \
+        else v.astype(np.float64 if vtype == torch.float64 else np.float32)
+    pack = gs.pack_gell(r, c, v, (len(lengths), n_cols), device=device)
+    pack = pack.with_values_dtype(vtype)
+    return pack, torch.from_numpy(x).to(device=device, dtype=pack.vector_dtype)
+
+
+def check_gell(pack, x):
+    """Native (and, for a complex pack, planes) kernel against the plain
+    version; one launch each."""
+    before = [k.launches for k in gs.KERNELS]
+    y = gs.gell_matvec(pack, x)
+    torch.cuda.synchronize()
+    ref = gs.gell_matvec_plain(pack, x)
+    assert y.dtype == ref.dtype == pack.vector_dtype and y.shape == (pack.shape[0],)
+    assert rel_err(y, ref) <= TOL[pack.vector_dtype]
+    launched = [1, 0]
+    if pack.is_complex:
+        planes = torch.stack([x.real, x.imag])
+        yp = gs.gell_matvec_planes(pack, planes)
+        torch.cuda.synchronize()
+        assert rel_err(yp, gs.gell_matvec_planes_plain(pack, planes)) <= TOL[pack.vector_dtype]
+        assert rel_err(torch.complex(yp[0], yp[1]), y) <= TOL[pack.vector_dtype]
+        launched = [1, 1]
+    assert [k.launches - b for k, b in zip(gs.KERNELS, before)] == launched
+
+
+@pytest.mark.parametrize("mean,group", [(1, 4), (6, 8), (33, 32), (200, 32)])
+@pytest.mark.parametrize("vtype,is_complex", GELL_TYPES)
+def test_gell_kernels_match_plain(cuda, vtype, is_complex, mean, group):
+    n_rows = 400_000 // mean
+    pack, x = gell_operands([mean] * n_rows, n_rows + 77, vtype, is_complex, seed=mean,
+                            device=cuda)
+    assert pack.group == group
+    check_gell(pack, x)
+
+
+@pytest.mark.parametrize("filler", [1, 6, 33])
+@pytest.mark.parametrize("vtype,is_complex", [(torch.float32, False), (torch.float32, True),
+                                              (torch.float64, True)])
+def test_gell_kernels_on_rows_of_every_length(cuda, vtype, is_complex, filler):
+    # rows of 0, 1, 31, 32, 33 and 5000 entries among rows of `filler`
+    # entries, which set the group width (4, 8, 32)
+    rows = [0, 1, 31, 32, 33, 5000] * 3 + [filler] * 20_000 + [0, 33, 5000]
+    pack, x = gell_operands(rows, 3001, vtype, is_complex, seed=filler, device=cuda)
+    check_gell(pack, x)
+
+
+def test_gell_kernel_edge_cases(cuda):
+    gs.reset_launch_counts()
+    none = np.zeros(0, int)
+    empty = gs.pack_gell(none, none, np.zeros(0, np.float32), (64, 64), device=cuda)
+    y = gs.gell_matvec(empty, torch.ones(64, device=cuda))
+    assert torch.equal(y, torch.zeros(64, device=cuda))
+    no_rows = gs.pack_gell(none, none, np.zeros(0, np.complex64), (0, 5), device=cuda)
+    assert gs.gell_matvec(no_rows, torch.ones(5, dtype=torch.complex64, device=cuda)).shape == (0,)
+    assert [k.launches for k in gs.KERNELS] == [0, 0]  # no work, no launch
+    # duplicates sum (tests/test_gell.py:62-73)
+    dup = gs.pack_gell([3, 3, 3, 3, 7, 7], [5] * 6, np.float32([1, 2, 3, 4, 10, 20]), (10, 10),
+                       device=cuda)
+    x = torch.zeros(10, device=cuda)
+    x[5] = 2.0
+    y = gs.gell_matvec(dup, x)
+    assert y[3].item() == 20.0 and y[7].item() == 60.0 and gs.gell_kernel.launches == 1
+    # the 700 x 40000 rectangle (tests/test_gell.py:94-105)
+    rng = np.random.default_rng(2)
+    r, c = rng.integers(0, 700, 15_000), rng.integers(0, 40_000, 15_000)
+    for dt in (np.float32, np.complex128):
+        v = rng.standard_normal(15_000).astype(dt)
+        pack = gs.pack_gell(r, c, v, (700, 40_000), tile_rows=256, device=cuda)
+        x = torch.from_numpy(rng.standard_normal(40_000)).to(cuda, pack.vector_dtype)
+        check_gell(pack, x)
+
+
+@pytest.mark.parametrize("n_cols", [1000, 40_003])
+def test_gell_planes_kernel_reads_planes_apart(cuda, n_cols):
+    pack, x = gell_operands([9] * 3000, n_cols, torch.float32, True, seed=3, device=cuda)
+    buf = torch.zeros((2, n_cols + 77), device=cuda)
+    buf[:, :n_cols] = torch.stack([x.real, x.imag])
+    planes = buf[:, :n_cols]
+    assert planes.stride(0) == n_cols + 77
+    y = gs.gell_matvec_planes(pack, planes)
+    assert rel_err(y, gs.gell_matvec_planes_plain(pack, planes.contiguous())) <= 1e-5
+
+
+def test_gell_kernels_reject_what_they_do_not_take(cuda):
+    pack, x = gell_operands([4] * 100, 100, torch.float32, False, seed=0, device=cuda)
+    with pytest.raises(TypeError, match="does not match"):
+        gs.gell_kernel(pack, x.double())
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        gs.gell_kernel(pack, x.cpu())
+    with pytest.raises(ValueError, match=r"expected an \(100,\) vector"):
+        gs.gell_kernel(pack, x[:99])
+    with pytest.raises(ValueError, match="contiguous"):
+        gs.gell_kernel(pack, torch.zeros(200, device=cuda)[::2])
+    with pytest.raises(TypeError, match="not complex"):
+        gs.gell_planes_kernel(pack, torch.zeros((2, 100), device=cuda))
+    cpack, cx = gell_operands([4] * 100, 100, torch.float32, True, seed=0, device=cuda)
+    with pytest.raises(TypeError, match="does not match"):
+        gs.gell_kernel(cpack, cx.to(torch.complex128))
+    with pytest.raises(TypeError, match="does not match"):
+        gs.gell_planes_kernel(cpack, torch.zeros((2, 100), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="unit stride"):
+        gs.gell_planes_kernel(cpack, torch.zeros((100, 2), device=cuda).T)
+
+
+def test_gell_and_auto_paths_on_the_card(cuda):
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    rng = np.random.default_rng(4)
+    n = 3000
+    a_r, a_c = np.repeat(np.arange(n), 8), rng.integers(0, n, 8 * n)
+    a_v = rng.standard_normal(8 * n) / np.sqrt(8)
+    a_r, a_c = np.concatenate([a_r, [0, 1]]), np.concatenate([a_c, [0, 1]])
+    a_v = np.concatenate([a_v, [9.0, 6.0]])
+    x0 = rng.uniform(-1, 1, n)
+    opts = eigsol.SolverOptions(max_iterations=500, tolerance=1e-10)
+    gs.reset_launch_counts()
+    for dt in (np.float64, np.complex128):
+        m = eigsol.SparseGELL.from_coo(a_r, a_c, a_v.astype(dt), (n, n), device=cuda)
+        cpu = eigsol.SparseGELL.from_coo(a_r, a_c, a_v.astype(dt), (n, n), device="cpu")
+        r, rc = eigsol.power_method(m, opts, x0=x0), eigsol.power_method(cpu, opts, x0=x0)
+        assert bool(r.converged) and int(r.iterations) == int(rc.iterations)
+        assert abs(complex(r.eigenvalue) - complex(rc.eigenvalue)) <= 1e-10 * abs(
+            complex(rc.eigenvalue))
+    assert gs.gell_kernel.launches > 0
+    # auto: a shuffled band becomes a permuted interleaved DIA on the card
+    shuffle = rng.permutation(n)
+    i = np.repeat(np.arange(n), 5)
+    j = np.clip(i + np.tile(np.arange(-2, 3), n), 0, n - 1)
+    m = eigsol.from_coo(shuffle[i], shuffle[j], np.float32(rng.standard_normal(5 * n)), (n, n),
+                        device=cuda)
+    assert isinstance(m, eigsol.PermutedOperator) and m.perm.is_cuda
+    assert isinstance(m.inner, eigsol.InterleavedDIA) and m.inner.device.type == "cuda"
+    x = torch.from_numpy(rng.standard_normal(n)).to(cuda, torch.float32)
+    y = m.decode_vec(m.matvec(m.encode_vec(x)))
+    dense = m.to_dense()
+    assert rel_err(y, dense @ x) <= 1e-5

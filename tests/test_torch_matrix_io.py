@@ -24,6 +24,8 @@ from pcsc_eigenvalue_solver_project_tpu_torch.core import dtypes as tdt
 from pcsc_eigenvalue_solver_project_tpu_torch.core.device import resolve_device
 from pcsc_eigenvalue_solver_project_tpu_torch.matrix import protocol as tproto
 from pcsc_eigenvalue_solver_project_tpu_torch.models import generators as tgen
+from pcsc_eigenvalue_solver_project_tpu_torch.ops.gell_spmv import pack_gell
+from pcsc_eigenvalue_solver_project_tpu_torch.ops.split_complex import to_planes
 from pcsc_eigenvalue_solver_project_tpu_torch.utils.interop import from_numpy_leaves
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
@@ -153,9 +155,14 @@ class TestDefaultDevice:
         lambda: tgen.banded_full(10, bandwidth=1),
         lambda: from_numpy_leaves("SparseDIA", [np.ones((1, 3))], {"offsets": (0,),
                                                                    "shape": (3, 3)}),
+        lambda: T.SparseGELL.from_coo([0, 1], [1, 0], [1.0, 2.0], (2, 2)),
+        lambda: pack_gell([0, 1], [1, 0], np.float32([1.0, 2.0]), (2, 2)),
+        lambda: T.from_coo([0, 1], [0, 1], [1.0, 2.0], (2, 2), layout="auto"),
+        lambda: T.from_coo([0, 1], [1, 0], [1.0, 2.0], (2, 2), layout="gell"),
     ], ids=["from_diagonals", "read_native", "read_python", "read_text", "from_array",
             "from_flat", "from_coo", "from_dense", "dense_random", "laplacian_1d",
-            "banded_full", "from_numpy_leaves"])
+            "banded_full", "from_numpy_leaves", "gell_from_coo", "pack_gell", "auto_from_coo",
+            "auto_from_coo_gell"])
     def test_no_device_is_not_the_cpu(self, build):
         if torch.cuda.is_available():
             m = build()
@@ -163,6 +170,18 @@ class TestDefaultDevice:
         else:
             with pytest.raises((AssertionError, RuntimeError)):
                 build()
+
+    @pytest.mark.parametrize("z", [np.array([1 + 2j, -3j]), [0.5, 1.5]], ids=["numpy", "list"])
+    def test_to_planes_of_a_host_array_is_not_the_cpu(self, z):
+        if torch.cuda.is_available():
+            assert to_planes(z).is_cuda
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                to_planes(z)
+
+    def test_to_planes_of_a_tensor_keeps_its_device(self):
+        p = to_planes(torch.tensor([1 + 2j, -3j]))
+        assert p.device.type == "cpu" and p.tolist() == [[1.0, 0.0], [2.0, -3.0]]
 
 
 class TestInterop:
@@ -188,7 +207,7 @@ class TestInterop:
 
     def test_unknown_kind(self):
         with pytest.raises(ValueError, match="unknown matrix kind"):
-            from_numpy_leaves("SparseGELL", [], {}, device="cpu")
+            from_numpy_leaves("SparseBSR", [], {}, device="cpu")
 
 
 class TestGenerators:

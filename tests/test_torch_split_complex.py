@@ -82,7 +82,7 @@ class TestPlaneAlgebra:
     def test_roundtrip_matches_jax(self):
         z = np.array([1 + 2j, -3 + 0.5j])
         for src in (z, z.astype(np.complex64), np.array([1.5, -2.0], np.float32)):
-            p = tsc.to_planes(src)
+            p = tsc.to_planes(src, device="cpu")
             np.testing.assert_array_equal(p.numpy(), np.asarray(jsc.to_planes(src)))
             assert p.dtype == (torch.float64 if src.dtype == np.complex128 else torch.float32)
             np.testing.assert_array_equal(tsc.from_planes(p), jsc.from_planes(jsc.to_planes(src)))
@@ -187,7 +187,7 @@ class TestPlanesKernels:
         M = T.SplitComplexDIA.from_complex_dia(dia, precision=np.float64)
         x = rng.random(n) + 1j * rng.random(n)
         y_complex = dia.matvec(torch.from_numpy(x)).numpy()
-        y_planes = tsc.from_planes(M.matvec(tsc.to_planes(x)))
+        y_planes = tsc.from_planes(M.matvec(tsc.to_planes(x, device="cpu")))
         np.testing.assert_allclose(y_planes, y_complex, rtol=1e-10)
 
     def test_error_messages_match_jax(self):
