@@ -18,7 +18,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    (CSR), complex128 on the card, against ``numpy.linalg.eigvals``;
 6. the dense QR kernels B7-B10 against their plain versions on the card:
    Hessenberg (B7) and Householder QR (B9) at n = 512 in float32, complex64
-   and float64, the shifted Givens sweeps (B8) and the parity sweeps (B10)
+   and float64, the blocked B9 also at 512 in complex128 and at 2048 in all
+   four dtypes (against ``qr_decompose_blocked_plain`` there, with its
+   device kernels per call), the shifted Givens sweeps (B8) and the parity sweeps (B10)
    with a budget of 10 sweeps at n = 128 in four dtypes and of a few sweeps
    at n = 512 in the path's dtypes, each with its time beside the plain
    version's;
@@ -38,7 +40,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 9. the sweep of B7 against B11 (float32 and complex64, n = 256 ... 4096)
    from which ``HESSENBERG_BLOCKED_MIN_N`` was set, B11's panel widths at
    4096, a torch.profiler breakdown of one B11 call, B9 beside
-   ``torch.linalg.qr(mode="complete")`` and B8 beside ``torch.linalg.eigvals``;
+   ``torch.linalg.qr(mode="complete")`` over the same sizes (five calls a
+   point, in turns, with B9's device kernels per call), B9's panel widths
+   16/32/64 at 512 and 2048 in four dtypes, a profile of one B9 call, and B8
+   beside ``torch.linalg.eigvals``;
 10. the eigenpair path through the public API on CUDA tensors:
     ``qr_eigenvalues(A, QROptions(mode="accelerated", compute_vectors=True))``
     on (a) the bench operand at 512 in float32, (b) the complex64 operand of
@@ -69,8 +74,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
     ``subspace_iteration`` / ``chebyshev_subspace_iteration`` at 1M x 33;
 17. the general sparse SpMV B6 against its plain version on bench.py's
     general operators at 1M rows x 33 entries a row (uniform and local): f32,
-    bf16 values, f64, complex64 native and on planes, complex128, and small
-    cases, with ``torch.sparse.mm`` beside it;
+    bf16 values, f64, complex64 native and on planes, complex128, by the
+    route the dispatch picks, by the CSR route and by the windowed route at
+    cluster sizes 1, 2 and 4, and small cases, with every route's time, the
+    plain version's and ``torch.sparse.mm``'s side by side;
 18. the general-sparse path: ``from_coo(layout="auto")`` on bench.py's three
     auto patterns at 100,000, ``power_method`` on each pick and on the
     hand-picked layout, on ``SparseGELL`` at 1M x 33 (budget and a planted
@@ -88,6 +95,14 @@ least time the card could take for the same work, the library call's time
 where one PyTorch call computes the same function), the card's name and
 power limit, and last the line ``{"ok": true, "device": {...}}``. It imports
 nothing of JAX.
+
+    python3 chip_smoke.py --b6-host ROOT
+
+runs only the host side of B6 with the port found under ROOT (another
+checkout, so that two commits can be compared in one call, in turns):
+the time to enqueue one ``gell_kernel`` call on the 1M x 33 uniform
+operator in float32 and complex64, and ``power_method``'s time per
+iteration on each at a budget of 200 iterations, three times each.
 """
 
 from __future__ import annotations
@@ -114,13 +129,15 @@ TRI_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/trisolve_vec.cu"
 TRI_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/trisolve_vec.py"
 SWEEP_SIZES = (256, 512, 1024, 2048, 4096)  # B7 against B11
 FULL_N = 4096   # B11's row, its panel widths, to_hessenberg in float32
-LARGE_N = 2048  # B12's row, B14's second size, eigenpair run (e)
+LARGE_N = 2048  # B12's row, B14's second size, eigenpair run (e), B9's second size
+B9_REPS = 5     # B9 and torch.linalg.qr: calls per timed point
 QRB_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/qr_eig_blocked.cu"
 QRB_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/qr_eig_blocked.py"
 BOUNDARY_SIZES = (128, 256, 512, 1024, 2048, 4096)  # B8 against B13
 B13_SWEEPS = 3  # B13 against its plain version at n >= 512 (the plain version is slow)
 NONSYM_MAX_N = 1024  # whole non-symmetric solves in the boundary sweep (B8 is slow beyond)
 GELL_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/gell_spmv.cu"
+GELL_WINDOW_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/gell_window_spmv.cu"
 GELL_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/gell_spmv.py"
 GELL_PER_ROW = 33  # bench.py --general: 1M rows x 33 entries a row
 AUTO_N = 100_000   # bench.py's auto leg (BENCH_R05_SET.jsonl:8)
@@ -400,6 +417,48 @@ def qr_kernel_phase(dev, card_name, card_limit):
             timings[("B9", dt)] = timed_pair(lambda: qk.qr_decompose_kernel(a),
                                              lambda: qk.qr_decompose_plain(a),
                                              lambda fn: time_ms(fn, reps=3)) + ("call",)
+    # the blocked B9 in the dtype phase 6 had not held yet (complex128 at 512,
+    # against the unblocked plain version) and at 2048 in all four dtypes
+    # against the plain version of the blocked algorithm, with the same limits
+    # but for D: at 2048 a pivot whose entry before its reflection is small
+    # has a phase that rounding sets (its split-K sums also run in another
+    # order each call; 0.186 and 0.365 on one complex64 operand in two runs),
+    # so D is held as phase 8 holds B11's at 2048, by the median over the
+    # pivots (1e-2, 1e-9 in double), which a wrong convention fails; R and Q
+    # are held entry by entry once D is divided out
+    for n, dt in ((QR_N, torch.complex128),) + tuple(
+            (LARGE_N, d) for d in (torch.float32, torch.float64, torch.complex64,
+                                   torch.complex128)):
+        a = well_conditioned(n, dt)
+        scale = float(a.abs().max())
+        double = dt in (torch.float64, torch.complex128)
+        unit = (1e-14 if double else 1e-6) * n
+        eye = torch.eye(n, dtype=dt, device=dev)
+        r, qq = qk.qr_decompose_kernel(a)
+        launches = qk.qr_decompose_kernel.device_launches
+        plain = qk.qr_decompose_plain if n == QR_N else qk.qr_decompose_blocked_plain
+        rp, qqp = plain(a)
+        torch.cuda.synchronize()
+        dr = triangular_phases(r, rp)
+        dr_t = torch.from_numpy(dr).to(dev, dt)
+        phase = (("B9 phases |D - 1|", float(np.abs(dr - 1).max()), 1e-6 if double else 0.2)
+                 if n == QR_N else ("B9 median pivot phase |D_k - 1|",
+                                    float(np.median(np.abs(dr - 1))), 1e-9 if double else 1e-2))
+        print(f"B9 {dt} n={n}: max |D - 1| {np.abs(dr - 1).max():.3e}")
+        checks = {
+            "B9 R vs plain": (rel(r, dr_t[:, None] * rp, scale), unit),
+            "B9 Q vs plain": (rel(qq, qqp * dr_t.conj(), 1.0), unit),
+            phase[0]: phase[1:],
+            "B9 |A - Q R|": (rel(qq @ r, a, scale), unit),
+            "B9 |Q^H Q - I|": (rel(qq.conj().T @ qq, eye, 1.0), unit),
+            "B9 below diagonal": (float(torch.tril(r, -1).abs().max()) / scale, unit)}
+        for label, (err, limit) in checks.items():
+            print(f"check {label} {dt} n={n} (against {plain.__name__}, {launches} device "
+                  f"kernels): {err:.3e} (limit {limit:.1e})")
+            check(err <= limit, f"{label} {dt} n={n}: {err:.3e} above {limit:.1e}")
+        check(bool(torch.isfinite(r).all()) and bool(torch.isfinite(qq).all()),
+              f"B9 {dt} n={n}: non-finite output")
+        del a, r, qq, rp, qqp
     # B8 and B10 with deflation off (tol 0), so that both versions run the same
     # iterates: 10 sweeps at n = 128 in every dtype (timed there), and at the
     # path's n = 512 in its dtypes, B8 for 3 sweeps and B10 for 7, which B10
@@ -640,22 +699,37 @@ def boundary_sweep_phase(dev, card_name, card_limit):
 
     rng = np.random.default_rng(30)
     library = {}
-    print(f"sweep (ms per call, one CUDA-event loop per point) [{card_name}, {card_limit}]")
-    print("dtype n B7 B11 B9 torch.linalg.qr(complete)")
+    print(f"sweep (ms per call, one CUDA-event loop per point; B9 and torch.linalg.qr over "
+          f"{B9_REPS} calls, in turns, after a warm-up) [{card_name}, {card_limit}]")
+    print("dtype n B7 B11 B9 torch.linalg.qr(complete) B9-device-kernels")
     for dt in (torch.float32, torch.complex64):
         faster_from = None
         for n in SWEEP_SIZES:
             a, _ = device_operand(rng, n, dt, dev, "gaussian")
             b7 = time_events_ms(lambda: qk.hessenberg_kernel(a), 1)
             b11 = time_events_ms(lambda: hb.hessenberg_blocked_kernel(a), 1)
-            b9 = time_events_ms(lambda: qk.qr_decompose_kernel(a), 1)
-            lib = time_events_ms(lambda: torch.linalg.qr(a, mode="complete"), 1)
-            print(f"sweep {dt} {n} {b7:.3f} {b11:.3f} {b9:.3f} {lib:.3f}")
+            b9, lib = timed_pair(lambda: qk.qr_decompose_kernel(a),
+                                 lambda: torch.linalg.qr(a, mode="complete"),
+                                 lambda fn: time_events_ms(fn, B9_REPS))
+            print(f"sweep {dt} {n} {b7:.3f} {b11:.3f} {b9:.3f} {lib:.3f} "
+                  f"{qk.qr_decompose_kernel.device_launches}")
             faster_from = (faster_from or n) if b11 < b7 else None
             if n == QR_N and dt == torch.float32:
                 library["B9"] = lib
         print(f"sweep {dt}: B11 faster than B7 from n = {faster_from} on; "
               f"HESSENBERG_BLOCKED_MIN_N = {hs.HESSENBERG_BLOCKED_MIN_N}")
+    # B9's panel width (qr_panel_width was set from this table)
+    for dt in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+        for n in (QR_N, LARGE_N):
+            a, _ = device_operand(rng, n, dt, dev, "gaussian")
+            times = {nb: time_events_ms(lambda: qk.qr_decompose_kernel(a, nb=nb), B9_REPS)
+                     for nb in (16, 32, 64)}
+            print(f"panel width B9 {dt} n={n}: " + ", ".join(
+                f"nb {nb} {ms:.3f} ms" for nb, ms in times.items())
+                + f"; qr_panel_width {qk.qr_panel_width(n, dt)} [{card_name}, {card_limit}]")
+        del a
+    a, _ = device_operand(rng, QR_N, torch.float32, dev, "gaussian")
+    profile_breakdown(f"B9 float32 n={QR_N}", lambda: qk.qr_decompose_kernel(a))
     a, _ = device_operand(rng, FULL_N, torch.float32, dev, "gaussian")
     for nb in (16, 32, 64):
         ms = time_events_ms(lambda: hb.hessenberg_blocked_kernel(a, nb=nb), 1)
@@ -1376,13 +1450,15 @@ def general_sparse_kernel_phase(ctx):
     """Phase 17: B6 against its plain version on the card, on bench.py's
     general operators at 1M rows x 33 entries a row (uniform and local
     columns): f32 values, bf16 values (f32 sums), f64, complex64 on native
-    vectors and on re/im planes, complex128; small cases (the empty matrix,
-    empty rows, duplicates, a 5000-entry row, the 700 x 40000 rectangle).
-    Times per call from a CUDA-graph replay, plain versions (which read the
-    device to size their row ids) between CUDA events, ``torch.sparse.mm``
-    of the CSR times the (n, 1) block beside them. Returns ({tag: max abs
-    error}, {tag: (kernel ms, plain ms, bytes)}, {tag: library ms}, the
-    uniform COO)."""
+    vectors and on re/im planes, complex128, each by the route the dispatch
+    picks, by the CSR route and by the windowed route at cluster sizes 1, 2
+    and 4; small cases (the empty matrix, empty rows, duplicates, a
+    5000-entry row, the 700 x 40000 rectangle). Times per call from a
+    CUDA-graph replay for every route, plain versions (which read the device
+    to size their row ids) between CUDA events, ``torch.sparse.mm`` of the
+    CSR times the (n, 1) block beside them. Returns ({tag: max abs error},
+    {tag: (picked route's ms, plain ms, CSR-equivalent bytes, flops, {route:
+    ms}, picked route)}, {tag: library ms}, the uniform COO)."""
     import dataclasses
 
     import torch
@@ -1417,11 +1493,16 @@ def general_sparse_kernel_phase(ctx):
         if pattern == "uniform":
             uniform_coo = (r, c, v)
         pack = gs.pack_gell(r, c, v, (N, N), device=dev)
+        t_pack = time.perf_counter() - t0
         im = torch.from_numpy(rng.standard_normal(pack.nnz).astype(np.float32)).to(dev)
-        cpack = dataclasses.replace(pack, values=torch.stack([pack.values, im], -1),
-                                    is_complex=True)
+        cpack = gs.attach_windows(dataclasses.replace(
+            pack, values=torch.stack([pack.values, im], -1), is_complex=True, windows=None))
+        win = pack.windows
         print(f"B6 {pattern} {N}x{GELL_PER_ROW}: nnz {pack.nnz}, group {pack.group} lanes a "
-              f"row, packed in {time.perf_counter() - t0:.1f} s")
+              f"row, route {gs.pick_route(pack)}"
+              + (f" (R {win.rows} rows, W {win.cols} columns, {win.n_ranges} ranges, cluster "
+                 f"{win.cluster}, {win.staged_windows} windows staged)" if win else "")
+              + f", packed in {t_pack:.1f} s host")
         cases = {"f32": pack, "bf16": pack.with_values_dtype(torch.bfloat16),
                  "f64": pack.with_values_dtype(torch.float64), "c64": cpack,
                  "c128": cpack.with_values_dtype(torch.float64)}
@@ -1430,50 +1511,77 @@ def general_sparse_kernel_phase(ctx):
             x = torch.from_numpy(xr + 1j * xi if p.is_complex else xr).to(dev, p.vector_dtype)
             limit = 1e-12 if name in ("f64", "c128") else 1e-5
             main = pattern == "uniform" and name == "f32"
+            ref = gs.gell_matvec_plain(p, x)
             y = gs.gell_matvec(p, x)
-            compare(f"B6 gell_kernel {name} {pattern} {N}x{GELL_PER_ROW}", y,
-                    gs.gell_matvec_plain(p, x), limit, "B6" if main else None)
-            if name == "c64":
-                planes = torch.stack([x.real, x.imag])
+            compare(f"B6 gell_kernel {name} {pattern} {N}x{GELL_PER_ROW} (route "
+                    f"{gs.pick_route(p)})", y, ref, limit, "B6" if main else None)
+            # every route and cluster size, native and on planes, against the plain version
+            variants = {"csr": (p, "csr")}
+            variants.update({f"windows c{cs}": (gs.with_windows(p, cs), "windows")
+                             for cs in gs.CLUSTER_SIZES})
+            planes = torch.stack([x.real, x.imag]) if p.is_complex else None
+            ref_p = gs.gell_matvec_planes_plain(p, planes) if p.is_complex else None
+            for label, (pv, route) in variants.items():
+                compare(f"B6 {label} {name} {pattern}", gs.gell_kernel(pv, x, route=route), ref,
+                        limit)
+                if p.is_complex:
+                    yp = gs.gell_planes_kernel(pv, planes, route=route)
+                    compare(f"B6 cpx {label} {name} planes {pattern}", yp, ref_p, limit)
+                    compare(f"B6 cpx {label} planes against native {name} {pattern}",
+                            torch.complex(yp[0], yp[1]), y, limit)
+            if main:
+                compare("B6 windows against its own plain version (window_coo)",
+                        gs.gell_kernel(variants["windows c1"][0], x, route="windows"),
+                        gs.gell_window_matvec_plain(variants["windows c1"][0], x), limit)
+            if p.is_complex:
                 yp = gs.gell_matvec_planes(p, planes)
-                compare(f"B6 gell_planes_kernel c64 planes {pattern} {N}x{GELL_PER_ROW}", yp,
-                        gs.gell_matvec_planes_plain(p, planes), limit,
-                        "B6cpx" if pattern == "uniform" else None)
-                compare(f"B6 planes against native c64 {pattern}", torch.complex(yp[0], yp[1]),
-                        y, limit)
-                k_ms, p_ms = timed_pair(lambda: gs.gell_planes_kernel(p, planes),
-                                        lambda: gs.gell_matvec_planes_plain(p, planes),
-                                        plain_timer=plain_timer)
-                timings[("B6cpx", pattern)] = (k_ms, p_ms, nbytes(p, planes, yp), 8 * p.nnz)
-            if name in ("f32", "c64"):
-                k_ms, p_ms = timed_pair(lambda: gs.gell_kernel(p, x),
-                                        lambda: gs.gell_matvec_plain(p, x),
-                                        plain_timer=plain_timer)
-                # the library call: torch.sparse.mm of the CSR times the
-                # (n, 1) block (timed only; the port never calls it)
-                vals = p.values if not p.is_complex else torch.complex(p.values[:, 0],
-                                                                       p.values[:, 1])
-                csr = torch.sparse_csr_tensor(p.indptr.long(), p.indices.long(), vals, (N, N))
-                y_lib = torch.sparse.mm(csr, x[:, None])[:, 0]
-                compare(f"library torch.sparse.mm (CSR) {name} {pattern} against the kernel",
-                        y_lib, y, limit)
-                library[(name, pattern)] = time_events_ms(
-                    lambda: torch.sparse.mm(csr, x[:, None]), reps=20)
-                timings[(name, pattern)] = (k_ms, p_ms, nbytes(p, x, y),
-                                            (8 if p.is_complex else 2) * p.nnz)
-                del csr, y_lib
-            elif name == "bf16":
-                k_ms = min(time_ms(lambda: gs.gell_kernel(p, x)) for _ in range(2))
-                timings[(name, pattern)] = (k_ms, None, nbytes(p, x, y), 2 * p.nnz)
+                compare(f"B6 gell_planes_kernel {name} planes {pattern} (route "
+                        f"{gs.pick_route(p, planes=True)})", yp, ref_p, limit,
+                        "B6cpx" if pattern == "uniform" and name == "c64" else None)
+            if name not in ("f32", "bf16", "c64"):
+                del variants
+                continue
+            entries = [(name, x, False)] + ([("c64 planes", planes, True)] if p.is_complex else [])
+            for label, vec, on_planes in entries:
+                kernel = gs.gell_planes_kernel if on_planes else gs.gell_kernel
+                row = {v_label: min(time_ms(lambda: kernel(pv, vec, route=route))
+                                    for _ in range(2))
+                       for v_label, (pv, route) in variants.items()}
+                picked = gs.pick_route(p, planes=on_planes)
+                picked_label = "csr" if picked == "csr" else f"windows c{p.windows.cluster}"
+                plain_fn = ((lambda: gs.gell_matvec_planes_plain(p, vec)) if on_planes
+                            else (lambda: gs.gell_matvec_plain(p, vec)))
+                p_ms = plain_timer(plain_fn) if name != "bf16" else None
+                flops = (8 if p.is_complex else 2) * p.nnz
+                tag = ("B6cpx" if on_planes else name, pattern)
+                timings[tag] = (row[picked_label], p_ms, nbytes(p, vec, ref_p if on_planes else y),
+                                flops, row, picked_label)
+                if not on_planes and name in ("f32", "c64"):
+                    # the library call: torch.sparse.mm of the CSR times the (n, 1)
+                    # block (timed only; the port never calls it)
+                    vals = p.values if not p.is_complex else torch.complex(p.values[:, 0],
+                                                                           p.values[:, 1])
+                    csr = torch.sparse_csr_tensor(p.indptr.long(), p.indices.long(), vals,
+                                                  (N, N))
+                    y_lib = torch.sparse.mm(csr, x[:, None])[:, 0]
+                    compare(f"library torch.sparse.mm (CSR) {name} {pattern} against the "
+                            f"kernel", y_lib, y, limit)
+                    library[(name, pattern)] = time_events_ms(
+                        lambda: torch.sparse.mm(csr, x[:, None]), reps=20)
+                    del csr, y_lib
+            del variants
         del cases, pack, cpack
-    for (name, pattern), (k_ms, p_ms, nb, _) in timings.items():
-        lib = library.get((name, pattern))
-        print(f"time B6 {name} {pattern} {N}x{GELL_PER_ROW}: kernel {k_ms * 1e3:.1f} us "
-              f"({nb / 1e6:.0f} MB, bound {nb / HBM_BYTES_PER_S * 1e6:.1f} us, "
-              f"{nb / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s)"
-              + (f", plain {p_ms * 1e3:.1f} us" if p_ms is not None else "")
-              + (f", torch.sparse.mm {lib * 1e3:.1f} us" if lib is not None else "")
-              + f" [{card_name}, {card_limit}]")
+    for (name, pattern), (k_ms, p_ms, nb, _, row, picked) in timings.items():
+        lib = library.get(("c64" if name == "B6cpx" else name, pattern))
+        print(f"time B6 {'c64 planes' if name == 'B6cpx' else name} {pattern} {N}x"
+              f"{GELL_PER_ROW} (us per call): "
+              + ", ".join(f"{label} {ms * 1e3:.1f}" for label, ms in row.items())
+              + (f", plain {p_ms * 1e3:.1f}" if p_ms is not None else "")
+              + (f", torch.sparse.mm {lib * 1e3:.1f}" if lib is not None else "")
+              + f"; picked {picked}: {k_ms * 1e3:.1f} ({nb / 1e6:.0f} MB of CSR-equivalent "
+              f"bytes, bound {nb / HBM_BYTES_PER_S * 1e6:.1f} us, "
+              f"{nb / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s) "
+              f"[{card_name}, {card_limit}]")
 
     # small cases, f32 and complex64, against the plain version
     none = np.zeros(0, np.int64)
@@ -1499,10 +1607,18 @@ def general_sparse_kernel_phase(ctx):
             if label == "empty 64x64":
                 check(torch.equal(y, y_ref) and not y.any().item(), f"B6 {label}: not zero")
                 continue
-            compare(f"B6 {label} {'c64' if cplx else 'f32'}", y, y_ref, 1e-5)
+            compare(f"B6 {label} {'c64' if cplx else 'f32'} (route {gs.pick_route(p)})", y,
+                    y_ref, 1e-5)
+            # the windowed route on small ranges and windows (64 rows, 128 columns)
+            for cs in gs.CLUSTER_SIZES:
+                pw = gs.with_windows(p, cs, rows=64, cols=128)
+                yw = gs.gell_kernel(pw, x, route="windows")
+                compare(f"B6 {label} {'c64' if cplx else 'f32'} windows c{cs}", yw, y_ref, 1e-5)
             if label == "duplicates" and not cplx:
                 want = torch.tensor([10.0, 30.0], device=dev) * x[5]
                 check(torch.allclose(y[[3, 7]], want, rtol=1e-6), "B6 duplicates do not sum")
+                check(torch.allclose(yw[[3, 7]], want, rtol=1e-6),
+                      "B6 windows: duplicates do not sum")
     return errors, timings, library, uniform_coo
 
 
@@ -1636,7 +1752,12 @@ def general_sparse_path_phase(ctx, uniform_coo):
         end.synchronize()
         seconds[key] = begin.elapsed_time(end) / 1e3
     launches = {k.__name__: k.launches for k in (*gs.KERNELS, *ds.KERNELS)}
-    print(f"phase-18 launches: {launches}")
+    print(f"phase-18 launches: {launches}; B6 by route: {dict(gs.ROUTE_LAUNCHES)}")
+    for key, (M, _) in runs.items():
+        pack = getattr(M, "pack", None)
+        if pack is not None:
+            print(f"phase-18 route {key[0]} {key[1]}: "
+                  f"{gs.pick_route(pack, planes=isinstance(M, GELLPlanes))}")
     for name in ("gell_kernel", "gell_planes_kernel", "dia_il_kernel"):
         check(launches[name] > 0, f"{name} was not launched by the phase-18 paths")
     print(f"phase-18 paths: {time.perf_counter() - t_path:.1f} s")
@@ -1677,6 +1798,20 @@ def general_sparse_path_phase(ctx, uniform_coo):
         print(f"auto/hand-pick {name}: {per_iter[(name, 'auto')] * 1e6:.1f} / "
               f"{per_iter[(name, 'hand')] * 1e6:.1f} us/iteration, ratio "
               f"{per_iter[(name, 'hand')] / per_iter[(name, 'auto')]:.2f}x")
+    # the host's share of a B6 call in these host-bound loops: the time to
+    # enqueue one call (checks, the route's pick, the ctypes launch)
+    for key in (("gell 1M", "budget"), ("gell 1M c64", "native")):
+        pack = runs[key][0].pack
+        x = torch.ones(pack.shape[1], dtype=pack.vector_dtype, device=dev)
+        gs.gell_kernel(pack, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            gs.gell_kernel(pack, x)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        print(f"host enqueue of a B6 call ({key[0]}, route {gs.pick_route(pack)}): "
+              f"{host_us:.1f} us [{card_name}, {card_limit}]")
     lam_n = complex(results[("gell 1M c64", "native")].eigenvalue)
     lam_p = complex(sc_ops.from_planes(results[("gell 1M c64", "planes")].eigenvalue))
     print(f"complex GELL native against planes: {lam_n:.7g} vs {lam_p:.7g}")
@@ -1710,6 +1845,57 @@ def general_sparse_path_phase(ctx, uniform_coo):
     check(bool(res.converged) and err <= 1e-6, "data/B.txt to_gell: eigenvalue")
     del ops, runs, results, cgell, planes_op, B
     return launches
+
+
+def b6_host_compare(root: str) -> None:
+    """``--b6-host ROOT`` (see the module docstring). Prints one line a
+    reading; fails if the port is not the one under ROOT or a run does not
+    finish with a finite eigenvalue."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import gell_spmv as gs
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    check(os.path.abspath(eigsol.__file__).startswith(os.path.abspath(root) + os.sep),
+          f"the port under {root} was not the one imported")
+    card_name, card_limit = card_line().split(", ")
+    r, c, v = general_coo(N, GELL_PER_ROW, "uniform")
+    im = np.random.default_rng(19).standard_normal(len(v)).astype(np.float32)
+    ops = {"f32": eigsol.SparseGELL.from_coo(r, c, v, (N, N), device="cuda"),
+           "c64": eigsol.SparseGELL.from_coo(r, c, (v + 1j * im).astype(np.complex64), (N, N),
+                                             device="cuda")}
+    for name, M in ops.items():
+        x = torch.ones(N, dtype=torch.promote_types(M.dtype, torch.float32), device="cuda")
+        gs.gell_kernel(M.pack, x)
+        torch.cuda.synchronize()
+        readings = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(200):
+                gs.gell_kernel(M.pack, x)
+            readings.append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+        print(f"b6-host {root}: enqueue of a B6 call ({name}): "
+              + ", ".join(f"{us:.1f}" for us in readings) + f" us [{card_name}, {card_limit}]")
+    x0 = np.random.default_rng(1).uniform(-1, 1, N)
+    budget = eigsol.SolverOptions(max_iterations=200, tolerance=0.0)
+    for name, M in ops.items():
+        eigsol.power_method(M, eigsol.SolverOptions(max_iterations=3), x0=x0)
+        readings = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eigsol.power_method(M, budget, x0=x0)
+            torch.cuda.synchronize()
+            readings.append((time.perf_counter() - t0) / int(res.iterations) * 1e6)
+            check(np.isfinite(complex(res.eigenvalue)), "power_method: eigenvalue not finite")
+        print(f"b6-host {root}: power_method {name} budget 200 ({int(res.iterations)} "
+              f"iterations): " + ", ".join(f"{us:.1f}" for us in readings)
+              + f" us/iteration [{card_name}, {card_limit}]")
 
 
 def main() -> None:
@@ -2109,10 +2295,12 @@ def main() -> None:
     for name, tag, key, lib_key, line in (
             ("gell_kernel", "B6", ("f32", "uniform"), ("f32", "uniform"), 356),
             ("gell_planes_kernel", "B6cpx", ("B6cpx", "uniform"), ("c64", "uniform"), 367)):
-        k_ms, p_ms, nbytes, flops = gell_timings[key]
+        k_ms, p_ms, nbytes, flops, _, picked = gell_timings[key]
         library[tag] = gell_library[lib_key]
-        add_row(name, GELL_SOURCE, f"{GELL_TPU_KERNELS}:{line}", gell_launches[name],
-                gell_errors[tag], k_ms, p_ms, nbytes, flops, tag)
+        # the source of the route the pack picked (the launches count both)
+        add_row(name, GELL_SOURCE if picked == "csr" else GELL_WINDOW_SOURCE,
+                f"{GELL_TPU_KERNELS}:{line}", gell_launches[name], gell_errors[tag], k_ms, p_ms,
+                nbytes, flops, tag)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -2121,5 +2309,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--b6-host"] and len(sys.argv) == 3:
+        b6_host_compare(sys.argv[2])
+    else:
+        main()
     sys.stdout.flush()

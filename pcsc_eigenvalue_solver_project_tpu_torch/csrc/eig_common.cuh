@@ -1,5 +1,6 @@
 // Scalar arithmetic and small helpers shared by the dense kernels
-// (qr_kernels.cu, hessenberg_blocked.cu, trisolve_vec.cu, qr_eig_blocked.cu).
+// (qr_kernels.cu, hessenberg_blocked.cu, trisolve_vec.cu, qr_eig_blocked.cu),
+// and the tiled GEMM of the compact-WY updates (B9, B11, B12).
 //
 // Each kernel is templated on float, double, float2 and double2: complex
 // values are (re, im) in (.x, .y), and a complex multiply-add is four FMAs
@@ -206,5 +207,103 @@ inline unsigned blocks_for(int64_t count, int per_block) {
 }
 
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+// Raise a kernel's dynamic shared memory limit to `bytes`, once per device
+// and kernel (the call is not stream-ordered; doing it once keeps it out of
+// CUDA graph captures of the launches).
+template <auto Kernel>
+int allow_dynamic_smem(int bytes) {
+  static bool done[64] = {};
+  int device = 0;
+  if (cudaError_t err = cudaGetDevice(&device)) return static_cast<int>(err);
+  if (device < 64 && done[device]) return 0;
+  cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (int rc = last_error()) return rc;
+  if (device < 64) done[device] = true;
+  return 0;
+}
+
+// ---- the tiled GEMM (B11/B12 in hessenberg_blocked.cu, B9 in qr_kernels.cu)
+
+constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
+
+// An operand as stored (N), transposed (T), conjugate-transposed (C) or
+// conjugated (J).
+enum GemmOp { kN = 0, kT = 1, kC = 2, kJ = 3 };
+
+__device__ __forceinline__ bool op_transposed(int op) { return op == kT || op == kC; }
+
+// op(M)[r, c]; ld is M's row stride.
+template <typename T>
+__device__ __forceinline__ T op_load(const T* M, int64_t ld, int op, int64_t r, int64_t c) {
+  const T x = op_transposed(op) ? M[c * ld + r] : M[r * ld + c];
+  return op == kC || op == kJ ? Ops<T>::conj(x) : x;
+}
+
+// C = (accumulate ? C : 0) + alpha op(A) op(B); op(A) is M x K, op(B) K x N.
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_op_kernel(int64_t M, int64_t N, int64_t K, const T* __restrict__ A, int64_t lda, int opa,
+            const T* __restrict__ B, int64_t ldb, int opb, T* __restrict__ C, int64_t ldc,
+            typename Ops<T>::Real alpha, int accumulate) {
+  using O = Ops<T>;
+  __shared__ T As[kBK][kBM + 1];
+  __shared__ T Bs[kBK][kBN + 1];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kBM;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kBN;
+  T acc[4][4];
+  for (int r = 0; r < 4; ++r)
+    for (int c = 0; c < 4; ++c) acc[r][c] = O::zero();
+  for (int64_t k0 = 0; k0 < K; k0 += kBK) {
+    // neighbouring threads take neighbouring addresses of the stored operand
+    for (int q = 0; q < kBK * kBM / kGemmThreads; ++q) {
+      const int e = threadIdx.x + q * kGemmThreads;
+      const bool ta = op_transposed(opa);
+      const int kk = ta ? e / kBM : e % kBK, i = ta ? e % kBM : e / kBK;
+      const int64_t r = row0 + i, c = k0 + kk;
+      As[kk][i] = r < M && c < K ? op_load(A, lda, opa, r, c) : O::zero();
+    }
+    for (int q = 0; q < kBK * kBN / kGemmThreads; ++q) {
+      const int e = threadIdx.x + q * kGemmThreads;
+      const bool tb = op_transposed(opb);
+      const int kk = tb ? e % kBK : e / kBN, j = tb ? e / kBK : e % kBN;
+      const int64_t r = k0 + kk, c = col0 + j;
+      Bs[kk][j] = r < K && c < N ? op_load(B, ldb, opb, r, c) : O::zero();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      T a[4], b[4];
+      for (int r = 0; r < 4; ++r) a[r] = As[kk][ty + 16 * r];
+      for (int c = 0; c < 4; ++c) b[c] = Bs[kk][tx + 16 * c];
+      for (int r = 0; r < 4; ++r)
+        for (int c = 0; c < 4; ++c) acc[r][c] = O::madd(acc[r][c], a[r], b[c]);
+    }
+    __syncthreads();
+  }
+  for (int r = 0; r < 4; ++r) {
+    const int64_t i = row0 + ty + 16 * r;
+    if (i >= M) continue;
+    for (int c = 0; c < 4; ++c) {
+      const int64_t j = col0 + tx + 16 * c;
+      if (j >= N) continue;
+      const T v = O::scale(acc[r][c], alpha);
+      C[i * ldc + j] = accumulate ? O::add(C[i * ldc + j], v) : v;
+    }
+  }
+}
+
+template <typename T>
+int gemm(int64_t M, int64_t N, int64_t K, const T* A, int64_t lda, int opa, const T* B, int64_t ldb,
+         int opb, T* C, int64_t ldc, double alpha, bool accumulate, cudaStream_t st) {
+  if (M <= 0 || N <= 0) return 0;
+  const dim3 grid(blocks_for(N, kBN), blocks_for(M, kBM));
+  gemm_op_kernel<T><<<grid, kGemmThreads, 0, st>>>(M, N, K, A, lda, opa, B, ldb, opb, C, ldc,
+                                                static_cast<typename Ops<T>::Real>(alpha),
+                                                accumulate ? 1 : 0);
+  return last_error();
+}
+
 
 }  // namespace

@@ -217,30 +217,36 @@ enum DTypeCode { kF32 = 0, kBF16 = 1, kF64 = 2 };
 
 extern "C" {
 
+// What a pack's launches share, set once per pack and entry by
+// ops/gell_spmv.py (its _CSRArgs, the same fields in the same order), so that
+// a call passes five arguments through ctypes, not twelve.
+struct GellCSRArgs {
+  int dtype, device, mode, group;
+  long long n_rows;
+  const void* indptr;
+  const void* indices;
+  const void* values;
+};
+
 // General sparse SpMV (B6). dtype is the type of the stored values (of each
 // half of a complex pair); x and y have the accumulation type: f32 for f32
 // and bf16 values, f64 for f64 (complex: complex64 / complex128 in native
 // mode, f32 / f64 planes in planes mode). group is the lanes per row.
-int gell_csr_spmv(int dtype, int device, int mode, const void* indptr, const void* indices,
-                  const void* values, const void* x, long long x_plane, long long n_rows,
-                  int group, void* y, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+int gell_csr_spmv(const GellCSRArgs* a, const void* x, long long x_plane, void* y, void* stream) {
+  cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rows <= 0) return 0;
+  if (a->n_rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ip = static_cast<const int*>(indptr);
-  const int* ix = static_cast<const int*>(indices);
-  switch (dtype) {
-    case kF32:
-      return launch_group<float, float>(group, mode, ip, ix, values, x, x_plane, n_rows, y, s);
-    case kBF16:
-      return launch_group<__nv_bfloat16, float>(group, mode, ip, ix, values, x, x_plane, n_rows,
-                                                y, s);
-    case kF64:
-      return launch_group<double, double>(group, mode, ip, ix, values, x, x_plane, n_rows, y, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int* ip = static_cast<const int*>(a->indptr);
+  const int* ix = static_cast<const int*>(a->indices);
+#define CSR_ARGS a->group, a->mode, ip, ix, a->values, x, x_plane, a->n_rows, y, s
+  switch (a->dtype) {
+    case kF32: return launch_group<float, float>(CSR_ARGS);
+    case kBF16: return launch_group<__nv_bfloat16, float>(CSR_ARGS);
+    case kF64: return launch_group<double, double>(CSR_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef CSR_ARGS
 }
 
 }  // extern "C"

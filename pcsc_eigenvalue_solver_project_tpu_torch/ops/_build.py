@@ -128,8 +128,8 @@ def load() -> ctypes.CDLL:
             # dtype, device, a, h, q, scratch, n, stream
             lib.qr_hessenberg.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, ptr]
             lib.qr_hessenberg.restype = i32
-            # dtype, device, a, r, q, scratch, n, kmax, stream
-            lib.qr_householder.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, i64, ptr]
+            # dtype, device, a, r, q, scratch, n, kmax, nb, launches (host), stream
+            lib.qr_householder.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, i64, i32, ptr, ptr]
             lib.qr_householder.restype = i32
             # dtype, device, h_in, h, q, rot, eig, state, n, max_sweeps, tol, stream
             lib.qr_eig_givens.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32,
@@ -150,11 +150,14 @@ def load() -> ctypes.CDLL:
             lib.qr_eig_blocked_sweeps.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                                   i32, i64, i32, f64, i32, i32, ptr]
             lib.qr_eig_blocked_sweeps.restype = i32
-            # dtype, device, mode, indptr, indices, values, x, x plane stride, n_rows, group,
-            # y, stream
-            lib.gell_csr_spmv.argtypes = [i32, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i32, ptr,
-                                          ptr]
+            # the pack's launch arguments (a struct), x, x plane stride, y, stream
+            lib.gell_csr_spmv.argtypes = [ptr, ptr, i64, ptr, ptr]
             lib.gell_csr_spmv.restype = i32
+            lib.gell_window_spmv.argtypes = [ptr, ptr, i64, ptr, ptr]
+            lib.gell_window_spmv.restype = i32
+            # device, cluster, clusters (host int out)
+            lib.gell_window_capacity.argtypes = [i32, i32, ptr]
+            lib.gell_window_capacity.restype = i32
             lib.dia_cuda_error_string.argtypes = [i32]
             lib.dia_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,13 +1,41 @@
 """General (unstructured) sparse SpMV: the CUDA kernel B6 for the H100, its
-plain version and the pack it reads.
+plain versions and the pack it reads.
 
 Counterpart of the JAX package's ``ops/pallas/gell_spmv.py``. The JAX pack
 ("packed gather-ELL") is shaped for the TPU's 128-lane gather and its VMEM;
-on the card a gather is an address, so ``pack_gell`` keeps the JAX name but
-builds plain row-sorted CSR from the same COO: ``indptr``, ``indices`` and
-``values`` (complex values as (re, im) pairs), duplicates kept, since the
-kernel sums them as the JAX run scan does. The kernel (``csrc/gell_spmv.cu``,
-see its header) gives each row a group of ``group`` lanes.
+on the card ``pack_gell`` keeps the JAX name but builds two layouts of the
+same COO, each read by a kernel written by hand:
+
+- **CSR** (``indptr``, ``indices``, ``values``; complex values as (re, im)
+  pairs), duplicates kept, since the kernel sums them as the JAX run scan
+  does. ``csrc/gell_spmv.cu`` gives each row a group of ``group`` lanes
+  that gather x from L2 (one 32-byte sector per entry, two on planes).
+- **Windows** (``GELLWindows``, ``window_layout``): rows cut into ranges of
+  ``R`` rows, about one range per SM that a launch holds at once, columns
+  into windows of ``W`` columns (``W`` x the bytes of an x element <= 64 KB,
+  16384 columns in f32, the JAX chunk width), entries ordered by (range,
+  window, row, column) with a 16-bit local row and a 16-bit local column in
+  one 32-bit word; ranges grouped in clusters of ``cluster`` blocks, each
+  with the union of the windows its ranges touch (JAX's ``chunk_ids``).
+  ``csrc/gell_window_spmv.cu`` stages those x windows in shared memory by
+  TMA bulk copies, double-buffered, and gathers from there. Each block
+  stages its own windows: the packs are built with clusters of one block
+  (``WINDOW_CLUSTER``), since multicasting a window to clusters of 2 or 4
+  was slower in every case measured (PERF.md); ``with_windows`` still
+  builds those for comparison.
+
+**Which layout runs** (``pick_route``), computed from the pack: the windows
+when the bytes they stage, ``staged windows x W x (bytes of an x element)``
+(one copy per cluster window), are fewer than the sectors CSR gathers,
+``nnz x 32 B x sectors per entry`` (2 on planes, else 1). A very wide, very
+sparse operator stages windows for a handful of entries and stays on CSR;
+the windowed layout is kept only when the rule picks it for the planes
+entry of a complex pack or for the native entry. Both routes are kernels:
+this is a dispatch, not a fallback, and a route that fails to build or
+launch raises. ``ROUTE_LAUNCHES`` counts the launches of each. The route,
+the checks of the pack and the C call's fixed arguments are resolved once
+per pack and entry (``_launcher``), so that a call's host work is the
+vector's checks and one ctypes call of five arguments.
 
 - ``gell_kernel`` (B6): ``y = A x`` for a real pack (f32, bf16 or f64
   values) and for a complex pack on native complex64/complex128 vectors;
@@ -15,21 +43,23 @@ see its header) gives each row a group of ``group`` lanes.
   planes -> (2, n_rows) planes.
 
 Each wrapper checks its inputs, allocates the output, launches on the
-current stream and counts its launches in ``.launches``. The dispatchers
-``gell_matvec`` and ``gell_matvec_planes`` run the plain PyTorch version when
-the pack lies on the CPU and the kernel otherwise: a pack on a CUDA device
-launches the kernel or raises.
+current stream and counts its launches in ``.launches`` (either route). The
+dispatchers ``gell_matvec`` and ``gell_matvec_planes`` run the plain PyTorch
+version when the pack lies on the CPU and the kernel otherwise: a pack on a
+CUDA device launches a kernel or raises. ``gell_window_matvec_plain`` (and
+its planes form) computes y from the windowed arrays alone.
 
 Not ported, as they serve the TPU only: the lane buckets, the int16/int32
 segment word and its mask bits, the suffix scan, the int8 inverse
-permutation, the transposed x, the chunk lists and ``max_chunks``, the spill
-tail, ``auto_tile_rows``, ``_XT_VMEM_BUDGET`` and the dtype gate of
-``_use_pallas``. ``unpack_gell_leaves`` decodes a JAX pack back to COO (its
-copy of the pack's logic), so a JAX operator can be carried across.
+permutation, the transposed x, the spill tail, ``auto_tile_rows``,
+``_XT_VMEM_BUDGET`` and the dtype gate of ``_use_pallas``.
+``unpack_gell_leaves`` decodes a JAX pack back to COO (its copy of the
+pack's logic), so a JAX operator can be carried across.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -48,6 +78,14 @@ _SEG16_BITS = 13  # the JAX pack's int16 segment word: 13-bit segment, then the 
 _VALUE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _MODE_REAL, _MODE_COMPLEX, _MODE_PLANES = 0, 1, 2
 
+WINDOW_BYTES = 64 * 1024          # an x window in shared memory (one buffer)
+WINDOW_BUFFERS = 2                # csrc/gell_window_spmv.cu::kStages: double-buffered
+WINDOW_SMEM = 227 * 1024 - 1024   # csrc/gell_window_spmv.cu::kSmemBudget
+WINDOW_CLUSTER = 1                # blocks a cluster: multicast of the windows did not pay (PERF.md)
+CLUSTER_SIZES = (1, 2, 4)
+NOMINAL_SMS = 132                 # a CPU pack's ranges: as on the H100's 132 SMs
+SECTOR_BYTES = 32                 # what one gather of x moves from L2
+
 
 def group_width(nnz: int, n_rows: int) -> int:
     """Lanes per row: the smallest power of two at or above the mean row
@@ -60,8 +98,32 @@ def group_width(nnz: int, n_rows: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class GELLWindows:
+    """The windowed layout of a pack (see the module docstring).
+
+    Union row ``g`` of cluster ``k``, for ``g`` in ``[uptr[k], uptr[k+1])``,
+    names window ``uwin[g]`` (the cluster's last row is a sentinel, window
+    ``ceil(n_cols / cols)``); ``uoff[g * cluster + r]`` is the first entry there of
+    the cluster's range ``r`` (at the sentinel: the range's end)."""
+
+    words: torch.Tensor   # (nnz,) int32: local row << 16 | local column
+    values: torch.Tensor  # (nnz,) or (nnz, 2): the pack's values in window order
+    rows: int             # R, rows a range
+    cols: int             # W, columns a window
+    cluster: int
+    n_ranges: int         # a multiple of cluster; ranges past the last row are empty
+    uptr: torch.Tensor    # (n_ranges / cluster + 1,) int32
+    uwin: torch.Tensor    # (union rows,) int32
+    uoff: torch.Tensor    # (union rows * cluster,) int32
+    staged_windows: int   # union windows over all clusters, sentinels not counted
+    staged_bytes: int     # what the launch copies into shared memory: staged windows x W x
+                          # the bytes of an x element
+
+
+@dataclasses.dataclass(frozen=True)
 class GELLPack:
-    """One general sparse operator as row-sorted CSR on one device.
+    """One general sparse operator as row-sorted CSR on one device, with its
+    windowed layout in ``windows`` where the route rule picks it.
 
     ``values`` is (nnz,) for real data (f32, bf16 or f64) and (nnz, 2)
     (re, im) pairs in the real dtype for complex data. ``tile_rows`` is the
@@ -74,6 +136,11 @@ class GELLPack:
     group: int
     tile_rows: int | None = None
     is_complex: bool = False
+    windows: GELLWindows | None = None  # the windowed layout, when the rule picks it
+    # (planes, route) -> the launch resolved for this pack (``_launcher``); a
+    # replaced pack starts with none
+    _launchers: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                         compare=False)
 
     @property
     def nnz(self) -> int:
@@ -100,12 +167,13 @@ class GELLPack:
 
     def with_values_dtype(self, dtype) -> "GELLPack":
         """The same pack with its values cast (``torch.bfloat16`` halves the
-        value bytes; the kernel accumulates in f32 regardless)."""
+        value bytes; the kernel accumulates in f32 regardless). The windowed
+        layout is built anew, since its shape follows the vector dtype."""
         dt = as_torch_dtype(dtype)
         if dt not in _VALUE_CODES:
             raise TypeError(f"GELLPack.with_values_dtype: values are float32, bfloat16 or "
                             f"float64, got {dt}")
-        return dataclasses.replace(self, values=self.values.to(dt))
+        return attach_windows(dataclasses.replace(self, values=self.values.to(dt), windows=None))
 
 
 def build_pack(row, col, values: torch.Tensor, shape, *, is_complex: bool,
@@ -136,12 +204,143 @@ def build_pack(row, col, values: torch.Tensor, shape, *, is_complex: bool,
     indptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(np.bincount(r, minlength=n_rows), out=indptr[1:])
     device = resolve_device(device)
-    return GELLPack(
+    return attach_windows(GELLPack(
         indptr=torch.from_numpy(indptr.astype(np.int32)).to(device),
         indices=torch.from_numpy(c.astype(np.int32)).to(device),
         values=values.contiguous().to(device),
         shape=(n_rows, n_cols), group=group_width(nnz, n_rows), tile_rows=tile_rows,
-        is_complex=is_complex)
+        is_complex=is_complex))
+
+
+# --------------------------------------------------------------------------
+# The windowed layout
+# --------------------------------------------------------------------------
+
+def x_element_bytes(pack: GELLPack) -> int:
+    """Bytes of one x element on the card: re and im together for a complex
+    pack (native or planes)."""
+    return torch.empty((), dtype=pack.vector_dtype).element_size()
+
+
+def _capacity(device: torch.device, cluster: int) -> int:
+    """Clusters of the windowed kernel the device runs at once (one wave);
+    for a pack off the card, as on the H100's 132 SMs."""
+    if device.type != "cuda":
+        return max(NOMINAL_SMS // cluster, 1)
+    lib = _build.load()
+    count = ctypes.c_int(0)
+    rc = lib.gell_window_capacity(device.index if device.index is not None else
+                                  torch.cuda.current_device(), cluster, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"gell_window_capacity: CUDA call failed ({rc}): "
+                           f"{lib.dia_cuda_error_string(rc).decode()}")
+    return max(count.value, 1)
+
+
+def window_shape(pack: GELLPack, cluster: int = WINDOW_CLUSTER, rows: int | None = None,
+                 cols: int | None = None):
+    """``(R, W, n_ranges)`` of the windowed layout: ``W`` fills
+    ``WINDOW_BYTES`` with x elements; ``R`` spreads the rows over the
+    clusters that one wave of the launch holds, in multiples of 32, with the
+    partial sums (``R`` x the accumulator's bytes, twice for complex) in
+    what shared memory has left beside the two window buffers, and at most
+    65536 (16-bit local rows). ``rows`` and ``cols`` override (small shapes
+    for tests)."""
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"window_layout: cluster {cluster} not in {CLUSTER_SIZES}")
+    n_rows = pack.shape[0]
+    W = int(cols) if cols is not None else WINDOW_BYTES // x_element_bytes(pack)
+    xe = x_element_bytes(pack)  # also the bytes of a row's partial sum (a pair if complex)
+    r_max = min(65536, (WINDOW_SMEM - WINDOW_BUFFERS * (W * xe + 32)) // xe)
+    if rows is not None:
+        R = int(rows)
+    else:
+        per = -(-n_rows // (_capacity(pack.device, cluster) * cluster))
+        R = min(max(32, -(-per // 32) * 32), r_max)
+    if not 1 <= R <= r_max or not 1 <= W <= 65536:
+        raise ValueError(f"window_layout: R = {R} rows, W = {W} columns do not fit "
+                         f"(R <= {r_max}, W <= 65536)")
+    n_ranges = -(-max(-(-n_rows // R), 1) // cluster) * cluster
+    return R, W, n_ranges
+
+
+def _rule_keeps(staged_bytes: int, nnz: int, planes: bool) -> bool:
+    return staged_bytes < nnz * SECTOR_BYTES * (2 if planes else 1)
+
+
+def _window_layout(pack: GELLPack, cluster: int, rows: int | None, cols: int | None,
+                   planes: bool | None) -> GELLWindows | None:
+    """The layout (see ``window_layout``); with ``planes`` given, None when
+    ``window_rule`` would refuse it, found from the union windows alone,
+    before the entries are sorted."""
+    R, W, n_ranges = window_shape(pack, cluster, rows, cols)
+    dev = pack.device
+    n_windows = max(-(-pack.shape[1] // W), 1)
+    n_clusters = n_ranges // cluster
+    slots = n_windows + 1  # windows of a cluster, then its sentinel
+    rows_of = _row_ids(pack)
+    cols_of = pack.indices.long()
+    union = torch.unique((rows_of // (R * cluster)) * slots + cols_of // W)
+    staged = int(union.numel())
+    staged_bytes = staged * W * x_element_bytes(pack)
+    if planes is not None and not _rule_keeps(staged_bytes, pack.nnz, planes):
+        return None
+    key = (rows_of // R) * n_windows + cols_of // W
+    key, order = torch.sort(key, stable=True)
+    words = ((rows_of % R) << 16 | (cols_of % W))[order]
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    sentinels = torch.arange(n_clusters, device=dev) * slots + n_windows
+    union = torch.sort(torch.cat([union, sentinels])).values
+    g_row, w_row = union // slots, union % slots
+    uptr = torch.zeros(n_clusters + 1, dtype=torch.int64, device=dev)
+    uptr[1:] = torch.cumsum(torch.bincount(g_row, minlength=n_clusters), 0)
+    ranges = g_row[:, None] * cluster + torch.arange(cluster, device=dev)[None, :]
+    uoff = torch.searchsorted(key, (ranges * n_windows + w_row[:, None]).reshape(-1))
+    return GELLWindows(words=words, values=pack.values[order].contiguous(), rows=R, cols=W,
+                       cluster=cluster, n_ranges=n_ranges, uptr=uptr.to(torch.int32),
+                       uwin=w_row.to(torch.int32), uoff=uoff.to(torch.int32),
+                       staged_windows=staged, staged_bytes=staged_bytes)
+
+
+def window_layout(pack: GELLPack, cluster: int = WINDOW_CLUSTER, rows: int | None = None,
+                  cols: int | None = None) -> GELLWindows:
+    """The windowed layout of a pack, built from its CSR where the pack lies
+    (one stable sort of the entries by (range, window); the CSR order keeps
+    (row, column) within). Duplicates stay and sum in the product."""
+    return _window_layout(pack, cluster, rows, cols, None)
+
+
+def window_rule(pack: GELLPack, windows: GELLWindows, planes: bool = False) -> bool:
+    """True when the windowed layout moves fewer bytes than CSR's gathers:
+    ``staged windows x W x x element bytes < nnz x 32 B x sectors per entry``
+    (2 sectors on planes, re and im a plane apart; 1 otherwise)."""
+    return _rule_keeps(windows.staged_bytes, pack.nnz, planes)
+
+
+def attach_windows(pack: GELLPack, cluster: int = WINDOW_CLUSTER) -> GELLPack:
+    """The pack with its windowed layout where the rule picks it (for the
+    native entry, or the planes entry of a complex pack), else without; the
+    rule is read off the union windows, so a refused layout is never
+    built."""
+    if pack.nnz == 0 or pack.shape[0] == 0 or pack.device.type == "meta":
+        return pack
+    return dataclasses.replace(
+        pack, windows=_window_layout(pack, cluster, None, None, planes=pack.is_complex))
+
+
+def with_windows(pack: GELLPack, cluster: int = WINDOW_CLUSTER, rows: int | None = None,
+                 cols: int | None = None) -> GELLPack:
+    """The pack with a windowed layout of the given cluster size, whatever
+    the rule says (to time or test the windowed route on any pack)."""
+    return dataclasses.replace(pack, windows=window_layout(pack, cluster, rows, cols))
+
+
+def pick_route(pack: GELLPack, planes: bool = False) -> str:
+    """``"windows"`` when the pack has a windowed layout and the rule
+    prefers it for this entry, else ``"csr"``."""
+    if pack.windows is not None and window_rule(pack, pack.windows, planes):
+        return "windows"
+    return "csr"
 
 
 def pack_gell(row, col, values, shape, tile_rows: int | None = None,
@@ -212,28 +411,44 @@ def _row_ids(pack: GELLPack) -> torch.Tensor:
     return torch.repeat_interleave(torch.arange(pack.shape[0], device=pack.device), counts)
 
 
-def gell_matvec_plain(pack: GELLPack, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` by a gather of x, a product and ``index_add_`` into y, in
-    x's dtype (JAX :533-562; a complex pack computes in complex128 for a
-    complex128 x, else complex64)."""
-    rows, cols = _row_ids(pack), pack.indices.long()
+def window_coo(pack: GELLPack, windows: GELLWindows | None = None):
+    """The entries of the windowed layout as (row, column, values), in its
+    order: range ``k`` of cluster ``k // cluster`` holds, in union window
+    ``w``, entries ``[uoff[g, r], uoff[g + 1, r])``; an entry's row is
+    ``k R + (word >> 16)`` and its column ``w W + (word & 0xffff)``."""
+    win = windows if windows is not None else pack.windows
+    if win is None:
+        raise ValueError("window_coo: the pack has no windowed layout")
+    c, dev = win.cluster, win.words.device
+    off = win.uoff.long().view(-1, c)
+    g_row = torch.repeat_interleave(torch.arange(win.uptr.numel() - 1, device=dev),
+                                    (win.uptr[1:] - win.uptr[:-1]).long())
+    live = (g_row[1:] == g_row[:-1])[:, None].expand(-1, c)  # row g, not a sentinel
+    starts, lengths = off[:-1][live], (off[1:] - off[:-1])[live]
+    ranges = (g_row[:-1, None] * c + torch.arange(c, device=dev))[live]
+    windows_of = win.uwin.long()[:-1, None].expand(-1, c)[live]
+    order = torch.argsort(starts, stable=True)
+    lengths = lengths[order]
+    word = win.words.long() & 0xFFFFFFFF
+    rows = torch.repeat_interleave(ranges[order], lengths) * win.rows + (word >> 16)
+    cols = torch.repeat_interleave(windows_of[order], lengths) * win.cols + (word & 0xFFFF)
+    return rows, cols, win.values
+
+
+def _matvec_coo(pack: GELLPack, rows, cols, values, x: torch.Tensor) -> torch.Tensor:
     if pack.is_complex:
         rdt = torch.float64 if x.dtype == torch.complex128 else torch.float32
-        v = pack.values.to(rdt)
+        v = values.to(rdt)
         vals = torch.complex(v[:, 0], v[:, 1])
         xs = x.to(vals.dtype)
         y = torch.zeros(pack.shape[0], dtype=vals.dtype, device=x.device)
         return y.index_add_(0, rows, vals * xs[cols]).to(x.dtype)
     y = torch.zeros(pack.shape[0], dtype=x.dtype, device=x.device)
-    return y.index_add_(0, rows, pack.values.to(x.dtype) * x[cols])
+    return y.index_add_(0, rows, values.to(x.dtype) * x[cols])
 
 
-def gell_matvec_planes_plain(pack: GELLPack, x_planes: torch.Tensor) -> torch.Tensor:
-    """Complex pack times (2, n_cols) re/im planes -> (2, n_rows) planes in
-    the planes' dtype: ``y_re = A_re x_re - A_im x_im``,
-    ``y_im = A_re x_im + A_im x_re``."""
-    rows, cols = _row_ids(pack), pack.indices.long()
-    v = pack.values.to(x_planes.dtype)
+def _matvec_planes_coo(pack: GELLPack, rows, cols, values, x_planes: torch.Tensor):
+    v = values.to(x_planes.dtype)
     vr, vi = v[:, 0], v[:, 1]
     xr, xi = x_planes[0][cols], x_planes[1][cols]
     y = torch.zeros((2, pack.shape[0]), dtype=x_planes.dtype, device=x_planes.device)
@@ -242,55 +457,153 @@ def gell_matvec_planes_plain(pack: GELLPack, x_planes: torch.Tensor) -> torch.Te
     return y
 
 
+def gell_matvec_plain(pack: GELLPack, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` by a gather of x, a product and ``index_add_`` into y, in
+    x's dtype (JAX :533-562; a complex pack computes in complex128 for a
+    complex128 x, else complex64), from the CSR arrays."""
+    return _matvec_coo(pack, _row_ids(pack), pack.indices.long(), pack.values, x)
+
+
+def gell_matvec_planes_plain(pack: GELLPack, x_planes: torch.Tensor) -> torch.Tensor:
+    """Complex pack times (2, n_cols) re/im planes -> (2, n_rows) planes in
+    the planes' dtype: ``y_re = A_re x_re - A_im x_im``,
+    ``y_im = A_re x_im + A_im x_re``, from the CSR arrays."""
+    return _matvec_planes_coo(pack, _row_ids(pack), pack.indices.long(), pack.values, x_planes)
+
+
+def gell_window_matvec_plain(pack: GELLPack, x: torch.Tensor,
+                             windows: GELLWindows | None = None) -> torch.Tensor:
+    """``gell_matvec_plain`` computed from the windowed arrays alone
+    (``window_coo``; default: the pack's layout)."""
+    return _matvec_coo(pack, *window_coo(pack, windows), x)
+
+
+def gell_window_matvec_planes_plain(pack: GELLPack, x_planes: torch.Tensor,
+                                    windows: GELLWindows | None = None) -> torch.Tensor:
+    """``gell_matvec_planes_plain`` computed from the windowed arrays alone."""
+    return _matvec_planes_coo(pack, *window_coo(pack, windows), x_planes)
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
-def _check_operands(name: str, pack: GELLPack, vec: torch.Tensor, dtype: torch.dtype) -> None:
-    for label, t in (("pack", pack.values), ("vector", vec)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: {label} on {t.device}, expected a CUDA device")
-    if vec.device != pack.device:
-        raise ValueError(f"{name}: pack on {pack.device}, vector on {vec.device}")
+class _CSRArgs(ctypes.Structure):
+    """csrc/gell_spmv.cu::GellCSRArgs."""
+    _fields_ = [("dtype", ctypes.c_int), ("device", ctypes.c_int), ("mode", ctypes.c_int),
+                ("group", ctypes.c_int), ("n_rows", ctypes.c_longlong),
+                ("indptr", ctypes.c_void_p), ("indices", ctypes.c_void_p),
+                ("values", ctypes.c_void_p)]
+
+
+class _WindowArgs(ctypes.Structure):
+    """csrc/gell_window_spmv.cu::GellWindowArgs."""
+    _fields_ = [("dtype", ctypes.c_int), ("device", ctypes.c_int), ("mode", ctypes.c_int),
+                ("cluster", ctypes.c_int), ("R", ctypes.c_int), ("W", ctypes.c_int),
+                ("n_rows", ctypes.c_longlong), ("n_cols", ctypes.c_longlong),
+                ("n_ranges", ctypes.c_longlong), ("words", ctypes.c_void_p),
+                ("values", ctypes.c_void_p), ("uptr", ctypes.c_void_p),
+                ("uwin", ctypes.c_void_p), ("uoff", ctypes.c_void_p)]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Launch:
+    """One entry of one pack on the card, resolved once: the route, the C
+    function, its argument struct (kept alive here) and what a vector must
+    be."""
+    route: str
+    fn: object
+    args: ctypes.Structure
+    args_ptr: int
+    device: torch.device
+    index: int
+    dtype: torch.dtype      # of x and y (planes: of each plane)
+
+
+def _launcher(name: str, pack: GELLPack, planes: bool, route: str | None) -> _Launch:
+    """The pack's launch for this entry and route (default ``pick_route``),
+    built on the first call after checking the pack, then reused: the pack
+    is frozen, so its tensors, layout and route do not change."""
+    hit = pack._launchers.get((planes, route))
+    if hit is not None:
+        return hit
+    if pack.values.device.type != "cuda":
+        raise ValueError(f"{name}: pack on {pack.values.device}, expected a CUDA device")
     if pack.values.dtype not in _VALUE_CODES:
         raise TypeError(f"{name}: unsupported value dtype {pack.values.dtype}")
-    if vec.dtype != dtype:
-        raise TypeError(f"{name}: vector dtype {vec.dtype} does not match {dtype} for "
-                        f"{pack.dtype} values")
     if not (pack.values.is_contiguous() and pack.indices.is_contiguous()
             and pack.indptr.is_contiguous()):
         raise ValueError(f"{name}: pack tensors must be contiguous")
     if pack.is_complex and pack.values.data_ptr() % (2 * pack.values.element_size()):
         raise ValueError(f"{name}: complex value pairs must be aligned to a pair")
-
-
-def _launch(name: str, pack: GELLPack, x: torch.Tensor, mode: int, x_plane: int,
-            y: torch.Tensor) -> None:
+    chosen = route or pick_route(pack, planes)
     lib = _build.load()
-    rc = lib.gell_csr_spmv(
-        _VALUE_CODES[pack.values.dtype], x.device.index, mode, pack.indptr.data_ptr(),
-        pack.indices.data_ptr(), pack.values.data_ptr(), x.data_ptr(), x_plane,
-        pack.shape[0], pack.group, y.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    dev = pack.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    code = _VALUE_CODES[pack.values.dtype]
+    mode = _MODE_PLANES if planes else _MODE_COMPLEX if pack.is_complex else _MODE_REAL
+    if chosen == "windows":
+        win = pack.windows
+        if win is None:
+            raise ValueError(f"{name}: the pack has no windowed layout")
+        if win.values.dtype != pack.values.dtype or win.words.device != dev:
+            raise ValueError(f"{name}: the windowed layout does not match the pack")
+        fn, args = lib.gell_window_spmv, _WindowArgs(
+            code, index, mode, win.cluster, win.rows, win.cols, pack.shape[0], pack.shape[1],
+            win.n_ranges, win.words.data_ptr(), win.values.data_ptr(), win.uptr.data_ptr(),
+            win.uwin.data_ptr(), win.uoff.data_ptr())
+    elif chosen == "csr":
+        fn, args = lib.gell_csr_spmv, _CSRArgs(
+            code, index, mode, pack.group, pack.shape[0], pack.indptr.data_ptr(),
+            pack.indices.data_ptr(), pack.values.data_ptr())
+    else:
+        raise ValueError(f"{name}: route {chosen!r} is neither 'csr' nor 'windows'")
+    dtype = pack.vector_dtype.to_real() if planes else pack.vector_dtype
+    hit = _Launch(chosen, fn, args, ctypes.addressof(args), dev, index, dtype)
+    pack._launchers[(planes, route)] = hit
+    return hit
+
+
+def _check_vector(name: str, launch: _Launch, pack: GELLPack, vec: torch.Tensor) -> None:
+    if vec.device != launch.device:
+        if vec.device.type != "cuda":
+            raise ValueError(f"{name}: vector on {vec.device}, expected a CUDA device")
+        raise ValueError(f"{name}: pack on {launch.device}, vector on {vec.device}")
+    if vec.dtype != launch.dtype:
+        raise TypeError(f"{name}: vector dtype {vec.dtype} does not match {launch.dtype} for "
+                        f"{pack.dtype} values")
+
+
+ROUTE_LAUNCHES = {"csr": 0, "windows": 0}
+
+
+def _launch(name: str, launch: _Launch, x: torch.Tensor, x_plane: int, y: torch.Tensor) -> None:
+    rc = launch.fn(launch.args_ptr, x.data_ptr(), x_plane, y.data_ptr(),
+                   torch._C._cuda_getCurrentRawStream(launch.index))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}): "
-                           f"{lib.dia_cuda_error_string(rc).decode()}")
+                           f"{_build.load().dia_cuda_error_string(rc).decode()}")
+    ROUTE_LAUNCHES[launch.route] += 1
 
 
-def gell_kernel(pack: GELLPack, x: torch.Tensor) -> torch.Tensor:
+def gell_kernel(pack: GELLPack, x: torch.Tensor, route: str | None = None) -> torch.Tensor:
     """B6 on the card: ``A @ x`` with x an (n_cols,) contiguous vector of
-    dtype ``pack.vector_dtype`` (complex64/complex128 for a complex pack).
+    dtype ``pack.vector_dtype`` (complex64/complex128 for a complex pack),
+    by ``route`` (``"csr"`` or ``"windows"``; default ``pick_route``).
     A pack with no rows or no entries launches nothing: y is empty or zero."""
     n_rows, n_cols = pack.shape
     if x.shape != (n_cols,):
         raise ValueError(f"gell_kernel: expected an ({n_cols},) vector, got {tuple(x.shape)}")
-    _check_operands("gell_kernel", pack, x, pack.vector_dtype)
+    launch = _launcher("gell_kernel", pack, False, route)
+    _check_vector("gell_kernel", launch, pack, x)
     if not x.is_contiguous():
         raise ValueError("gell_kernel: vector must be contiguous")
+    if x.data_ptr() % x.element_size():
+        raise ValueError("gell_kernel: vector must be aligned to its element size")
     if pack.nnz == 0:
         return torch.zeros(n_rows, dtype=x.dtype, device=x.device)
     y = torch.empty(n_rows, dtype=x.dtype, device=x.device)
-    _launch("gell_kernel", pack, x, _MODE_COMPLEX if pack.is_complex else _MODE_REAL, 0, y)
+    _launch("gell_kernel", launch, x, 0, y)
     gell_kernel.launches += 1
     return y
 
@@ -298,23 +611,26 @@ def gell_kernel(pack: GELLPack, x: torch.Tensor) -> torch.Tensor:
 gell_kernel.launches = 0
 
 
-def gell_planes_kernel(pack: GELLPack, x_planes: torch.Tensor) -> torch.Tensor:
+def gell_planes_kernel(pack: GELLPack, x_planes: torch.Tensor,
+                       route: str | None = None) -> torch.Tensor:
     """B6 cpx on the card: a complex pack times (2, n_cols) re/im planes of
     dtype ``pack.vector_dtype.to_real()``, unit stride along a plane and any
-    stride between the planes -> (2, n_rows) planes."""
+    stride between the planes -> (2, n_rows) planes, by ``route`` (default
+    ``pick_route`` for planes)."""
     if not pack.is_complex:
         raise TypeError("gell_planes_kernel: the pack is not complex")
     n_rows, n_cols = pack.shape
     if x_planes.shape != (2, n_cols):
         raise ValueError(f"gell_planes_kernel: expected (2, {n_cols}) planes, got "
                          f"{tuple(x_planes.shape)}")
-    _check_operands("gell_planes_kernel", pack, x_planes, pack.vector_dtype.to_real())
+    launch = _launcher("gell_planes_kernel", pack, True, route)
+    _check_vector("gell_planes_kernel", launch, pack, x_planes)
     if n_cols > 1 and x_planes.stride(1) != 1:
         raise ValueError("gell_planes_kernel: planes must have unit stride along a plane")
     if pack.nnz == 0:
         return torch.zeros((2, n_rows), dtype=x_planes.dtype, device=x_planes.device)
     y = torch.empty((2, n_rows), dtype=x_planes.dtype, device=x_planes.device)
-    _launch("gell_planes_kernel", pack, x_planes, _MODE_PLANES, x_planes.stride(0), y)
+    _launch("gell_planes_kernel", launch, x_planes, x_planes.stride(0), y)
     gell_planes_kernel.launches += 1
     return y
 
@@ -327,6 +643,8 @@ KERNELS = (gell_kernel, gell_planes_kernel)
 def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0
+    for route in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[route] = 0
 
 
 # --------------------------------------------------------------------------

@@ -7,7 +7,10 @@ all in ``csrc/qr_kernels.cu`` (see its header for the design):
   accumulating ``Q`` with ``A = Q H Q^H``;
 - ``qr_eig_kernel`` (B8): the whole Wilkinson-shifted complex Givens QR
   iteration with deflation on a Hessenberg matrix, in one launch;
-- ``qr_decompose_kernel`` (B9): square Householder QR with the full ``Q``;
+- ``qr_decompose_kernel`` (B9): square Householder QR with the full ``Q``,
+  blocked: panels of ``nb`` columns factored in one block each, compact-WY
+  trailing updates and a backward accumulation of ``Q`` as tiled GEMMs
+  (``qr_decompose_blocked_plain`` is its plain version);
 - ``qr_parity_kernel`` (B10): the reference's unshifted iteration (a full B9
   QR of ``H`` each sweep, then ``H := R Q``) until
   ``max|H[i,i-1]| <= tol * (1 + ||H||_F)``.
@@ -35,6 +38,8 @@ normalisation, B8's ``[lo, hi)`` window), not the XLA solver loops of
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -49,6 +54,19 @@ from .trisolve_vec import triangular_eigenvectors_device, triangular_eigenvector
 # B10 enqueues sweeps in chunks of about this many launches and reads its
 # device-side ``done`` flag once per chunk.
 PARITY_LAUNCHES_PER_READ = 8192
+
+# B9's panel width (at most 64; csrc/qr_kernels.cu::kMaxQRPanel): 32 where
+# the first panel, n x 32 elements, fits in the panel kernel's shared memory
+# (QR_PANEL_SMEM, csrc/qr_kernels.cu::kPanelSmem), else 16, which keeps it
+# there up to n = 3520 in float32. Set from chip_smoke.py's sweep of 16, 32
+# and 64 at n = 512 and 2048 in four dtypes (PERF.md).
+QR_PANEL_SMEM = 220 * 1024
+
+
+def qr_panel_width(n: int, dtype: torch.dtype) -> int:
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return 32 if n * 32 * itemsize <= QR_PANEL_SMEM else 16
+
 
 
 # --------------------------------------------------------------------------
@@ -87,6 +105,64 @@ def qr_decompose_plain(a: torch.Tensor, kmax: int | None = None):
     R, Q = a.clone(), eye(n, a)
     for k in range(n if kmax is None else kmax):
         R, Q = _qr_step(R, Q, k)
+    return R, Q
+
+
+def _panel_reflector(x: torch.Tensor, j: int):
+    """B9's panel rule for column ``x`` of a panel with pivot row ``j``
+    (csrc/qr_kernels.cu::qr_panel_kernel): ``(v, f, r_jj)``. The rule is the
+    one of ``reflector``: the phase sign, factor 2, or 0 when the column is
+    zero below the pivot or the reflector degenerates; ``||x||^2`` is taken
+    as the tail's sum plus ``|x0|^2``, as the kernel takes it. ``r_jj`` is
+    ``-sign ||x||`` (``x0`` when skipped)."""
+    tail2 = abs2(x[j + 1:]).sum()
+    x0 = x[j]
+    a0 = abs2(x0)
+    m0, nrm = a0.sqrt(), (tail2 + a0).sqrt()
+    sign = torch.where(m0 > 0, x0 / torch.where(m0 > 0, m0, 1), 1).to(x.dtype)
+    v = torch.where(torch.arange(x.shape[0], device=x.device) >= j, x, 0)
+    v[j] = x0 + sign * nrm
+    vn2 = tail2 + abs2(v[j])
+    degenerate = vn2 == 0
+    skip = (tail2 == 0) | degenerate
+    v = v * torch.rsqrt(torch.where(degenerate, 1, vn2))
+    f = torch.where(skip, 0.0, 2.0).to(real_dtype(x.dtype))
+    return v, f, torch.where(skip, x0, -sign * nrm)
+
+
+def qr_decompose_blocked_plain(a: torch.Tensor, kmax: int | None = None, nb: int = 32):
+    """The plain version of the blocked B9 kernel: ``(R, Q)`` with ``A = Q R``
+    after ``kmax`` reflectors (default n), in the kernel's order. Per panel
+    of ``nb`` columns: each column's reflector (``_panel_reflector``)
+    applied to the panel's later columns, ``T[j, j] = f_j``,
+    ``T[:j, j] = -f_j T[:j, :j] (V[:, :j]^H v_j)``, exact zeros below the
+    diagonal, then with ``Y = V T``, ``R[k0:, k0+jn:] -= V (Y^H R[k0:, k0+jn:])``
+    (``= V T^H V^H R``); after the last panel ``Q = I`` and, from the last
+    panel to the first, with ``Z = V T^H``, ``Q[k0:, k0:] -= V (Z^H Q[k0:, k0:])``
+    (LAPACK ``orgqr`` order)."""
+    n = a.shape[0]
+    kmax = n if kmax is None else kmax
+    R, Q = a.clone(), eye(n, a)
+    panels = []
+    for k0 in range(0, kmax, nb):
+        jn = min(nb, kmax - k0)
+        P = R[k0:, k0:k0 + jn].clone()
+        V = torch.zeros_like(P)
+        T = torch.zeros((jn, jn), dtype=a.dtype, device=a.device)
+        for j in range(jn):
+            v, f, d = _panel_reflector(P[:, j], j)
+            V[:, j] = v
+            P[j, j], P[j + 1:, j] = d, 0
+            P[:, j + 1:] -= f * torch.outer(v, v.conj() @ P[:, j + 1:])
+            T[:j, j] = -f * (T[:j, :j] @ (V[:, :j].conj().T @ v))
+            T[j, j] = f
+        R[k0:, k0:k0 + jn] = P
+        C = R[k0:, k0 + jn:]
+        C -= V @ ((V @ T).conj().T @ C)
+        panels.append((k0, V, V @ T.conj().T))
+    for k0, V, Z in reversed(panels):
+        Qs = Q[k0:, k0:]
+        Qs -= V @ (Z.conj().T @ Qs)
     return R, Q
 
 
@@ -199,25 +275,35 @@ def qr_eig_kernel(h: torch.Tensor, max_sweeps: int, tol: float,
 qr_eig_kernel.launches = 0
 
 
-def qr_decompose_kernel(a: torch.Tensor, kmax: int | None = None):
+def qr_decompose_kernel(a: torch.Tensor, kmax: int | None = None, nb: int | None = None):
     """B9 on the card: ``(R, Q)`` with ``A = Q R`` of a square CUDA matrix
-    after ``kmax`` column steps (default n)."""
+    after ``kmax`` reflectors (default n), by panels of ``nb`` columns
+    (default ``qr_panel_width``, at most 64). The kernels the call
+    enqueued are in ``qr_decompose_kernel.device_launches``."""
     code = check_square("qr_decompose_kernel", a, DTYPE_CODES)
     n = a.shape[0]
     kmax = n if kmax is None else int(kmax)
+    nb = qr_panel_width(n, a.dtype) if nb is None else int(nb)
     if not 0 <= kmax <= n:
         raise ValueError(f"qr_decompose_kernel: kmax {kmax} outside [0, {n}]")
+    if not 1 <= nb <= 64:
+        raise ValueError(f"qr_decompose_kernel: panel width {nb} outside [1, 64]")
     lib = _build.load()
     r, q = torch.empty_like(a), torch.empty_like(a)
-    scratch = torch.empty(n + 1, dtype=a.dtype, device=a.device)
+    panels = -(-kmax // nb)
+    scratch = torch.empty(3 * n * n + (panels + 2) * nb * n + nb * nb + nb, dtype=a.dtype,
+                          device=a.device)
+    count = ctypes.c_longlong(0)
     rc = lib.qr_householder(code, a.device.index, a.data_ptr(), r.data_ptr(), q.data_ptr(),
-                            scratch.data_ptr(), n, kmax, stream(a))
+                            scratch.data_ptr(), n, kmax, nb, ctypes.byref(count), stream(a))
     raise_on_error("qr_decompose_kernel", lib, rc)
     qr_decompose_kernel.launches += 1
+    qr_decompose_kernel.device_launches = count.value
     return r, q
 
 
 qr_decompose_kernel.launches = 0
+qr_decompose_kernel.device_launches = 0
 
 
 def qr_parity_kernel(h: torch.Tensor, max_iterations: int, tol: float):
@@ -281,7 +367,9 @@ def qr_eig_sweeps(h: torch.Tensor, max_sweeps: int, tol: float,
 
 
 def householder_qr(a: torch.Tensor, kmax: int | None = None):
-    """Square Householder QR (B9): ``(R, Q)``."""
+    """Square Householder QR (B9): ``(R, Q)``. The CPU route is the
+    unblocked plain version; ``qr_decompose_blocked_plain`` follows the
+    card's blocked order."""
     if a.device.type == "cpu":
         return qr_decompose_plain(a, kmax)
     return qr_decompose_kernel(a, kmax)

@@ -896,3 +896,226 @@ def test_gell_and_auto_paths_on_the_card(cuda):
     y = m.decode_vec(m.matvec(m.encode_vec(x)))
     dense = m.to_dense()
     assert rel_err(y, dense @ x) <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# The blocked B9 (panels, compact-WY trailing updates, Q backward)
+# --------------------------------------------------------------------------
+
+def b9_checks(a, r, q, rp, qp, n, dtype):
+    """R and Q against a plain version up to the pivot phases, and the
+    residuals, with the limits of test_hessenberg_and_qr_kernels_match_plain."""
+    scale = float(a.abs().max())
+    eye = torch.eye(n, dtype=dtype, device=a.device)
+    tol, phase_tol = qr_tol(dtype, n), PHASE_TOL[is_double(dtype)]
+    d = unit_phase(r.diagonal()) / unit_phase(rp.diagonal())
+    assert float((d - 1).abs().max()) <= phase_tol
+    assert rel_to(r, d[:, None] * rp, scale) <= tol
+    assert rel_to(q, qp * d.conj(), 1.0) <= tol
+    assert rel_to(q @ r, a, scale) <= tol
+    assert rel_to(q.conj().T @ q, eye, 1.0) <= tol
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 100, 512, 2048])
+def test_blocked_qr_kernel_matches_plain(cuda, n, dtype):
+    # c128 at 512 and f32/f64/c64/c128 at 2048: the panel does not fit in
+    # shared memory and is read and written through L2
+    a = well_conditioned(n, dtype, seed=500 + n, device=cuda)
+    r, q = qk.qr_decompose_kernel(a)
+    torch.cuda.synchronize()
+    nb = qk.qr_panel_width(n, dtype)
+    panels = -(-n // nb)
+    # eye; a panel kernel, its Gram product and its WY factors a panel; two
+    # products a panel for the trailing columns (none after the last) and
+    # two for Q
+    assert qk.qr_decompose_kernel.device_launches == 1 + 3 * panels + 2 * (panels - 1) + 2 * panels
+    rp, qp = qk.qr_decompose_plain(a)
+    b9_checks(a, r, q, rp, qp, n, dtype)
+    assert float(torch.tril(r, -1).abs().max()) == 0  # exact zeros below the diagonal
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+@pytest.mark.parametrize("nb", [8, 32, 64])
+def test_blocked_qr_kernel_kmax_inside_a_panel(cuda, nb, dtype):
+    n, kmax = 100, 45
+    a = well_conditioned(n, dtype, seed=45, device=cuda)
+    r, q = qk.qr_decompose_kernel(a, kmax=kmax, nb=nb)
+    rp, qp = qk.qr_decompose_plain(a, kmax=kmax)
+    torch.cuda.synchronize()
+    scale, tol = float(a.abs().max()), qr_tol(dtype, n)
+    d = unit_phase(r.diagonal()[:kmax]) / unit_phase(rp.diagonal()[:kmax])
+    assert float((d - 1).abs().max()) <= PHASE_TOL[is_double(dtype)]
+    # the first kmax rows and columns are unique up to D; Q's last columns
+    # and R's trailing block up to a unitary of their own, so they are held
+    # through the products
+    assert rel_to(r[:kmax], d[:, None] * rp[:kmax], scale) <= tol
+    assert rel_to(q[:, :kmax], qp[:, :kmax] * d.conj(), 1.0) <= tol
+    assert rel_to(q @ r, a, scale) <= tol
+    assert rel_to(q.conj().T @ q, torch.eye(n, dtype=dtype, device=cuda), 1.0) <= tol
+    assert float(torch.tril(r[:, :kmax], -1).abs().max()) == 0
+    assert rel_to(q[:, kmax:] @ r[kmax:, kmax:], qp[:, kmax:] @ rp[kmax:, kmax:], scale) <= tol
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+def test_blocked_qr_kernel_exact_skips(cuda, dtype):
+    # an upper-triangular input: every column takes the tail-zero skip, so R
+    # is A and Q is I exactly; a zero column and a column zero from its pivot
+    # down (the degenerate skip) inside a panel
+    a = torch.triu(dense(70, dtype, seed=3, device=cuda))
+    r, q = qk.qr_decompose_kernel(a, nb=32)
+    torch.cuda.synchronize()
+    assert torch.equal(r, a) and torch.equal(q, torch.eye(70, dtype=dtype, device=cuda))
+    a = well_conditioned(70, dtype, seed=4, device=cuda)
+    a[:, 40] = 0
+    a[:, 0] = 0
+    r, q = qk.qr_decompose_kernel(a, nb=32)
+    rp, qp = qk.qr_decompose_plain(a)
+    torch.cuda.synchronize()
+    assert float(r[0, 0].abs()) == 0
+    scale, tol = float(a.abs().max()), qr_tol(dtype, 70)
+    assert rel_to(q @ r, a, scale) <= tol
+    assert rel_to(q.conj().T @ q, torch.eye(70, dtype=dtype, device=cuda), 1.0) <= tol
+    assert rel_to(r.abs(), rp.abs(), scale) <= tol
+
+
+def test_blocked_qr_kernel_rejects_what_it_does_not_take(cuda):
+    a = dense(8, torch.float32, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="panel width 65"):
+        qk.qr_decompose_kernel(a, nb=65)
+    with pytest.raises(ValueError, match="kmax 9"):
+        qk.qr_decompose_kernel(a, kmax=9)
+
+
+# --------------------------------------------------------------------------
+# B6's windowed route (x windows staged in shared memory)
+# --------------------------------------------------------------------------
+
+def check_windows(pack, x, cluster, **shape):
+    """The windowed route at `cluster`, native and (complex) on planes,
+    against the CSR plain version; one launch of that route each."""
+    pw = gs.with_windows(pack, cluster, **shape)
+    before = dict(gs.ROUTE_LAUNCHES)
+    y = gs.gell_kernel(pw, x, route="windows")
+    torch.cuda.synchronize()
+    tol = TOL[pack.vector_dtype]
+    assert rel_err(y, gs.gell_matvec_plain(pack, x)) <= tol
+    if pack.is_complex:
+        planes = torch.stack([x.real, x.imag])
+        yp = gs.gell_planes_kernel(pw, planes, route="windows")
+        torch.cuda.synchronize()
+        assert rel_err(yp, gs.gell_matvec_planes_plain(pack, planes)) <= tol
+    assert gs.ROUTE_LAUNCHES["windows"] - before["windows"] == (2 if pack.is_complex else 1)
+    assert gs.ROUTE_LAUNCHES["csr"] == before["csr"]
+    return y
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("vtype,is_complex", GELL_TYPES)
+def test_window_route_on_rows_of_every_length(cuda, vtype, is_complex, cluster):
+    rows = [0, 1, 31, 32, 33, 5000] * 3 + [6] * 20_000 + [0, 33, 5000]
+    pack, x = gell_operands(rows, 3001, vtype, is_complex, seed=cluster, device=cuda)
+    check_windows(pack, x, cluster)  # the pack's own R and W
+    check_windows(pack, x, cluster, rows=64, cols=128)  # many ranges and windows
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_window_route_edge_cases(cuda, cluster):
+    rng = np.random.default_rng(cluster)
+    # duplicates sum
+    dup = gs.pack_gell([3, 3, 3, 3, 7, 7], [5] * 6, np.float32([1, 2, 3, 4, 10, 20]), (10, 10),
+                       device=cuda)
+    x = torch.zeros(10, device=cuda)
+    x[5] = 2.0
+    y = check_windows(dup, x, cluster)
+    assert y[3].item() == 20.0 and y[7].item() == 60.0
+    # the 700 x 40000 rectangle; columns past the last full window (1061 =
+    # 8 windows of 128 and 37 columns, and 40000 = 2 of 16384 and 7232)
+    for shape, nnz in (((700, 40_000), 15_000), ((200, 1061), 3000)):
+        r, c = rng.integers(0, shape[0], nnz), rng.integers(0, shape[1], nnz)
+        for dt in (np.float32, np.complex128):
+            pack = gs.pack_gell(r, c, rng.standard_normal(nnz).astype(dt), shape, device=cuda)
+            x = torch.from_numpy(rng.standard_normal(shape[1])).to(cuda, pack.vector_dtype)
+            check_windows(pack, x, cluster)
+            check_windows(pack, x, cluster, rows=64, cols=128)
+    # one range touching one window and one touching every window
+    r = np.concatenate([rng.integers(0, 64, 500), rng.integers(64, 128, 3000)])
+    c = np.concatenate([rng.integers(256, 384, 500), np.arange(3000) % 1280])
+    pack = gs.pack_gell(r, c, rng.standard_normal(3500).astype(np.float32), (128, 1280),
+                        device=cuda)
+    x = torch.from_numpy(rng.standard_normal(1280)).to(cuda, torch.float32)
+    check_windows(pack, x, cluster, rows=64, cols=128)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("n_cols", [1000, 16_385, 40_003])
+def test_window_route_reads_planes_apart(cuda, n_cols, cluster):
+    # the im plane n_cols + 77 floats after the re plane: its windows start
+    # off 16-byte alignment, so their edges go by plain loads
+    pack, x = gell_operands([9] * 3000, n_cols, torch.float32, True, seed=3, device=cuda)
+    buf = torch.zeros((2, n_cols + 77), device=cuda)
+    buf[:, :n_cols] = torch.stack([x.real, x.imag])
+    planes = buf[:, :n_cols]
+    for shape in ({}, {"rows": 64, "cols": 128}):
+        pw = gs.with_windows(pack, cluster, **shape)
+        y = gs.gell_planes_kernel(pw, planes, route="windows")
+        assert rel_err(y, gs.gell_matvec_planes_plain(pack, planes.contiguous())) <= 1e-5
+
+
+def test_dispatch_picks_windows_at_1m_uniform_and_csr_when_wide(cuda):
+    rng = np.random.default_rng(0)
+    n = 1_000_000
+    r = np.repeat(np.arange(n), 33)
+    c = np.sort(rng.integers(0, n, (n, 33)), axis=1).reshape(-1)  # a sorted COO: no sort
+    pack = gs.pack_gell(r, c, rng.standard_normal(33 * n).astype(np.float32), (n, n),
+                        device=cuda)
+    assert gs.pick_route(pack) == "windows" and pack.windows.cols == 16384
+    x = torch.from_numpy(rng.standard_normal(n)).to(cuda, torch.float32)
+    gs.reset_launch_counts()
+    y = gs.gell_matvec(pack, x)
+    torch.cuda.synchronize()
+    assert gs.ROUTE_LAUNCHES == {"csr": 0, "windows": 1} and gs.gell_kernel.launches == 1
+    assert rel_err(y, gs.gell_matvec_plain(pack, x)) <= 1e-5
+    del pack
+    wide = gs.pack_gell(np.arange(n), np.sort(rng.integers(0, 50_000_000, n)),
+                        np.ones(n, np.float32), (n, 50_000_000), device=cuda)
+    assert wide.windows is None and gs.pick_route(wide) == "csr"
+    assert not gs.window_rule(wide, gs.window_layout(wide))
+    x = torch.ones(50_000_000, device=cuda)
+    gs.reset_launch_counts()
+    y = gs.gell_matvec(wide, x)
+    torch.cuda.synchronize()
+    assert gs.ROUTE_LAUNCHES == {"csr": 1, "windows": 0}
+    assert torch.equal(y, torch.ones(n, device=cuda))
+
+
+def test_window_route_is_refused_without_a_layout(cuda):
+    pack = gs.pack_gell([0], [1], np.float32([1.0]), (2, 2), device=cuda)
+    assert pack.windows is None
+    with pytest.raises(ValueError, match="no windowed layout"):
+        gs.gell_kernel(pack, torch.ones(2, device=cuda), route="windows")
+    with pytest.raises(ValueError, match="neither 'csr' nor 'windows'"):
+        gs.gell_kernel(pack, torch.ones(2, device=cuda), route="ell")
+
+
+def test_gell_launch_is_resolved_once_per_pack(cuda):
+    # the route, the pack's checks and the C call's struct are built on the
+    # first call of each entry and route, then reused; a replaced pack builds
+    # its own
+    pack, x = gell_operands([33] * 3000, 20_000, torch.float32, True, seed=5, device=cuda)
+    planes = torch.stack([x.real, x.imag])
+    y = gs.gell_kernel(pack, x)
+    first = pack._launchers[(False, None)]
+    assert first.route == gs.pick_route(pack)
+    assert torch.equal(gs.gell_kernel(pack, x), y) and pack._launchers[(False, None)] is first
+    yp = gs.gell_planes_kernel(pack, planes)
+    assert pack._launchers[(True, None)].route == gs.pick_route(pack, planes=True)
+    yc = gs.gell_kernel(pack, x, route="csr")
+    assert pack._launchers[(False, "csr")].route == "csr" and len(pack._launchers) == 3
+    pw = gs.with_windows(pack, 1, rows=64, cols=128)
+    assert pw._launchers == {}
+    yw = gs.gell_kernel(pw, x, route="windows")
+    torch.cuda.synchronize()
+    ref = gs.gell_matvec_plain(pack, x)
+    for out in (y, yc, yw, torch.complex(yp[0], yp[1])):
+        assert rel_err(out, ref) <= 1e-5
