@@ -33,13 +33,16 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    triangular-eigenvector kernel B14 against their plain versions: B11 with
    Q at n = 4096 float32, 2048 complex64 and 1024 float64 on a
    well-conditioned operand (H and Q entry by entry with the pivot phases
-   divided out, ``||A - Q H Q^H||``, ``||Q^H Q - I||``) and against B7 at
-   512; B14 at n = 512 and 2048 in complex64 and complex128 on the Schur
+   divided out, ``||A - Q H Q^H||``, ``||Q^H Q - I||``), a second call with Q
+   bitwise equal to the first, and against B7 at 512, with B11's device
+   kernels per call; B14 at n = 512 and 2048 in complex64 and complex128 on the Schur
    factor of the eigenpair path and on a triangle with one repeated
    eigenvalue; each with its time beside the plain version's;
-9. the sweep of B7 against B11 (float32 and complex64, n = 256 ... 4096)
-   from which ``HESSENBERG_BLOCKED_MIN_N`` was set, B11's panel widths at
-   4096, a torch.profiler breakdown of one B11 call, B9 beside
+9. the sweep of B7 against B11 (float32 and complex64, n = 256 ... 4096;
+   B11 over three calls a point) from which ``HESSENBERG_BLOCKED_MIN_N`` was
+   set, B11's panel widths at 4096 with its device kernels per call,
+   torch.profiler breakdowns of B11 at 4096 (float32, without and with Q)
+   and of B12 at 2048 (complex64 with Q), B9 beside
    ``torch.linalg.qr(mode="complete")`` over the same sizes (five calls a
    point, in turns, with B9's device kernels per call), B9's panel widths
    16/32/64 at 512 and 2048 in four dtypes, a profile of one B9 call, and B8
@@ -103,6 +106,13 @@ checkout, so that two commits can be compared in one call, in turns):
 the time to enqueue one ``gell_kernel`` call on the 1M x 33 uniform
 operator in float32 and complex64, and ``power_method``'s time per
 iteration on each at a budget of 200 iterations, three times each.
+
+    python3 chip_smoke.py --b11 ROOT
+
+times B11 (B12 on complex data) with the port found under ROOT, with Q and
+without, over three calls after a warm-up between two CUDA events, at
+4096 float32, 2048 complex64, 1024, 2048 and 512 float32, with its device
+kernels per call where the port counts them.
 """
 
 from __future__ import annotations
@@ -131,6 +141,7 @@ SWEEP_SIZES = (256, 512, 1024, 2048, 4096)  # B7 against B11
 FULL_N = 4096   # B11's row, its panel widths, to_hessenberg in float32
 LARGE_N = 2048  # B12's row, B14's second size, eigenpair run (e), B9's second size
 B9_REPS = 5     # B9 and torch.linalg.qr: calls per timed point
+B11_REPS = 3    # B11 in the B7-against-B11 sweep: calls per timed point
 QRB_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/qr_eig_blocked.cu"
 QRB_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/qr_eig_blocked.py"
 BOUNDARY_SIZES = (128, 256, 512, 1024, 2048, 4096)  # B8 against B13
@@ -589,9 +600,18 @@ def blocked_kernel_phase(dev, card_name, card_limit):
         end.synchronize()
         p_ms = start.elapsed_time(end)
         err = hold_reduction(tag, a, h, q, hp, qp)
+        # no atomics: a second call gives the same bits
+        h2, q2 = hb.hessenberg_blocked_kernel(a, accumulate_q=True)
+        with_q = hb.hessenberg_blocked_kernel.device_launches
+        check(torch.equal(h, h2) and torch.equal(q, q2),
+              f"{tag} {dt} n={n}: two calls with Q differ")
+        print(f"check {tag} {dt} n={n}: two calls with Q bitwise equal")
+        del h2, q2
         h_only_ms = time_ms(lambda: hb.hessenberg_blocked_kernel(a), reps=2)
         print(f"time {tag} {dt} n={n} with Q: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-              f"(one call); without Q: kernel {h_only_ms:.3f} ms [{card_name}, {card_limit}]")
+              f"(one call); without Q: kernel {h_only_ms:.3f} ms; device kernels a call "
+              f"{with_q} with Q, {hb.hessenberg_blocked_kernel.device_launches} without "
+              f"[{card_name}, {card_limit}]")
         if dt != torch.float64:
             errors[tag] = err
             timings[tag] = (k_ms, p_ms, n, dt)
@@ -680,8 +700,16 @@ def profile_breakdown(label, fn, top=8):
     if not rows:
         print(f"profile {label}: no device time recorded (not measured)")
     total = sum(ms for _, ms, _ in rows)
-    print(f"profile {label}: {total:.3f} ms of device time in {wall_ms:.3f} ms of wall-clock "
-          f"under the profiler, device busy {total / wall_ms:.1%}")
+    # busy: the union of the device spans (kernels that overlap, as B11's
+    # column steps do under programmatic dependent launch, count once)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA):
+        if b > end:
+            busy_us, end = busy_us + b - max(a, end), b
+    print(f"profile {label}: {total:.3f} ms of device time (overlapping kernels each count) "
+          f"in {wall_ms:.3f} ms of wall-clock under the profiler, device busy "
+          f"{busy_us / 1e3 / wall_ms:.1%}")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"profile {label}: {ms:.3f} ms of {total:.3f} ms device time in {count} "
               f"launches of {key[:90]}")
@@ -699,20 +727,21 @@ def boundary_sweep_phase(dev, card_name, card_limit):
 
     rng = np.random.default_rng(30)
     library = {}
-    print(f"sweep (ms per call, one CUDA-event loop per point; B9 and torch.linalg.qr over "
-          f"{B9_REPS} calls, in turns, after a warm-up) [{card_name}, {card_limit}]")
-    print("dtype n B7 B11 B9 torch.linalg.qr(complete) B9-device-kernels")
+    print(f"sweep (ms per call after a warm-up: B7 one call, B11 {B11_REPS} calls; B9 and "
+          f"torch.linalg.qr over {B9_REPS} calls, in turns) [{card_name}, {card_limit}]")
+    print("dtype n B7 B11 B9 torch.linalg.qr(complete) B9-device-kernels B11-device-kernels")
     for dt in (torch.float32, torch.complex64):
         faster_from = None
         for n in SWEEP_SIZES:
             a, _ = device_operand(rng, n, dt, dev, "gaussian")
             b7 = time_events_ms(lambda: qk.hessenberg_kernel(a), 1)
-            b11 = time_events_ms(lambda: hb.hessenberg_blocked_kernel(a), 1)
+            b11 = time_events_ms(lambda: hb.hessenberg_blocked_kernel(a), B11_REPS)
             b9, lib = timed_pair(lambda: qk.qr_decompose_kernel(a),
                                  lambda: torch.linalg.qr(a, mode="complete"),
                                  lambda fn: time_events_ms(fn, B9_REPS))
             print(f"sweep {dt} {n} {b7:.3f} {b11:.3f} {b9:.3f} {lib:.3f} "
-                  f"{qk.qr_decompose_kernel.device_launches}")
+                  f"{qk.qr_decompose_kernel.device_launches} "
+                  f"{hb.hessenberg_blocked_kernel.device_launches}")
             faster_from = (faster_from or n) if b11 < b7 else None
             if n == QR_N and dt == torch.float32:
                 library["B9"] = lib
@@ -733,8 +762,17 @@ def boundary_sweep_phase(dev, card_name, card_limit):
     a, _ = device_operand(rng, FULL_N, torch.float32, dev, "gaussian")
     for nb in (16, 32, 64):
         ms = time_events_ms(lambda: hb.hessenberg_blocked_kernel(a, nb=nb), 1)
-        print(f"panel width {nb}: B11 float32 n={FULL_N} {ms:.3f} ms [{card_name}, {card_limit}]")
-    profile_breakdown("B11 float32 n=%d" % FULL_N, lambda: hb.hessenberg_blocked_kernel(a))
+        print(f"panel width {nb}: B11 float32 n={FULL_N} {ms:.3f} ms, "
+              f"{hb.hessenberg_blocked_kernel.device_launches} device kernels a call "
+              f"[{card_name}, {card_limit}]")
+    # where B11's time goes: phase A (col_*), the trailing GEMMs, Q's GEMMs
+    profile_breakdown("B11 float32 n=%d" % FULL_N, lambda: hb.hessenberg_blocked_kernel(a),
+                      top=10)
+    profile_breakdown("B11 float32 n=%d with Q" % FULL_N,
+                      lambda: hb.hessenberg_blocked_kernel(a, accumulate_q=True), top=10)
+    a, _ = device_operand(rng, LARGE_N, torch.complex64, dev, "gaussian")
+    profile_breakdown("B12 complex64 n=%d with Q" % LARGE_N,
+                      lambda: hb.hessenberg_blocked_kernel(a, accumulate_q=True), top=10)
     h = qk.hessenberg_plain(device_operand(rng, QR_SWEEP_N, torch.complex64, dev, "gaussian")[0])
     library["B8"] = time_events_ms(lambda: torch.linalg.eigvals(h), 3)
     full = time_events_ms(lambda: qk.qr_eig_kernel(h, 60 * QR_SWEEP_N, 1e-6), 3)
@@ -1898,6 +1936,35 @@ def b6_host_compare(root: str) -> None:
               + f" us/iteration [{card_name}, {card_limit}]")
 
 
+def b11_compare(root: str) -> None:
+    """``--b11 ROOT`` (see the module docstring). Prints one line a size;
+    fails if the port is not the one under ROOT or an H is not finite."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import hessenberg_blocked as hb
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    check(os.path.abspath(eigsol.__file__).startswith(os.path.abspath(root) + os.sep),
+          f"the port under {root} was not the one imported")
+    card_name, card_limit = card_line().split(", ")
+    rng = np.random.default_rng(5)
+    for n, dt in ((FULL_N, torch.float32), (LARGE_N, torch.complex64), (1024, torch.float32),
+                  (LARGE_N, torch.float32), (QR_N, torch.float32)):
+        a, _ = device_operand(rng, n, dt, "cuda", "gaussian")
+        with_q = time_events_ms(lambda: hb.hessenberg_blocked_kernel(a, accumulate_q=True))
+        without_q = time_events_ms(lambda: hb.hessenberg_blocked_kernel(a))
+        check(bool(torch.isfinite(hb.hessenberg_blocked_kernel(a)).all()), "B11: H not finite")
+        kernels = getattr(hb.hessenberg_blocked_kernel, "device_launches", "not counted")
+        print(f"b11 {root}: {dt} n={n}: with Q {with_q:.3f} ms, without Q {without_q:.3f} ms "
+              f"(three calls after a warm-up), device kernels a call {kernels} "
+              f"[{card_name}, {card_limit}]")
+        del a
+
+
 def main() -> None:
     import torch
 
@@ -2311,6 +2378,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--b6-host"] and len(sys.argv) == 3:
         b6_host_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--b11"] and len(sys.argv) == 3:
+        b11_compare(sys.argv[2])
     else:
         main()
     sys.stdout.flush()

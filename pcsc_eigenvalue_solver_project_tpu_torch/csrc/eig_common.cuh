@@ -1,6 +1,7 @@
 // Scalar arithmetic and small helpers shared by the dense kernels
 // (qr_kernels.cu, hessenberg_blocked.cu, trisolve_vec.cu, qr_eig_blocked.cu),
-// and the tiled GEMM of the compact-WY updates (B9, B11, B12).
+// and the tiled GEMM of the compact-WY updates (B9, B11, B12) with its
+// deterministic split-K form (B11, B12).
 //
 // Each kernel is templated on float, double, float2 and double2: complex
 // values are (re, im) in (.x, .y), and a complex multiply-add is four FMAs
@@ -240,36 +241,35 @@ __device__ __forceinline__ T op_load(const T* M, int64_t ld, int op, int64_t r, 
   return op == kC || op == kJ ? Ops<T>::conj(x) : x;
 }
 
-// C = (accumulate ? C : 0) + alpha op(A) op(B); op(A) is M x K, op(B) K x N.
+// The depth range [kbeg, kend) of the 64 x 64 output tile (blockIdx.y,
+// blockIdx.x) of op(A) op(B) into acc (4 x 4 per thread).
 template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_op_kernel(int64_t M, int64_t N, int64_t K, const T* __restrict__ A, int64_t lda, int opa,
-            const T* __restrict__ B, int64_t ldb, int opb, T* __restrict__ C, int64_t ldc,
-            typename Ops<T>::Real alpha, int accumulate) {
+__device__ __forceinline__ void gemm_tile(int64_t M, int64_t N, int64_t kbeg, int64_t kend,
+                                          const T* __restrict__ A, int64_t lda, int opa,
+                                          const T* __restrict__ B, int64_t ldb, int opb,
+                                          T (&As)[kBK][kBM + 1], T (&Bs)[kBK][kBN + 1],
+                                          T (&acc)[4][4]) {
   using O = Ops<T>;
-  __shared__ T As[kBK][kBM + 1];
-  __shared__ T Bs[kBK][kBN + 1];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kBM;
   const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kBN;
-  T acc[4][4];
   for (int r = 0; r < 4; ++r)
     for (int c = 0; c < 4; ++c) acc[r][c] = O::zero();
-  for (int64_t k0 = 0; k0 < K; k0 += kBK) {
+  for (int64_t k0 = kbeg; k0 < kend; k0 += kBK) {
     // neighbouring threads take neighbouring addresses of the stored operand
     for (int q = 0; q < kBK * kBM / kGemmThreads; ++q) {
       const int e = threadIdx.x + q * kGemmThreads;
       const bool ta = op_transposed(opa);
       const int kk = ta ? e / kBM : e % kBK, i = ta ? e % kBM : e / kBK;
       const int64_t r = row0 + i, c = k0 + kk;
-      As[kk][i] = r < M && c < K ? op_load(A, lda, opa, r, c) : O::zero();
+      As[kk][i] = r < M && c < kend ? op_load(A, lda, opa, r, c) : O::zero();
     }
     for (int q = 0; q < kBK * kBN / kGemmThreads; ++q) {
       const int e = threadIdx.x + q * kGemmThreads;
       const bool tb = op_transposed(opb);
       const int kk = tb ? e % kBK : e / kBN, j = tb ? e / kBK : e % kBN;
       const int64_t r = k0 + kk, c = col0 + j;
-      Bs[kk][j] = r < K && c < N ? op_load(B, ldb, opb, r, c) : O::zero();
+      Bs[kk][j] = r < kend && c < N ? op_load(B, ldb, opb, r, c) : O::zero();
     }
     __syncthreads();
 #pragma unroll
@@ -282,6 +282,22 @@ gemm_op_kernel(int64_t M, int64_t N, int64_t K, const T* __restrict__ A, int64_t
     }
     __syncthreads();
   }
+}
+
+// C = (accumulate ? C : 0) + alpha op(A) op(B); op(A) is M x K, op(B) K x N.
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_op_kernel(int64_t M, int64_t N, int64_t K, const T* __restrict__ A, int64_t lda, int opa,
+            const T* __restrict__ B, int64_t ldb, int opb, T* __restrict__ C, int64_t ldc,
+            typename Ops<T>::Real alpha, int accumulate) {
+  using O = Ops<T>;
+  __shared__ T As[kBK][kBM + 1];
+  __shared__ T Bs[kBK][kBN + 1];
+  T acc[4][4];
+  gemm_tile(M, N, 0, K, A, lda, opa, B, ldb, opb, As, Bs, acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kBM;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kBN;
   for (int r = 0; r < 4; ++r) {
     const int64_t i = row0 + ty + 16 * r;
     if (i >= M) continue;
@@ -305,5 +321,89 @@ int gemm(int64_t M, int64_t N, int64_t K, const T* A, int64_t lda, int opa, cons
   return last_error();
 }
 
+// ---- deterministic split-K (B11/B12's deep, narrow panel products)
+//
+// A product with few output tiles and a deep K (V^H A0: nb rows; Q V: nb
+// columns) leaves most SMs idle on gemm's grid. gemm_split cuts K into S
+// slices of at least kSplitMinDepth, so that tiles x S reaches
+// kSplitBlocks; slice z writes its own M x N partial (row-major) to scratch
+// and sum_slices_kernel adds the partials in slice order 0 .. S - 1. No
+// atomics: the same shapes give the same S and the same bits, call after
+// call.
+
+constexpr int kSplitBlocks = 2 * 132;  // two blocks per SM of the H100's 132
+constexpr int kSplitMinDepth = 128;
+
+// The depth of each slice (a multiple of kBK; the last may be shorter) for
+// an M x N x K product whose partials may take `capacity` scalars.
+inline int64_t split_depth(int64_t M, int64_t N, int64_t K, int64_t capacity) {
+  const int64_t tiles = static_cast<int64_t>(blocks_for(N, kBN)) * blocks_for(M, kBM);
+  int64_t slices = (kSplitBlocks + tiles - 1) / tiles;
+  if (slices > K / kSplitMinDepth) slices = K / kSplitMinDepth;
+  if (slices > capacity / (M * N)) slices = capacity / (M * N);
+  if (slices < 1) slices = 1;
+  const int64_t depth = (K + slices - 1) / slices;
+  return depth < kBK ? kBK : (depth + kBK - 1) / kBK * kBK;
+}
+
+// The partial of slice blockIdx.z, depth [z kdepth, min(K, (z + 1) kdepth)),
+// into P + z M N (row-major, unscaled).
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_slices_kernel(int64_t M, int64_t N, int64_t K, int64_t kdepth, const T* __restrict__ A,
+                   int64_t lda, int opa, const T* __restrict__ B, int64_t ldb, int opb,
+                   T* __restrict__ P) {
+  __shared__ T As[kBK][kBM + 1];
+  __shared__ T Bs[kBK][kBN + 1];
+  T acc[4][4];
+  const int64_t kbeg = static_cast<int64_t>(blockIdx.z) * kdepth;
+  const int64_t kend = kbeg + kdepth < K ? kbeg + kdepth : K;
+  gemm_tile(M, N, kbeg, kend, A, lda, opa, B, ldb, opb, As, Bs, acc);
+  T* __restrict__ part = P + static_cast<int64_t>(blockIdx.z) * M * N;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kBM;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kBN;
+  for (int r = 0; r < 4; ++r) {
+    const int64_t i = row0 + ty + 16 * r;
+    if (i >= M) continue;
+    for (int c = 0; c < 4; ++c) {
+      const int64_t j = col0 + tx + 16 * c;
+      if (j < N) part[i * N + j] = acc[r][c];
+    }
+  }
+}
+
+// C = (accumulate ? C : 0) + alpha (P_0 + P_1 + ... + P_{S-1}), in that order.
+template <typename T>
+__global__ void sum_slices_kernel(int64_t M, int64_t N, int slices, const T* __restrict__ P,
+                                  T* __restrict__ C, int64_t ldc, typename Ops<T>::Real alpha,
+                                  int accumulate) {
+  using O = Ops<T>;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= M * N) return;
+  T acc = P[e];
+  for (int z = 1; z < slices; ++z) acc = O::add(acc, P[z * M * N + e]);
+  const int64_t i = e / N, j = e % N;
+  const T v = O::scale(acc, alpha);
+  C[i * ldc + j] = accumulate ? O::add(C[i * ldc + j], v) : v;
+}
+
+// gemm's product by deterministic split-K: two launches (none when M or N
+// is 0). P holds `capacity` >= M N scalars of partials.
+template <typename T>
+int gemm_split(int64_t M, int64_t N, int64_t K, const T* A, int64_t lda, int opa, const T* B,
+               int64_t ldb, int opb, T* C, int64_t ldc, double alpha, bool accumulate, T* P,
+               int64_t capacity, cudaStream_t st) {
+  if (M <= 0 || N <= 0) return 0;
+  const int64_t kdepth = split_depth(M, N, K, capacity);
+  const int slices = K > 0 ? static_cast<int>((K + kdepth - 1) / kdepth) : 1;
+  const dim3 grid(blocks_for(N, kBN), blocks_for(M, kBM), slices);
+  gemm_slices_kernel<T><<<grid, kGemmThreads, 0, st>>>(M, N, K, kdepth, A, lda, opa, B, ldb, opb,
+                                                       P);
+  if (int rc = last_error()) return rc;
+  sum_slices_kernel<T><<<blocks_for(M * N, kThreads), kThreads, 0, st>>>(
+      M, N, slices, P, C, ldc, static_cast<typename Ops<T>::Real>(alpha), accumulate ? 1 : 0);
+  return last_error();
+}
 
 }  // namespace

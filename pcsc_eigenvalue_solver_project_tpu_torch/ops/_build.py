@@ -139,9 +139,12 @@ def load() -> ctypes.CDLL:
             lib.qr_parity_sweeps.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32,
                                              f64, i32, ptr]
             lib.qr_parity_sweeps.restype = i32
-            # dtype, device, a, h, q, scratch, n, nb, stream
-            lib.hessenberg_blocked.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, i32, ptr]
+            # dtype, device, a, h, q, scratch, n, nb, launches (host), stream
+            lib.hessenberg_blocked.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, i32, ptr, ptr]
             lib.hessenberg_blocked.restype = i32
+            # n, nb
+            lib.hessenberg_blocked_scratch.argtypes = [i64, i32]
+            lib.hessenberg_blocked_scratch.restype = i64
             # dtype, device, t, y, racc, counts, n, eps, stream
             lib.trisolve_eigenvectors.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, f64, ptr]
             lib.trisolve_eigenvectors.restype = i32

@@ -1,6 +1,6 @@
 """What the dense kernels' Python side shares: dtype codes, input checks,
 the launch stream and error check, the Householder reflector rule of the
-plain versions (B7, B9, B11), and the shift and window rules of the shifted
+plain versions (B7, B9), and the shift and window rules of the shifted
 sweeps' plain versions (B8, B13)."""
 
 from __future__ import annotations

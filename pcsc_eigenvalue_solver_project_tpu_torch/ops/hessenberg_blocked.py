@@ -6,12 +6,16 @@ panel of ``nb`` columns starting at k0, with ``A0`` the matrix at the
 panel's start (the order and ``tau`` convention of ``_hess_blocked_kernel``,
 :97-473):
 
-- for each column j (k = k0 + j) the column as the panel's earlier
-  reflectors left it, ``c = (I - V T^H V^H)(A0 - Z T V^H) e_k``; the
-  reflector ``v`` from ``c`` with B7's rules (phase sign, tail-zero and
+- for each column j (k = k0 + j, pivot row s = k + 1) the column as the
+  panel's earlier reflectors left it, ``c = (I - V T^H V^H)(A0 - Z T V^H)
+  e_k``; the reflector from ``c`` with B7's rules (phase sign, tail-zero and
   degenerate skips, ``tau`` in {0, 2}, ``v = 0`` when ``tau = 0``); then
-  ``T[:j, j] = -tau T V^H v``, ``T[j, j] = tau``, ``V[:, j] = v`` and
-  ``Z[:, j] = A0 v``;
+  ``V[:, j] = v``, ``Z[:, j] = A0 v`` and ``T[:j, j] = -tau T V^H v``,
+  ``T[j, j] = tau``. Both versions form ``v`` as ``vinv x``, where ``x`` is
+  ``c`` with ``vs = x0 + sign ||c[s:]||`` at s and zeros above it and
+  ``vinv = 1 / ||x||`` (0 on a skip): ``Z[:, j] = vinv (A0 x)`` and
+  ``V^H v = vinv (V[s+1:]^H c[s+1:] + conj(V[s]) vs)``, so that no sum waits
+  for the norm;
 - the trailing update ``A := (I - V T^H V^H)(A0 - Z T V^H)``, and exact
   zeros below the subdiagonal of the panel's columns;
 - with Q: ``Q -= (Q V) T V^H``.
@@ -24,21 +28,26 @@ windows, 128-lane padding, phase-split and chunking are VMEM workarounds
 and have no counterpart.
 
 ``hessenberg_blocked_kernel`` runs ``csrc/hessenberg_blocked.cu`` on a
-float32, float64, complex64 or complex128 CUDA tensor and counts its
-launches in ``.launches``; ``hessenberg_blocked`` runs the plain version for
-a CPU tensor and the kernel otherwise (it launches or raises).
+float32, float64, complex64 or complex128 CUDA tensor, counts its calls in
+``.launches`` and the device kernels of the last call in
+``.device_launches``; ``hessenberg_blocked`` runs the plain version for a
+CPU tensor and the kernel otherwise (it launches or raises). The kernel
+uses no atomics: two calls on the same input give the same bits.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
-from ._common import DTYPE_CODES, check_square, eye, ptr, raise_on_error, reflector, stream
+from ._common import (DTYPE_CODES, abs2, check_square, eye, ptr, raise_on_error,
+                      real_dtype, stream)
 
-# Panel width: 32 ran B11 at n = 4096 in float32 in 249 ms on an H100
-# (700 W), against 298 ms for 16 and 274 ms for 64 (chip_smoke.py's sweep,
-# PERF.md).
+# Panel width: 32 ran B11 at n = 4096 in float32 (without Q) in 121.2 ms on
+# an H100 (700 W), against 148.6 ms for 16 and 119.1 ms for 64
+# (chip_smoke.py's panel-width lines, PERF.md).
 PANEL_WIDTH = 32
 MAX_PANEL_WIDTH = 64  # kMaxPanel of csrc/hessenberg_blocked.cu
 
@@ -50,31 +59,53 @@ def _check_nb(name: str, nb: int) -> int:
     return nb
 
 
+def _pivot(c: torch.Tensor, s: int):
+    """The reflector's scalars for column ``c`` with pivot row ``s``:
+    ``vs = x0 + sign ||c[s:]||`` (sign the phase of ``x0 = c[s]``, 1 when it
+    is 0), the factor ``tau`` (2, or 0 for the tail-zero and degenerate
+    skips) and ``vinv = 1 / ||x||`` (0 on a skip), with ``||x||^2 =
+    ||c[s+1:]||^2 + |vs|^2`` (hessenberg_blocked.py:216-243)."""
+    x0 = c[s]
+    nrm2, tail2 = abs2(c[s:]).sum(), abs2(c[s + 1:]).sum()
+    m0 = abs2(x0).sqrt()
+    has0 = m0 > 0
+    sign = torch.where(has0, x0 / torch.where(has0, m0, 1), 1)
+    vs = x0 + sign * nrm2.sqrt()
+    vn2 = tail2 + abs2(vs)
+    skip = (tail2 == 0) | (vn2 == 0)
+    tau = torch.where(skip, 0.0, 2.0).to(real_dtype(c.dtype))
+    vinv = torch.where(skip, 0.0, torch.rsqrt(torch.where(vn2 == 0, 1, vn2)))
+    return vs, tau, vinv
+
+
 def hessenberg_blocked_plain(a: torch.Tensor, accumulate_q: bool = False,
                              nb: int = PANEL_WIDTH):
     """B11's plain version: ``H`` (and ``Q`` with ``A = Q H Q^H`` when
-    ``accumulate_q``) by panels of ``nb`` columns."""
+    ``accumulate_q``) by panels of ``nb`` columns, in the kernel's algebra
+    without its row tiles."""
     nb = _check_nb("hessenberg_blocked_plain", nb)
     n = a.shape[0]
     A = a.clone()
     Q = eye(n, a) if accumulate_q else None
     rows = torch.arange(n, device=a.device)
     for k0 in range(0, max(n - 2, 0), nb):
-        jn = min(nb, n - 2 - k0)
+        jn, v0 = min(nb, n - 2 - k0), k0 + 1
         V = torch.zeros((n, jn), dtype=a.dtype, device=a.device)
         Z = torch.zeros_like(V)
         T = torch.zeros((jn, jn), dtype=a.dtype, device=a.device)
         for j in range(jn):
             k = k0 + j
+            s = k + 1
             Vj, Tj = V[:, :j], T[:j, :j]
             c = A[:, k] - Z[:, :j] @ (Tj @ Vj[k].conj())
-            c = c - Vj @ (Tj.conj().T @ (Vj.conj().T @ c))
-            v, tau = reflector(c, k + 1)
-            v = v * (tau > 0)
-            T[:j, j] = -tau * (Tj @ (Vj.conj().T @ v))
+            c[v0:] -= Vj[v0:] @ (Tj.conj().T @ (Vj[v0:].conj().T @ c[v0:]))
+            vs, tau, vinv = _pivot(c, s)
+            x = torch.where(rows < s, 0, torch.where(rows == s, vs, c))
+            m = vinv * (Vj[s + 1:].conj().T @ c[s + 1:] + Vj[s].conj() * vs)
+            T[:j, j] = -tau * (Tj @ m)
             T[j, j] = tau
-            V[:, j] = v
-            Z[:, j] = A @ v
+            V[:, j] = x * vinv
+            Z[:, j] = vinv * (A[:, s:] @ x[s:])
         Vh = V.conj().T
         Y = Z @ T
         W = T.conj().T @ (Vh @ A) - (T.conj().T @ (Vh @ Y)) @ Vh
@@ -89,22 +120,26 @@ def hessenberg_blocked_plain(a: torch.Tensor, accumulate_q: bool = False,
 def hessenberg_blocked_kernel(a: torch.Tensor, accumulate_q: bool = False,
                               nb: int = PANEL_WIDTH):
     """B11 on the card (B12 on complex data): ``H`` (and ``Q``) of a square
-    CUDA matrix."""
+    CUDA matrix. The kernels the call enqueued are in
+    ``hessenberg_blocked_kernel.device_launches``."""
     code = check_square("hessenberg_blocked_kernel", a, DTYPE_CODES)
     nb = _check_nb("hessenberg_blocked_kernel", nb)
     n = a.shape[0]
     lib = _build.load()
     h = torch.empty_like(a)
     q = torch.empty_like(a) if accumulate_q else None
-    scratch = torch.empty(5 * n * nb + 3 * nb * nb + n, dtype=a.dtype, device=a.device)
+    scratch = torch.empty(lib.hessenberg_blocked_scratch(n, nb), dtype=a.dtype, device=a.device)
+    count = ctypes.c_longlong(0)
     rc = lib.hessenberg_blocked(code, a.device.index, a.data_ptr(), h.data_ptr(), ptr(q),
-                                scratch.data_ptr(), n, nb, stream(a))
+                                scratch.data_ptr(), n, nb, ctypes.byref(count), stream(a))
     raise_on_error("hessenberg_blocked_kernel", lib, rc)
     hessenberg_blocked_kernel.launches += 1
+    hessenberg_blocked_kernel.device_launches = count.value
     return (h, q) if accumulate_q else h
 
 
 hessenberg_blocked_kernel.launches = 0
+hessenberg_blocked_kernel.device_launches = 0
 
 
 def hessenberg_blocked(a: torch.Tensor, accumulate_q: bool = False, nb: int = PANEL_WIDTH):

@@ -27,9 +27,10 @@ from ..matrix.protocol import AbstractMatrix
 
 # The n from which a Hessenberg reduction runs the blocked B11 rather than
 # the unblocked B7. chip_smoke.py's sweep on an H100 (700 W) had B11 ahead
-# from n = 1024 on in float32 and complex64 alike (19.1 against 19.3 ms and
-# 24.8 against 30.2 ms there, 55 against 88 ms and 77 against 126 ms at
-# 2048) and behind at 256 and 512 (PERF.md).
+# from n = 1024 on in float32 and complex64 alike (14.4 against 19.6 ms and
+# 17.3 against 30.3 ms there, 31.3 against 88.5 ms and 43.4 against 125.7 ms
+# at 2048) and behind at 256 and 512 (8.2 against 6.4 ms and 9.3 against
+# 8.0 ms at 512; PERF.md).
 HESSENBERG_BLOCKED_MIN_N = 1024
 
 

@@ -400,7 +400,7 @@ def assert_same_reduction(a, h, q, hp, qp, units=1.0):
 
 @pytest.mark.parametrize("dtype", QR_DTYPES)
 @pytest.mark.parametrize("n,nb", [(1, 32), (3, 32), (5, 32), (33, 32), (100, 7), (129, 64),
-                                  (512, 32), (1030, 32)])
+                                  (257, 32), (512, 32), (1030, 32)])
 def test_blocked_hessenberg_kernel_matches_plain(cuda, n, nb, dtype):
     a = well_conditioned(n, dtype, seed=300 + n, device=cuda)
     before = hb.hessenberg_blocked_kernel.launches
@@ -413,6 +413,45 @@ def test_blocked_hessenberg_kernel_matches_plain(cuda, n, nb, dtype):
     if n <= 512:  # and the unblocked kernel B7
         h7, q7 = qk.hessenberg_kernel(a, accumulate_q=True)
         assert_same_reduction(a, h, q, h7, q7, units=3.0)
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+def test_blocked_hessenberg_kernel_skips_inside_a_panel(cuda, dtype):
+    # A[6:, :6] = 0: columns 4 and 5 take the tail-zero skip (tau = 0) in
+    # the middle of the first panel (nb = 8); the columns after them reflect
+    a = well_conditioned(300, dtype, seed=7, device=cuda)
+    a[6:, :6] = 0
+    h, q = hb.hessenberg_blocked_kernel(a, accumulate_q=True, nb=8)
+    torch.cuda.synchronize()
+    assert float(h[6, 5].abs()) == 0.0 and float(h[7:, :6].abs().max()) == 0.0
+    hp, qp = hb.hessenberg_blocked_plain(a, accumulate_q=True, nb=8)
+    assert_same_reduction(a, h, q, hp, qp)
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+def test_blocked_hessenberg_kernel_is_deterministic(cuda, dtype):
+    # no atomics: the same input gives the same bits, with Q and without
+    a = dense(300, dtype, seed=9, device=cuda)
+    h1, q1 = hb.hessenberg_blocked_kernel(a, accumulate_q=True)
+    h2, q2 = hb.hessenberg_blocked_kernel(a, accumulate_q=True)
+    torch.cuda.synchronize()
+    assert torch.equal(h1, h2) and torch.equal(q1, q2)
+    assert torch.equal(hb.hessenberg_blocked_kernel(a), h1)
+
+
+@pytest.mark.parametrize("accumulate_q", [False, True])
+@pytest.mark.parametrize("n,nb", [(1, 32), (2, 32), (3, 32), (100, 7), (300, 32), (1030, 32)])
+def test_blocked_hessenberg_device_launches(cuda, n, nb, accumulate_q):
+    # three kernels a column; a panel's trailing update is eight GEMMs, two
+    # of them split-K (two kernels each), and the zeroing; with Q three
+    # GEMMs more, one split-K; Q starts as an identity kernel
+    a = dense(n, torch.float32, seed=n, device=cuda)
+    hb.hessenberg_blocked_kernel(a, accumulate_q=accumulate_q, nb=nb)
+    torch.cuda.synchronize()
+    columns = max(n - 2, 0)
+    panels = -(-columns // nb)
+    expected = int(accumulate_q) + 3 * columns + panels * (11 + 4 * int(accumulate_q))
+    assert hb.hessenberg_blocked_kernel.device_launches == expected
 
 
 def test_hessenberg_reduce_picks_the_blocked_kernel(cuda, monkeypatch):

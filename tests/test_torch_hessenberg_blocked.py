@@ -115,6 +115,49 @@ def test_matches_the_unblocked_reduction(nb, complex_values):
     assert_same_reduction(a, h.numpy(), q.numpy(), hp.numpy(), qp.numpy())
 
 
+def block_triangular(n, p, complex_values, seed):
+    """A random matrix with A[p:, :p] = 0: columns p - 2 and p - 1 are
+    already zero below the subdiagonal after the earlier reflectors (which
+    act on rows and columns < p only), so both take the tail-zero skip
+    (tau = 0), the second with a zero pivot as well."""
+    a = random_matrix(n, complex_values, seed)
+    a[p:, :p] = 0
+    return a
+
+
+@pytest.mark.parametrize("nb", [4, 8])
+@pytest.mark.parametrize("complex_values", [False, True])
+def test_tau_zero_inside_a_panel(nb, complex_values):
+    # columns 4 and 5 skip: inside the first panel at nb = 8, at the start
+    # of the second at nb = 4; the later columns of the panel reflect
+    n = 40
+    a = block_triangular(n, 6, complex_values, seed=11)
+    h, q = hb.hessenberg_blocked(torch.from_numpy(a), accumulate_q=True, nb=nb)
+    assert float(h[6, 5].abs()) == 0.0 and float(h[7:, :6].abs().max()) == 0.0
+    hj, qj = hessenberg_blocked_planes(to_planes(a), n, interpret=True, accumulate_q=True, nb=nb)
+    assert_same_reduction(a, h.numpy(), q.numpy(), from_planes(hj), from_planes(qj))
+    hp, qp = tq.hessenberg_plain(torch.from_numpy(a), accumulate_q=True)
+    assert_same_reduction(a, h.numpy(), q.numpy(), hp.numpy(), qp.numpy())
+
+
+@pytest.mark.parametrize("nb", [4, 8])
+@pytest.mark.parametrize("complex_values", [False, True])
+def test_whole_panel_skipped(nb, complex_values):
+    # the first nb columns are already upper Hessenberg: every reflector of
+    # the first panel is zero, the trailing update leaves A as it was, and
+    # the panels after it reduce the rest
+    n = 36
+    a = random_matrix(n, complex_values, seed=12)
+    below = np.arange(n)[:, None] >= np.arange(n)[None, :] + 2
+    a[:, :nb][below[:, :nb]] = 0
+    h, q = hb.hessenberg_blocked(torch.from_numpy(a), accumulate_q=True, nb=nb)
+    np.testing.assert_array_equal(q.numpy()[:, :nb + 1], np.eye(n)[:, :nb + 1])
+    hj, qj = hessenberg_blocked_planes(to_planes(a), n, interpret=True, accumulate_q=True, nb=nb)
+    assert_same_reduction(a, h.numpy(), q.numpy(), from_planes(hj), from_planes(qj))
+    hp, qp = tq.hessenberg_plain(torch.from_numpy(a), accumulate_q=True)
+    assert_same_reduction(a, h.numpy(), q.numpy(), hp.numpy(), qp.numpy())
+
+
 @pytest.mark.parametrize("n", [0, 1, 2, 3])
 def test_tiny_sizes(n):
     a = random_matrix(n, True, seed=1)
