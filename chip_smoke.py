@@ -17,8 +17,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 5. the reference data files ``data/A.txt`` (dense) and ``data/B.txt``
    (CSR), complex128 on the card, against ``numpy.linalg.eigvals``;
 6. the dense QR kernels B7-B10 against their plain versions on the card:
-   Hessenberg (B7) and Householder QR (B9) at n = 512 in float32, complex64
-   and float64, the blocked B9 also at 512 in complex128 and at 2048 in all
+   Hessenberg (B7, one cluster kernel: its route, a second call with Q
+   bitwise equal, one device kernel a call, at 512 in four dtypes and 1023
+   in float32, and the cost of one cluster barrier) and Householder QR (B9)
+   at n = 512 in float32, complex64 and float64, the blocked B9 also at 512 in complex128 and at 2048 in all
    four dtypes (against ``qr_decompose_blocked_plain`` there, with its
    device kernels per call), the shifted Givens sweeps (B8) and the parity sweeps (B10)
    with a budget of 10 sweeps at n = 128 in four dtypes and of a few sweeps
@@ -38,9 +40,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    kernels per call; B14 at n = 512 and 2048 in complex64 and complex128 on the Schur
    factor of the eigenpair path and on a triangle with one repeated
    eigenvalue; each with its time beside the plain version's;
-9. the sweep of B7 against B11 (float32 and complex64, n = 256 ... 4096;
-   B11 over three calls a point) from which ``HESSENBERG_BLOCKED_MIN_N`` was
-   set, B11's panel widths at 4096 with its device kernels per call,
+9. the sweep of B7 against B11 (float32 and complex64, n = 256 ... 4096,
+   without and with Q to 2048; three calls a point below 2048) from which
+   ``HESSENBERG_BLOCKED_MIN_N`` was set, B11's panel widths at 4096 with its device kernels per call,
    torch.profiler breakdowns of B11 at 4096 (float32, without and with Q)
    and of B12 at 2048 (complex64 with Q), B9 beside
    ``torch.linalg.qr(mode="complete")`` over the same sizes (five calls a
@@ -72,7 +74,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
     2048 (against numpy in float64), eigenpairs of the bench operand at 2048
     and 4096;
 15. the split-plane SpMV (B4, B3's planes entry) and the block SpMM B5
-    against their plain versions at 1M x 33, with ``torch.sparse.mm``;
+    against their plain versions at 1M x 33, with ``torch.sparse.mm``; B5's
+    (nvec, n), (n, 8) and interleaved entries timed by both routes, staged
+    and direct, from which ``block_route`` was set;
 16. ``power_method`` on the split-plane operators and the block solvers
     ``subspace_iteration`` / ``chebyshev_subspace_iteration`` at 1M x 33;
 17. the general sparse SpMV B6 against its plain version on bench.py's
@@ -107,6 +111,22 @@ the time to enqueue one ``gell_kernel`` call on the 1M x 33 uniform
 operator in float32 and complex64, and ``power_method``'s time per
 iteration on each at a budget of 200 iterations, three times each.
 
+    python3 chip_smoke.py --b7 ROOT
+
+times B7 with the port found under ROOT, without Q and with Q, over five
+calls after a warm-up between two CUDA events, at 512 float32, complex64 and
+float64, 256 and 1023 float32, with its device kernels per call
+(torch.profiler).
+
+    python3 chip_smoke.py --b5 ROOT
+
+times B5 with the port found under ROOT at 1M x 33 with 8 vectors in
+float32, bf16, float64 and complex64 (the bench band's values): row-major,
+interleaved from a window, and the block solvers' product on an (n, 8)
+block (``solvers/subspace.py::_apply_block``), by CUDA-graph replay; then
+the block solvers of phase 16 at a fixed budget, and the device's busy
+share of a 10-sweep subspace chunk.
+
     python3 chip_smoke.py --b11 ROOT
 
 times B11 (B12 on complex data) with the port found under ROOT, with Q and
@@ -129,6 +149,7 @@ BANDWIDTH = 16  # 33 diagonals: the operator of bench.py --n 1000000
 KERNEL_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/dia_spmv.cu"
 TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/dia_spmv.py"
 QR_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/qr_kernels.cu"
+B7_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/hessenberg_cluster.cu"
 QR_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/qr_kernels.py"
 QR_N = 512        # BASELINE.json configs[2]: 512 x 512 dense, all eigenvalues
 QR_SWEEP_N = 128  # B8/B10 against their plain versions (thousands of launches a sweep)
@@ -137,7 +158,7 @@ HB_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/hessenberg_blocked.cu
 HB_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/hessenberg_blocked.py"
 TRI_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/trisolve_vec.cu"
 TRI_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/trisolve_vec.py"
-SWEEP_SIZES = (256, 512, 1024, 2048, 4096)  # B7 against B11
+SWEEP_SIZES = (256, 512, 768, 1024, 1536, 2048, 4096)  # B7 against B11
 FULL_N = 4096   # B11's row, its panel widths, to_hessenberg in float32
 LARGE_N = 2048  # B12's row, B14's second size, eigenpair run (e), B9's second size
 B9_REPS = 5     # B9 and torch.linalg.qr: calls per timed point
@@ -210,6 +231,20 @@ def time_events_ms(fn, reps: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn):
+    """The device kernels one call of ``fn`` runs, by torch.profiler; None
+    when the profiler records no device activity (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
 
 
 def timed_pair(kernel_fn, plain_fn, timer=time_ms, plain_timer=None):
@@ -346,6 +381,14 @@ def hessenberg_phases(h, hp) -> np.ndarray:
     return np.concatenate([[1], np.cumprod(r)])
 
 
+def q_phases(q, qp) -> np.ndarray:
+    """D with q = qp D for unitary q, qp, from their columns (q_j^H qp_j
+    over its modulus): where D is defined, without the subdiagonals' phase
+    ratios multiplying their rounding along the pivots."""
+    d = (qp.conj() * q).sum(dim=0)
+    return (d / d.abs()).cpu().numpy()
+
+
 def triangular_phases(r, rp) -> np.ndarray:
     """The diagonal unitary D for which R = D Rp (and then Q = Qp D^H): a QR
     decomposition of a matrix of full rank is unique up to such a D."""
@@ -387,6 +430,7 @@ def qr_kernel_phase(dev, card_name, card_limit):
     # about eps / |pivot| and so by up to ~1e-2 at one small pivot in complex64.
     # The entries are held to one unit after D is divided out, and D to 1 within
     # 0.2 (1e-6 in double), which still fails a wrong phase convention or sign.
+    # B7's D is read from Q's columns (q = qp D), B9's from R's diagonal.
     for dt in (torch.float32, torch.complex64, torch.float64):
         a = well_conditioned(QR_N, dt)
         scale = float(a.abs().max())
@@ -398,7 +442,7 @@ def qr_kernel_phase(dev, card_name, card_limit):
         r, qq = qk.qr_decompose_kernel(a)
         rp, qqp = qk.qr_decompose_plain(a)
         torch.cuda.synchronize()
-        dh, dr = hessenberg_phases(h, hp), triangular_phases(r, rp)
+        dh, dr = q_phases(q, qp), triangular_phases(r, rp)
         dh_t, dr_t = (torch.from_numpy(d).to(dev, dt) for d in (dh, dr))
         checks = {
             "B7 H vs plain": (rel(h, dh_t.conj()[:, None] * hp * dh_t, scale), unit),
@@ -428,6 +472,37 @@ def qr_kernel_phase(dev, card_name, card_limit):
             timings[("B9", dt)] = timed_pair(lambda: qk.qr_decompose_kernel(a),
                                              lambda: qk.qr_decompose_plain(a),
                                              lambda fn: time_ms(fn, reps=3)) + ("call",)
+    # B7 as one cluster kernel: its plan (cluster size; H and Q in shared
+    # memory or through L2), a second call with Q bitwise equal to the first,
+    # the device kernels a call (one: the copy of A and Q's identity are in
+    # it), and its time with Q; at 512 in four dtypes and at 1023 in float32
+    # (H through L2)
+    for n, dt in ((QR_N, torch.float32), (QR_N, torch.complex64), (QR_N, torch.float64),
+                  (QR_N, torch.complex128), (1023, torch.float32)):
+        a = operand(n, dt)
+        h1, q1 = qk.hessenberg_kernel(a, accumulate_q=True)
+        plan = qk.hessenberg_kernel.last_plan
+        h2, q2 = qk.hessenberg_kernel(a, accumulate_q=True)
+        torch.cuda.synchronize()
+        same = torch.equal(h1, h2) and torch.equal(q1, q2)
+        kernels = device_kernels(lambda: qk.hessenberg_kernel(a, accumulate_q=True))
+        count = "not measured" if kernels is None else len(kernels)
+        print(f"B7 {dt} n={n}: route {plan}; H and Q of a second call bitwise equal: {same}; "
+              f"device kernels a call with Q: {count} {sorted(set(kernels or []))}")
+        check(same, f"B7 {dt} n={n}: a second call differs")
+        check(kernels is None or len(kernels) == 1,
+              f"B7 {dt} n={n}: {count} device kernels a call, expected 1")
+        if n == QR_N and dt in (torch.float32, torch.complex64):
+            timings[("B7+Q", dt)] = timed_pair(
+                lambda: qk.hessenberg_kernel(a, accumulate_q=True),
+                lambda: qk.hessenberg_plain(a, accumulate_q=True),
+                lambda fn: time_ms(fn, reps=3)) + ("call",)
+        del a, h1, q1, h2, q2
+    for cluster in qk.HESSENBERG_CLUSTERS:
+        one = time_events_ms(lambda: qk.cluster_barrier_probe(dev, cluster, 1), 5)
+        many = time_events_ms(lambda: qk.cluster_barrier_probe(dev, cluster, 10_001), 5)
+        print(f"cluster barrier, {cluster} blocks of 512 threads: "
+              f"{(many - one) / 10_000 * 1e6:.1f} ns a barrier [{card_name}, {card_limit}]")
     # the blocked B9 in the dtype phase 6 had not held yet (complex128 at 512,
     # against the unblocked plain version) and at 2048 in all four dtypes
     # against the plain version of the blocked algorithm, with the same limits
@@ -528,7 +603,7 @@ def qr_kernel_phase(dev, card_name, card_limit):
           f"{time_events_ms(lambda: qk.qr_parity_kernel(h512r, sweeps, 0.0), 1) / sweeps:.3f}"
           f" ms/sweep [{card_name}, {card_limit}]")
     for (tag, dt), (k_ms, p_ms, unit) in timings.items():
-        n = QR_N if tag in ("B7", "B9") else QR_SWEEP_N
+        n = QR_N if tag in ("B7", "B7+Q", "B9") else QR_SWEEP_N
         print(f"time {tag} {dt} n={n}: kernel {k_ms:.3f} ms/{unit}, plain {p_ms:.3f} ms/{unit} "
               f"[{card_name}, {card_limit}]")
     return errors, timings
@@ -727,21 +802,31 @@ def boundary_sweep_phase(dev, card_name, card_limit):
 
     rng = np.random.default_rng(30)
     library = {}
-    print(f"sweep (ms per call after a warm-up: B7 one call, B11 {B11_REPS} calls; B9 and "
-          f"torch.linalg.qr over {B9_REPS} calls, in turns) [{card_name}, {card_limit}]")
-    print("dtype n B7 B11 B9 torch.linalg.qr(complete) B9-device-kernels B11-device-kernels")
+    print(f"sweep (ms per call after a warm-up: B7 and B11 {B11_REPS} calls, one from 2048 on; "
+          f"B9 and torch.linalg.qr over {B9_REPS} calls, in turns) [{card_name}, {card_limit}]")
+    print("dtype n B7 B11 B7-with-Q B11-with-Q B9 torch.linalg.qr(complete) B9-device-kernels "
+          "B11-device-kernels B7-route")
     for dt in (torch.float32, torch.complex64):
         faster_from = None
         for n in SWEEP_SIZES:
             a, _ = device_operand(rng, n, dt, dev, "gaussian")
-            b7 = time_events_ms(lambda: qk.hessenberg_kernel(a), 1)
-            b11 = time_events_ms(lambda: hb.hessenberg_blocked_kernel(a), B11_REPS)
+            reps = B11_REPS if n < 2048 else 1
+            b7 = time_events_ms(lambda: qk.hessenberg_kernel(a), reps)
+            b11 = time_events_ms(lambda: hb.hessenberg_blocked_kernel(a), reps)
+            plan = qk.hessenberg_kernel.last_plan
+            b7q = b11q = float("nan")  # with Q up to 2048: the eigenpair path's sizes
+            if n <= 2048:
+                b7q = time_events_ms(lambda: qk.hessenberg_kernel(a, accumulate_q=True), reps)
+                b11q = time_events_ms(
+                    lambda: hb.hessenberg_blocked_kernel(a, accumulate_q=True), reps)
             b9, lib = timed_pair(lambda: qk.qr_decompose_kernel(a),
                                  lambda: torch.linalg.qr(a, mode="complete"),
                                  lambda fn: time_events_ms(fn, B9_REPS))
-            print(f"sweep {dt} {n} {b7:.3f} {b11:.3f} {b9:.3f} {lib:.3f} "
+            print(f"sweep {dt} {n} {b7:.3f} {b11:.3f} {b7q:.3f} {b11q:.3f} {b9:.3f} {lib:.3f} "
                   f"{qk.qr_decompose_kernel.device_launches} "
-                  f"{hb.hessenberg_blocked_kernel.device_launches}")
+                  f"{hb.hessenberg_blocked_kernel.device_launches} "
+                  f"cluster {plan.cluster} H {'smem' if plan.h_smem else 'L2'} "
+                  f"Q {'smem' if plan.q_smem else 'L2'}")
             faster_from = (faster_from or n) if b11 < b7 else None
             if n == QR_N and dt == torch.float32:
                 library["B9"] = lib
@@ -1223,10 +1308,11 @@ def banded_block_kernel_phase(ctx):
         k_ms = min(time_ms(lambda: ds.dia_matvec_il_planes(il.planes_il, offs, x_il))
                    for _ in range(2))
         timings[("B4+window", dt)] = (k_ms, p_ms, nbytes(il.planes_il, w, y_il))
-    # B5 row-major and interleaved: nvec 8 in f32 and bf16, the ragged
-    # chunks 1, 3 and 13 in f32, one complex64 case
-    cases = [(8, torch.float32), (8, torch.bfloat16), (1, torch.float32), (3, torch.float32),
-             (13, torch.float32), (8, torch.complex64)]
+    # B5 row-major and interleaved: nvec 8 in f32, bf16, f64 and complex64,
+    # the ragged chunks 1, 3 and 13 in f32; at nvec 8 the (n, 8) entry of the
+    # block solvers too, against the transposed copy that it replaced
+    cases = [(8, torch.float32), (8, torch.bfloat16), (8, torch.float64), (1, torch.float32),
+             (3, torch.float32), (13, torch.float32), (8, torch.complex64)]
     for nvec, dt in cases:
         vals = op64c.data if dt.is_complex else op32.data.to(dt)
         xs = rng.uniform(-1, 1, (nvec, N))
@@ -1235,40 +1321,79 @@ def banded_block_kernel_phase(ctx):
         xs = torch.from_numpy(xs).to(dev, ds.acc_dtype(dt))
         main = nvec == 8 and dt == torch.float32
         ys = ds.dia_matmat(vals, offs, xs)
-        compare(f"B5 dia_block_kernel {dt} nvec={nvec} n={N}", "B5", ys,
-                ds.dia_matmat_plain(vals, offs, xs), 1e-5, main)
+        route = ds.dia_block_kernel.last_route
+        ref = ds.dia_matmat_plain(vals, offs, xs)
+        compare(f"B5 dia_block_kernel {dt} nvec={nvec} n={N} ({route} route)", "B5", ys, ref,
+                1e-5, main)
         il_vals = ds.interleave_dia_vals(vals, ds.il_rows(N))
         xs_il = torch.stack([ds.interleave_vec(v, il_vals.shape[1]) for v in xs])
         ys_il = ds.dia_matmat_il(il_vals, offs, xs_il)
-        compare(f"B5 dia_il_block_kernel {dt} nvec={nvec} n={N}", "B5il", ys_il,
+        compare(f"B5 dia_il_block_kernel {dt} nvec={nvec} n={N} "
+                f"({ds.dia_il_block_kernel.last_route} route)", "B5il", ys_il,
                 ds.dia_matmat_il_plain(il_vals, offs, xs_il), 1e-5, main)
-        if nvec == 8 and not dt.is_complex:
-            k_ms, p_ms = timed_pair(lambda: ds.dia_block_kernel(vals, offs, xs),
-                                    lambda: ds.dia_matmat_plain(vals, offs, xs),
-                                    plain_timer=plain_timer)
-            timings[("B5", dt)] = (k_ms, p_ms, nbytes(vals, xs, ys))
+        if nvec == 8:
+            X = xs.T.contiguous()
+            compare(f"B5 dia_block_kernel (n, 8) entry {dt} n={N} "
+                    f"({ds.block_route(False, offs, vals.dtype, 8, vectors_last=True)} route)",
+                    "B5", ds.dia_matmat_cols(vals, offs, X).T, ref, 1e-5)
             w8 = ds._il_window(xs_il, pr)
-            k_ms, p_ms = timed_pair(lambda: ds.dia_il_block_kernel(il_vals, offs, w8),
-                                    lambda: ds.dia_matmat_il_window_plain(il_vals, offs, w8),
-                                    plain_timer=plain_timer)
+            # each entry by each route (the route rule, ds.block_route, was set
+            # from this table); the kernels line takes the path's: the (n, 8)
+            # block of the block solvers and the interleaved window
+            entries = {
+                "(nvec, n)": lambda r: ds.dia_block_kernel(vals, offs, xs, route=r),
+                "(n, 8)": lambda r: ds.dia_block_kernel(vals, offs, X, vectors_last=True,
+                                                        route=r),
+                "interleaved": lambda r: ds.dia_il_block_kernel(il_vals, offs, w8, route=r)}
+            picked = {"(nvec, n)": ds.block_route(False, offs, vals.dtype, 8),
+                      "(n, 8)": ds.block_route(False, offs, vals.dtype, 8, vectors_last=True),
+                      "interleaved": ds.block_route(True, offs, vals.dtype, 8)}
+            by_route = {}
+            for entry, fn in entries.items():
+                for route in ("staged", "direct"):
+                    if route == "staged" and ds.block_stage_smem(
+                            entry == "interleaved", offs, vals.dtype, 8) > ds.BLOCK_STAGED_SMEM:
+                        continue
+                    by_route[(entry, route)] = min(time_ms(lambda: fn(route)) for _ in range(2))
+                print(f"time B5 {entry} {dt} {N}x33 nvec 8: " + ", ".join(
+                    f"{r} {by_route[(entry, r)] * 1e3:.1f} us" for r in ("staged", "direct")
+                    if (entry, r) in by_route) + f"; picked {picked[entry]} "
+                    f"[{card_name}, {card_limit}]")
+            k_ms = by_route[("(n, 8)", picked["(n, 8)"])]
+            p_ms = min(plain_timer(lambda: ds.dia_matmat_plain(vals, offs, xs)) for _ in range(2))
+            timings[("B5", dt)] = (k_ms, p_ms, nbytes(vals, xs, ys))
+            k_ms = by_route[("interleaved", picked["interleaved"])]
+            p_ms = min(plain_timer(lambda: ds.dia_matmat_il_window_plain(il_vals, offs, w8))
+                       for _ in range(2))
             timings[("B5il", dt)] = (k_ms, p_ms, nbytes(il_vals, w8, ys_il))
+            # the block solvers' (n, 8) block before the strided entry: the
+            # kernel on a transposed copy, and the copy alone
+            copy = min(time_ms(lambda: ds.dia_block_kernel(vals, offs, X.T.contiguous()))
+                       for _ in range(2))
+            transpose = min(time_ms(lambda: X.T.contiguous()) for _ in range(2))
+            print(f"time B5 (n, 8) block {dt} {N}x33: by strides "
+                  f"{by_route[('(n, 8)', picked['(n, 8)'])] * 1e3:.1f} us, on a transposed "
+                  f"copy {copy * 1e3:.1f} us (the copy alone {transpose * 1e3:.1f} us) "
+                  f"[{card_name}, {card_limit}]")
             if dt == torch.float32:
                 # the library call: CSR times the (n, 8) block (timed only)
                 csr = band_csr(vals, offs)
-                block = xs.T.contiguous()
-                y_lib = torch.sparse.mm(csr, block)
+                y_lib = torch.sparse.mm(csr, X)
                 print(f"library torch.sparse.mm (CSR) x (n, 8) float32 n={N}: rel err against "
                       f"the plain version {rel_err(y_lib.T, ys):.2e}")
-                lib_ms = time_events_ms(lambda: torch.sparse.mm(csr, block), reps=20)
+                lib_ms = time_events_ms(lambda: torch.sparse.mm(csr, X), reps=20)
                 library.update({"B5": lib_ms, "B5il": lib_ms})
                 print(f"time library torch.sparse.mm (CSR) x (n, 8) float32 {N}x33: "
                       f"{lib_ms * 1e3:.1f} us [{card_name}, {card_limit}]")
                 del csr, y_lib
-        del xs, ys, xs_il, ys_il, il_vals
+            del X, w8
+        del xs, ys, xs_il, ys_il, il_vals, ref
     for (tag, dt), (k_ms, p_ms, nb) in timings.items():
         print(f"time {tag} {dt} {N}x33: kernel {k_ms * 1e3:.1f} us "
               f"({nb / (k_ms * 1e-3) / 1e9:.0f} GB/s, {nb / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1%} "
-              f"of 3.35 TB/s), plain {p_ms * 1e3:.1f} us [{card_name}, {card_limit}]")
+              f"of 3.35 TB/s: the bytes bound {nb / HBM_BYTES_PER_S * 1e6:.1f} us), "
+              f"plain {p_ms * 1e3:.1f} us, library "
+              f"{library.get(tag, float('nan')) * 1e3:.1f} us [{card_name}, {card_limit}]")
     return errors, timings, library
 
 
@@ -1965,6 +2090,101 @@ def b11_compare(root: str) -> None:
         del a
 
 
+def import_port(root: str):
+    """The port found under ROOT (another checkout, for a comparison in turns)."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    check(os.path.abspath(eigsol.__file__).startswith(os.path.abspath(root) + os.sep),
+          f"the port under {root} was not the one imported")
+    return eigsol
+
+
+def b7_compare(root: str) -> None:
+    """``--b7 ROOT`` (see the module docstring). Prints one line a case;
+    fails if the port is not the one under ROOT or an H is not finite."""
+    import_port(root)
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+
+    card_name, card_limit = card_line().split(", ")
+    rng = np.random.default_rng(7)
+    for n, dt in ((QR_N, torch.float32), (QR_N, torch.complex64), (256, torch.float32),
+                  (1023, torch.float32), (QR_N, torch.float64)):
+        a, _ = device_operand(rng, n, dt, "cuda", "gaussian")
+        without_q = time_events_ms(lambda: qk.hessenberg_kernel(a), 5)
+        with_q = time_events_ms(lambda: qk.hessenberg_kernel(a, accumulate_q=True), 5)
+        check(bool(torch.isfinite(qk.hessenberg_kernel(a)).all()), "B7: H not finite")
+        kernels = device_kernels(lambda: qk.hessenberg_kernel(a))
+        print(f"b7 {root}: {dt} n={n}: without Q {without_q:.3f} ms, with Q {with_q:.3f} ms "
+              f"(five calls after a warm-up), device kernels a call "
+              f"{'not measured' if kernels is None else len(kernels)} "
+              f"[{card_name}, {card_limit}]")
+        del a
+
+
+def b5_compare(root: str) -> None:
+    """``--b5 ROOT`` (see the module docstring). Prints one line a case;
+    fails if the port is not the one under ROOT or a product is not finite."""
+    eigsol = import_port(root)
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.models.generators import banded_full
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers import subspace as sub
+
+    card_name, card_limit = card_line().split(", ")
+    rng = np.random.default_rng(8)
+    op32 = banded_full(N, bandwidth=BANDWIDTH, dtype=np.float32, seed=0, device="cuda")
+    offs = op32.offsets
+    pr = ds.il_window_halo(offs)
+    for dt in (torch.float32, torch.bfloat16, torch.float64, torch.complex64):
+        vals = op32.data.to(dt)
+        acc = ds.acc_dtype(dt)
+        xs = torch.from_numpy(rng.uniform(-1, 1, (8, N))).to("cuda", acc)
+        il_vals = ds.interleave_dia_vals(vals, ds.il_rows(N))
+        w8 = ds._il_window(torch.stack([ds.interleave_vec(v, il_vals.shape[1]) for v in xs]), pr)
+        M = eigsol.SparseDIA(data=vals, offsets=offs, shape=(N, N))
+        X = xs.T.contiguous()
+        rowmajor = min(time_ms(lambda: ds.dia_block_kernel(vals, offs, xs)) for _ in range(2))
+        window = min(time_ms(lambda: ds.dia_il_block_kernel(il_vals, offs, w8)) for _ in range(2))
+        block = min(time_ms(lambda: sub._apply_block(M, X)) for _ in range(2))
+        check(bool(torch.isfinite(sub._apply_block(M, X)).all()), "B5: product not finite")
+        print(f"b5 {root}: {dt} {N}x33 nvec 8: row-major {rowmajor * 1e3:.1f} us, interleaved "
+              f"{window * 1e3:.1f} us, the solvers' (n, 8) block (_apply_block) "
+              f"{block * 1e3:.1f} us [{card_name}, {card_limit}]")
+        del vals, xs, il_vals, w8, M, X
+    # the block solvers of phase 16 at a fixed budget (tolerance 0: 30
+    # subspace sweeps of k = 3, block 8; 8 Chebyshev sweeps of k = 4), two
+    # solves between CUDA events after a warm-up, and the device's busy share
+    # of a 10-sweep subspace chunk
+    sym = symmetric_band(N, (8.0, 7.0, 6.5, 6.0), seed=5)
+    s32 = eigsol.SparseDIA(data=torch.from_numpy(sym).to("cuda"), offsets=offs, shape=(N, N))
+    budget = {"subspace": eigsol.SolverOptions(max_iterations=30, tolerance=0.0),
+              "chebyshev": eigsol.SolverOptions(max_iterations=8, tolerance=0.0)}
+    for name, M in (("subspace DIA", op32), ("subspace IL", op32.interleaved()),
+                    ("chebyshev DIA", s32), ("chebyshev IL", s32.interleaved())):
+        kind = name.split()[0]
+        solve = eigsol.subspace_iteration if kind == "subspace" else \
+            eigsol.chebyshev_subspace_iteration
+        k = 3 if kind == "subspace" else 4
+        ms = time_events_ms(lambda: solve(M, k=k, opts=budget[kind]), 2)
+        print(f"b5 {root}: {name} f32 {N}x33, {budget[kind].max_iterations} sweeps: "
+              f"{ms:.3f} ms a solve [{card_name}, {card_limit}]")
+        if name.startswith("subspace"):
+            rows = isinstance(M, eigsol.InterleavedDIA)
+            X = sub._start_block(M, N, 8, torch.float32, None, None, rows)
+            chunk = sub._subspace_chunk_rows if rows else sub._subspace_chunk
+            profile_breakdown(f"b5 {root}: {name} f32 chunk of 10 sweeps",
+                              lambda: chunk(M, X, 10), top=3)
+
+
 def main() -> None:
     import torch
 
@@ -2316,8 +2536,9 @@ def main() -> None:
             (qk.qr_parity_kernel, "B10", 797, torch.float32, 2 * 4 * m * m / 10,
              14 / 3 * m ** 3)):
         k_ms, p_ms, _ = qr_timings[(tag, dt)]
-        add_row(kernel.__name__, QR_SOURCE, f"{QR_TPU_KERNELS}:{line}",
-                qr_launches[kernel.__name__], qr_errors[tag], k_ms, p_ms, nbytes, flops, tag)
+        add_row(kernel.__name__, B7_SOURCE if tag == "B7" else QR_SOURCE,
+                f"{QR_TPU_KERNELS}:{line}", qr_launches[kernel.__name__], qr_errors[tag], k_ms,
+                p_ms, nbytes, flops, tag)
     # B11/B12 per call with Q (A read; H and Q written; 10/3 n^3 + 4/3 n^3
     # real flops, four times that in complex); B14 per call (T read, Y
     # written; n^3 / 6 complex multiply-adds)
@@ -2380,6 +2601,10 @@ if __name__ == "__main__":
         b6_host_compare(sys.argv[2])
     elif sys.argv[1:2] == ["--b11"] and len(sys.argv) == 3:
         b11_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--b7"] and len(sys.argv) == 3:
+        b7_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--b5"] and len(sys.argv) == 3:
+        b5_compare(sys.argv[2])
     else:
         main()
     sys.stdout.flush()

@@ -13,7 +13,10 @@
 //                                        interleaved-window index modes
 //   B5  _dia_block_kernel (:223), _dia_il_block_kernel (:695) and
 //       _dia_il_block_kernel_stream (:558)
-//                                     -> dia_block_kernel, the same two modes
+//                                     -> dia_block_staged_kernel (x tiles in
+//                                        shared memory), or dia_block_kernel
+//                                        for bands too wide for a tile; the
+//                                        same two modes
 //
 // What bounds them: bytes. An SpMV over k diagonals of n rows does 2*k*n
 // flops and must move k*n*sizeof(val) + 2*n*sizeof(x) bytes (every diagonal
@@ -35,12 +38,14 @@
 // The split-plane kernel (B4, B3 on planes) reads re and im of a diagonal
 // entry k*m elements apart and re and im of x one plane apart: no float2
 // pairs exist in that layout, so each plane is its own coalesced stream and
-// the product is four FMAs into two accumulators. The block kernel (B5)
-// multiplies the band by nvec vectors: each thread keeps one accumulator per
-// vector of a chunk of up to kChunk vectors in registers and reads its
-// diagonal entry once per chunk, so the diagonals, the dominant stream,
-// cross device memory ceil(nvec / kChunk) times instead of nvec times. A
-// chunk is blockIdx.y; the last one may be ragged.
+// the product is four FMAs into two accumulators. The block kernels (B5)
+// multiply the band by nvec vectors: each thread keeps its accumulators for
+// a chunk of up to kChunk vectors in registers and reads its diagonal
+// entries once per chunk, so the diagonals, the dominant stream, cross
+// device memory ceil(nvec / kChunk) times instead of nvec times. A chunk is
+// blockIdx.y; the last one may be ragged. The staged kernel (below) keeps
+// the chunk's x in shared memory, since reading it k times through L1, at
+// unaligned addresses, is what bounded the first port (PERF.md).
 //
 // Plain C interface for ctypes: each entry point selects the device, launches
 // on the caller's stream and returns cudaGetLastError() (0 on success).
@@ -169,20 +174,24 @@ dia_planes_kernel(const V* __restrict__ vals, const A* __restrict__ x,
   y[m + e] = im;
 }
 
-constexpr int kChunk = 8;  // vectors per register chunk of the block kernel
+constexpr int kChunk = 8;  // vectors per register chunk of the block kernels
 
-// B5: y[v, e] = sum_d vals[d, e] * x[v, source(e, d)] for the vectors v of
-// chunk blockIdx.y; x has vector stride x_vec, y is (nvec, m).
-template <typename V, typename A, bool kWindow>
+// B5, the direct route (bands too wide for the staged kernel's tile):
+// y[v, e] = sum_d vals[d, e] * x[v, source(e, d)] for the vectors v of chunk
+// blockIdx.y, a thread a row, x read through L1/L2. Vector v's element j
+// lies at x[v * xv + j * xi] and y's at y[v * yv + e * yi] (window mode:
+// xi = yi = 1, j the flat window index; kUnit when xi = yi = 1).
+template <typename V, typename A, bool kWindow, bool kUnit>
 __global__ void __launch_bounds__(kThreads)
 dia_block_kernel(const V* __restrict__ vals, const A* __restrict__ x,
-                 const int* __restrict__ offsets, int k, int pr, int64_t m,
-                 int64_t x_vec, int nvec, A* __restrict__ y) {
+                 const int* __restrict__ offsets, int k, int pr, int64_t m, int64_t xv,
+                 int64_t xi, int64_t yv, int64_t yi, int nvec, A* __restrict__ y) {
+  if (kUnit) xi = yi = 1;
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= m) return;
   const int c0 = static_cast<int>(blockIdx.y) * kChunk;
   const int count = min(kChunk, nvec - c0);
-  const A* __restrict__ xc = x + c0 * x_vec;
+  const A* __restrict__ xc = x + c0 * xv;
   A acc[kChunk];
 #pragma unroll
   for (int v = 0; v < kChunk; ++v) acc[v] = zero<A>();
@@ -192,12 +201,273 @@ dia_block_kernel(const V* __restrict__ vals, const A* __restrict__ x,
     const A val = widen(vals[d * m + e]);
 #pragma unroll
     for (int v = 0; v < kChunk; ++v)
-      if (v < count) acc[v] = madd(acc[v], val, xc[v * x_vec + j]);
+      if (v < count) acc[v] = madd(acc[v], val, xc[v * xv + j * xi]);
   }
-  A* __restrict__ yc = y + c0 * m;
+  A* __restrict__ yc = y + c0 * yv;
 #pragma unroll
   for (int v = 0; v < kChunk; ++v)
-    if (v < count) yc[v * m + e] = acc[v];
+    if (v < count) yc[v * yv + e * yi] = acc[v];
+}
+
+// B5, the staged route. A block of 256 threads owns a tile of rows and
+// stages x of its chunk of vectors over the rows the tile's band reaches,
+// [tile + min offset, tile + max offset + rows), in shared memory, by
+// coalesced loads that zero what lies outside the vector. Each thread then
+// computes kRows consecutive rows (16 bytes of A: 4 in float, 2 in double
+// and complex float, 1 in complex double) of every vector of the chunk:
+//  * row-major: the tile is 256 kRows consecutive rows; the thread's rows
+//    are consecutive in memory, so it reads each diagonal with one 16-byte
+//    load (8 bytes for bf16) where n is a multiple of kRows; x is held at
+//    padded positions (one spare element after every 128 bytes), so that
+//    the threads of a warp, kRows elements apart, hit distinct banks;
+//  * interleaved window: the tile is 32 lanes by 8 kRows sublanes; the
+//    thread's rows are kRows consecutive sublanes of one lane, and x is held
+//    as [sublane][32 lanes], so a warp reads 32 consecutive words.
+// For each diagonal the thread keeps, per vector, a register window of the
+// kRows x values its rows read: when the offset is the previous one plus 1
+// (a band's consecutive diagonals) the window moves by one and one new value
+// is read from shared memory, else all kRows are. So each x element is read
+// about (k + kRows - 1) / kRows times from shared memory, not k times through
+// L1, and each diagonal crosses device memory once per chunk of 8 vectors.
+// Terms whose column leaves the matrix (row-major) read a zeroed x and, in
+// the tiles at either end, a zeroed value. blockIdx.x is the tile (window: tile * 4 + lane slab),
+// blockIdx.y the chunk of vectors. x's element (v, position p) is at
+// x[v * xv + p * xi] (window: xi = 128, plus the lane), y's likewise.
+template <typename A>
+struct Staged {
+  static constexpr int kRows = static_cast<int>(16 / sizeof(A));
+  static constexpr int kPeriod = 128 / static_cast<int>(sizeof(A));  // row-major padding
+  static constexpr int kSpan = kThreads * kRows;  // row-major tile, rows
+  static constexpr int kSub = (kThreads / 32) * kRows;  // window tile, sublanes
+};
+
+constexpr int kSlabLanes = 32;  // window tile, lanes
+constexpr int kStages = 8;      // diagonals' values in flight: the shared-memory ring
+
+__host__ __device__ constexpr int64_t padded(int64_t p, int period) { return p + p / period; }
+
+// Elements of A a chunk's vector takes in the staged kernel's shared memory.
+template <typename A>
+__host__ __device__ int64_t staged_vector_elems(bool window, int span) {
+  using S = Staged<A>;
+  if (window) return static_cast<int64_t>(S::kSub + span) * kSlabLanes;
+  return padded(S::kSpan + span, S::kPeriod) + 1;
+}
+
+// Where the ring of stored values starts in the staged kernel's shared
+// memory: after the x tile of a chunk of min(nvec, 8) vectors, on 16 bytes.
+template <typename A>
+__host__ __device__ int64_t staged_ring_offset(bool window, int span, int nvec) {
+  const int64_t tile = staged_vector_elems<A>(window, span) * (nvec < kChunk ? nvec : kChunk) *
+                       static_cast<int64_t>(sizeof(A));
+  return (tile + 15) / 16 * 16;
+}
+
+template <typename V, int kR>
+struct alignas(sizeof(V) * kR) RowPack {
+  V v[kR];
+};
+
+// The chunk's kChunk values at one position where the vectors are adjacent
+// (an (n, nvec) block), moved by 16-byte loads and stores.
+template <typename A>
+struct alignas(16) ChunkPack {
+  A v[kChunk];
+};
+
+// What the staged kernel may move by 16-byte loads and stores (decided by
+// its launcher from the shapes, strides and alignment).
+enum StagedVector { kVecVals = 1, kVecRows = 2, kVecChunk = 4 };
+
+// An asynchronous copy of kBytes (4, 8 or 16) from global to shared memory,
+// and the group bookkeeping that waits for them.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(kBytes)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+template <typename V, typename A, bool kWindow>
+__global__ void __launch_bounds__(kThreads, 2)
+dia_block_staged_kernel(const V* __restrict__ vals, const A* __restrict__ x,
+                        const int* __restrict__ offsets, int k, int omin, int span, int pr,
+                        int64_t len, int64_t x_len, int64_t xv, int64_t xi, int64_t yv,
+                        int64_t yi, int nvec, int vec, A* __restrict__ y) {
+  using S = Staged<A>;
+  constexpr int kR = S::kRows;
+  extern __shared__ __align__(16) unsigned char block_smem[];
+  A* xs = reinterpret_cast<A*>(block_smem);
+  const int c0 = static_cast<int>(blockIdx.y) * kChunk;
+  const int count = min(kChunk, nvec - c0);
+  const int t = threadIdx.x;
+  const int64_t vs = staged_vector_elems<A>(kWindow, span);
+  // the tile: its first position along the strip, and (window) its lanes
+  const int64_t tile = kWindow ? blockIdx.x / (kLanes / kSlabLanes) : blockIdx.x;
+  const int64_t l0 = kWindow ? (blockIdx.x % (kLanes / kSlabLanes)) * kSlabLanes : 0;
+  const int64_t p0 = tile * (kWindow ? S::kSub : S::kSpan);
+  // x's first staged position (window: a window sublane, pr above the output's)
+  const int64_t q0 = p0 + omin + (kWindow ? pr : 0);
+  const int positions = (kWindow ? S::kSub : S::kSpan) + span;
+  const A* __restrict__ xc = x + c0 * xv;
+
+  // the thread's rows: positions p0 + r0 + [0, kR) of strip lane l0 + lane
+  const int lane = kWindow ? t % kSlabLanes : 0;
+  const int r0 = (kWindow ? t / kSlabLanes : t) * kR;
+  const int64_t row_stride = kWindow ? kLanes : 1;  // between consecutive positions
+  const int64_t e0 = (p0 + r0) * row_stride + l0 + lane;  // the first row's flat index
+  const int64_t m = kWindow ? len * kLanes : len;         // rows of a diagonal
+  const bool full = p0 + r0 + kR <= len;
+  // row-major tiles whose band reaches past either end of the vector skip
+  // those terms (the old kernel's rule), by a zeroed value
+  const bool edge = !kWindow && (p0 + omin < 0 || p0 + S::kSpan - 1 + omin + span >= len);
+
+  // the rows' stored values of the next kStages - 1 diagonals are in flight
+  // (cp.async into this thread's own slot of a ring in shared memory, so no
+  // barrier guards it) while one is in use; each diagonal is one copy group
+  using Slot = RowPack<V, kR>;
+  Slot* ring = reinterpret_cast<Slot*>(block_smem + staged_ring_offset<A>(kWindow, span, nvec)) +
+               t;  // stage p at ring[p * kThreads]
+  auto fetch = [&](int d) {
+    Slot* slot = ring + (d % kStages) * kThreads;
+    const V* vd = vals + d * m + e0;
+    if (!kWindow && (vec & kVecVals) && full) {
+      cp_async<sizeof(Slot)>(slot, vd);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        if (p0 + r0 + r >= len) {
+          slot->v[r] = V{};
+        } else if constexpr (sizeof(V) >= 4) {
+          cp_async<sizeof(V)>(&slot->v[r], vd + r * row_stride);
+        } else {
+          slot->v[r] = vd[r * row_stride];
+        }
+      }
+    }
+  };
+#pragma unroll
+  for (int p = 0; p + 1 < kStages; ++p) {
+    if (p < k) fetch(p);
+    cp_async_commit();
+  }
+
+  // stage x: element (v, position q0 + i) of the chunk, in memory order
+  // (32-bit indices: a tile holds at most a few hundred thousand elements)
+  auto stage = [&](int v, int i, int lane) {
+    const int64_t q = q0 + i;
+    xs[v * vs + (kWindow ? i * kSlabLanes + lane : padded(i, S::kPeriod))] =
+        q >= 0 && q < x_len ? xc[v * xv + q * xi + l0 + lane] : zero<A>();
+  };
+  const bool chunk_packs = !kWindow && (vec & kVecChunk) && count == kChunk;
+  if (kWindow || xi == 1) {
+    const int per_vector = positions * (kWindow ? kSlabLanes : 1);
+    for (int v = 0; v < count; ++v)
+      for (int g = t; g < per_vector; g += kThreads)
+        stage(v, kWindow ? g / kSlabLanes : g, kWindow ? g % kSlabLanes : 0);
+  } else if (chunk_packs) {  // a position's 8 values in 16-byte loads
+    for (int i = t; i < positions; i += kThreads) {
+      const int64_t q = q0 + i;
+      ChunkPack<A> pack;
+      if (q >= 0 && q < x_len) {
+        pack = *reinterpret_cast<const ChunkPack<A>*>(xc + q * xi);
+      } else {
+#pragma unroll
+        for (int v = 0; v < kChunk; ++v) pack.v[v] = zero<A>();
+      }
+#pragma unroll
+      for (int v = 0; v < kChunk; ++v) xs[v * vs + padded(i, S::kPeriod)] = pack.v[v];
+    }
+  } else {  // the vectors of a position are adjacent (xv == 1)
+    const unsigned c = static_cast<unsigned>(count);
+    for (unsigned g = t; g < c * positions; g += kThreads) stage(g % c, g / c, 0);
+  }
+  __syncthreads();
+
+  A acc[kChunk][kR], win[kChunk][kR];
+#pragma unroll
+  for (int v = 0; v < kChunk; ++v)
+#pragma unroll
+    for (int r = 0; r < kR; ++r) acc[v][r] = zero<A>();
+  int prev = 0;
+  for (int d = 0; d < k; ++d) {
+    if (d + kStages - 1 < k) fetch(d + kStages - 1);  // into the slot diagonal d - 1 left
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // diagonal d's group is in
+    const Slot raw = ring[(d % kStages) * kThreads];
+    const int off = __ldg(offsets + d);
+    A val[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) val[r] = widen(raw.v[r]);
+    if (edge) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int64_t col = p0 + r0 + r + off;
+        if (col < 0 || col >= len) val[r] = zero<A>();
+      }
+    }
+    // the window of x for this offset: positions r0 + r + off - omin
+    const int base = r0 + off - omin;
+    const bool slide = d > 0 && off == prev + 1;
+    prev = off;
+#pragma unroll
+    for (int v = 0; v < kChunk; ++v) {
+      if (v >= count) continue;
+      const A* xv_s = xs + v * vs;
+      if (slide) {
+#pragma unroll
+        for (int r = 0; r + 1 < kR; ++r) win[v][r] = win[v][r + 1];
+        const int i = base + kR - 1;
+        win[v][kR - 1] = xv_s[kWindow ? i * kSlabLanes + lane : padded(i, S::kPeriod)];
+      } else {
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const int i = base + r;
+          win[v][r] = xv_s[kWindow ? i * kSlabLanes + lane : padded(i, S::kPeriod)];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kR; ++r) acc[v][r] = madd(acc[v][r], val[r], win[v][r]);
+    }
+  }
+  cp_async_wait<0>();
+  A* __restrict__ yc = y + c0 * yv;
+  if (chunk_packs) {  // a row's 8 values in 16-byte stores
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (p0 + r0 + r >= len) continue;
+      ChunkPack<A> pack;
+#pragma unroll
+      for (int v = 0; v < kChunk; ++v) pack.v[v] = acc[v][r];
+      *reinterpret_cast<ChunkPack<A>*>(yc + (p0 + r0 + r) * yi) = pack;
+    }
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < kChunk; ++v) {
+    if (v >= count) continue;
+    if (!kWindow && (vec & kVecRows) && full) {  // the thread's rows in one 16-byte store
+      RowPack<A, kR> pack;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) pack.v[r] = acc[v][r];
+      *reinterpret_cast<RowPack<A, kR>*>(yc + v * yv + p0 + r0) = pack;
+      continue;
+    }
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      if (p0 + r0 + r < len) yc[v * yv + (p0 + r0 + r) * yi + (kWindow ? l0 + lane : 0)] = acc[v][r];
+  }
 }
 
 unsigned grid_for(int64_t count) {
@@ -232,14 +502,59 @@ int launch_planes(int window, const void* vals, const void* x, const void* offse
   return static_cast<int>(cudaGetLastError());
 }
 
+// The staged kernel's dynamic shared memory: the x tile of a chunk of
+// min(8, nvec) vectors, each staged_vector_elems elements, then the ring of
+// kStages diagonals' stored values, 16 bytes of A's rows a thread.
 template <typename V, typename A>
-int launch_block(int window, const void* vals, const void* x, const void* offsets, int k,
-                 int pr, int64_t m, int64_t x_vec, int nvec, void* y, cudaStream_t stream) {
-  auto kernel = window ? dia_block_kernel<V, A, true> : dia_block_kernel<V, A, false>;
-  const dim3 grid(grid_for(m), static_cast<unsigned>((nvec + kChunk - 1) / kChunk));
-  kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const V*>(vals), static_cast<const A*>(x),
-      static_cast<const int*>(offsets), k, pr, m, x_vec, nvec, static_cast<A*>(y));
+int64_t staged_smem(bool window, int span, int nvec) {
+  return staged_ring_offset<A>(window, span, nvec) +
+         static_cast<int64_t>(kStages) * kThreads * sizeof(RowPack<V, Staged<A>::kRows>);
+}
+
+constexpr int kStagedSmemBudget = 160 * 1024;
+
+template <typename V, typename A>
+int launch_block(int window, int staged, const void* vals, const void* x, const void* offsets,
+                 int k, int omin, int omax, int pr, int64_t len, int64_t x_len, int64_t xv,
+                 int64_t xi, int64_t yv, int64_t yi, int nvec, int64_t smem, void* y,
+                 cudaStream_t stream) {
+  const unsigned chunks = static_cast<unsigned>((nvec + kChunk - 1) / kChunk);
+  const int64_t m = window ? len * kLanes : len;
+  if (!staged) {
+    auto kernel = xi == 1 && yi == 1
+        ? (window ? dia_block_kernel<V, A, true, true> : dia_block_kernel<V, A, false, true>)
+        : (window ? dia_block_kernel<V, A, true, false> : dia_block_kernel<V, A, false, false>);
+    kernel<<<dim3(grid_for(m), chunks), kThreads, 0, stream>>>(
+        static_cast<const V*>(vals), static_cast<const A*>(x),
+        static_cast<const int*>(offsets), k, pr, m, xv, xi, yv, yi, nvec, static_cast<A*>(y));
+    return static_cast<int>(cudaGetLastError());
+  }
+  using S = Staged<A>;
+  const int span = omax - omin;
+  if (span < 0 || smem != staged_smem<V, A>(window, span, nvec) || smem > kStagedSmemBudget ||
+      (window && (xi != kLanes || yi != kLanes)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = window ? dia_block_staged_kernel<V, A, true> : dia_block_staged_kernel<V, A, false>;
+  static bool allowed[64][2] = {};  // once per device: out of CUDA graph captures
+  int device = 0;
+  cudaGetDevice(&device);
+  if (device >= 64 || !allowed[device][window]) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStagedSmemBudget);
+    if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+    if (device < 64) allowed[device][window] = true;
+  }
+  const int64_t tiles = window ? (len + S::kSub - 1) / S::kSub * (kLanes / kSlabLanes)
+                               : (len + S::kSpan - 1) / S::kSpan;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int64_t elem = static_cast<int64_t>(sizeof(A));
+  const int vec = window ? 0
+      : (len % S::kRows == 0 && aligned(vals) ? kVecVals : 0) |
+        (yi == 1 && len % S::kRows == 0 && aligned(y) ? kVecRows : 0) |
+        (xv == 1 && yv == 1 && xi * elem % 16 == 0 && yi * elem % 16 == 0 && aligned(x) &&
+                 aligned(y) ? kVecChunk : 0);
+  kernel<<<dim3(static_cast<unsigned>(tiles), chunks), kThreads, smem, stream>>>(
+      static_cast<const V*>(vals), static_cast<const A*>(x), static_cast<const int*>(offsets), k,
+      omin, span, pr, len, x_len, xv, xi, yv, yi, nvec, vec, static_cast<A*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,29 +621,33 @@ int dia_planes_spmv(int dtype, int device, const void* vals, const void* x,
   }
 }
 
-// Banded block SpMM (B5): nvec vectors of stride x_vec; window as above.
-int dia_block_spmm(int dtype, int device, const void* vals, const void* x,
-                   const void* offsets, int k, int pr, long long m, long long x_vec, int nvec,
-                   int window, void* y, void* stream) {
+// Banded block SpMM (B5). Row-major (window = 0): len = n rows, x's
+// element (v, j) at x[v * xv + j * xi] for j in [0, x_len = n), y's (v, i)
+// at y[v * yv + i * yi]. Interleaved window (window = 1): len = R sublanes,
+// x the haloed windows (nvec, R + 2 pr, 128) with xv their vector stride,
+// x_len = R + 2 pr; y (nvec, R, 128) with yv its vector stride; xi = yi = 128
+// on the staged route, 1 on the direct one. staged picks the staged kernel
+// (smem its dynamic shared memory, which must be what this file reckons) or
+// the direct one; omin and omax are the least and greatest offsets.
+int dia_block_spmm(int dtype, int device, const void* vals, const void* x, const void* offsets,
+                   int k, int omin, int omax, int pr, long long len, long long x_len,
+                   long long xv, long long xi, long long yv, long long yi, int nvec, int window,
+                   int staged, long long smem, void* y, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (m <= 0 || nvec <= 0) return 0;
+  if (len <= 0 || nvec <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BLOCK_ARGS window, staged, vals, x, offsets, k, omin, omax, pr, len, x_len, xv, xi, yv, yi, \
+                   nvec, smem, y, s
   switch (dtype) {
-    case kF32:
-      return launch_block<float, float>(window, vals, x, offsets, k, pr, m, x_vec, nvec, y, s);
-    case kBF16:
-      return launch_block<__nv_bfloat16, float>(window, vals, x, offsets, k, pr, m, x_vec, nvec,
-                                                y, s);
-    case kF64:
-      return launch_block<double, double>(window, vals, x, offsets, k, pr, m, x_vec, nvec, y, s);
-    case kC64:
-      return launch_block<float2, float2>(window, vals, x, offsets, k, pr, m, x_vec, nvec, y, s);
-    case kC128:
-      return launch_block<double2, double2>(window, vals, x, offsets, k, pr, m, x_vec, nvec, y,
-                                            s);
+    case kF32: return launch_block<float, float>(BLOCK_ARGS);
+    case kBF16: return launch_block<__nv_bfloat16, float>(BLOCK_ARGS);
+    case kF64: return launch_block<double, double>(BLOCK_ARGS);
+    case kC64: return launch_block<float2, float2>(BLOCK_ARGS);
+    case kC128: return launch_block<double2, double2>(BLOCK_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef BLOCK_ARGS
 }
 
 const char* dia_cuda_error_string(int code) {

@@ -2,8 +2,6 @@
 //
 // Replaces the Pallas TPU kernels of
 // pcsc_eigenvalue_solver_project_tpu/ops/pallas/qr_kernels.py:
-//   B7  _hessenberg_kernel (:55)    -> qr_hessenberg: reflector_kernel,
-//                                      left_update_kernel, right_update_kernel
 //   B8  _qr_eig_kernel (:293)       -> qr_eig_givens: qr_eig_kernel
 //   B9  _qr_decompose_kernel (:756) -> qr_householder: blocked compact-WY
 //                                      QR, qr_panel_kernel and the tiled GEMM
@@ -12,10 +10,13 @@
 //                                      gemm_kernel (H := R Q), parity_end_kernel
 // for float, double, and complex float2/double2 ((re, im) in (.x, .y), the
 // four-FMA product). B8 runs in complex arithmetic only, as on the TPU.
+// B7 (_hessenberg_kernel, :55) is one cluster kernel of its own, in
+// hessenberg_cluster.cu; the three-launch column step that it ran here
+// (reflector_kernel, left_update_kernel, right_update_kernel) stays for B10.
 //
 // What bounds them, and what the design does about it:
-//  * B7 (and B10's inner steps, which are the unblocked B9 column step with
-//    pivot row k and the update on Q) are n column steps, each O(n^2) and bound
+//  * B10's inner steps (the unblocked B9 column step with pivot row k and
+//    the update on Q) are n column steps, each O(n^2) and bound
 //    by one read and write of the trailing matrix: ~1-4 MB per step at
 //    n = 512, which stays in the 50 MB L2. At that size a step is a few
 //    microseconds of memory work, so the chain of launches bounds it. Each
@@ -84,10 +85,10 @@ __device__ __forceinline__ bool stopped(const double* state) {
   return state != nullptr && state[kDone] != 0.0;
 }
 
-// ---- the Householder column step (B7, B9, B10) ----------------------------
+// ---- the Householder column step (B10) ----------------------------
 
-// From column k of the n x n matrix M with pivot row s (B7: s = k + 1,
-// B9: s = k): v[0..n) = the unit reflector, zero above row s, and
+// From column k of the n x n matrix M with pivot row s (s = k in B10's QR
+// steps): v[0..n) = the unit reflector, zero above row s, and
 // v[n] = its factor, 2, or 0 when the column is zero below the pivot
 // (tail-zero skip) or the reflector degenerates (||v|| = 0). The sign is
 // the pivot's phase x0/|x0|, 1 when x0 = 0 (qr_kernels.py:97-130).
@@ -157,18 +158,17 @@ left_update_kernel(T* __restrict__ M, int64_t n, int64_t k, int64_t s,
 }
 
 // M[i, j] -= f u[i] conj(v[j]) with u[i] = sum_j M[i, j] v[j], on all rows
-// and columns >= s, for M = M0 and, when given, M1 (the accumulated Q).
-// A warp owns a row.
+// and columns >= s (B10: the accumulated Q). A warp owns a row.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-right_update_kernel(T* __restrict__ M0, T* __restrict__ M1, int64_t n, int64_t s,
-                    const T* __restrict__ v, const double* __restrict__ state) {
+right_update_kernel(T* __restrict__ Mm, int64_t n, int64_t s, const T* __restrict__ v,
+                    const double* __restrict__ state) {
   using O = Ops<T>;
   if (stopped(state)) return;
   const int lane = threadIdx.x & 31;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + (threadIdx.x >> 5);
-  if (row >= (M1 != nullptr ? 2 * n : n)) return;
-  T* __restrict__ M = row < n ? M0 + row * n : M1 + (row - n) * n;
+  if (row >= n) return;
+  T* __restrict__ M = Mm + row * n;
   T u = O::zero();
   for (int64_t j = s + lane; j < n; j += 32) u = O::madd(u, M[j], v[j]);
   const T fu = O::scale(warp_allsum(u), O::re(v[n]));
@@ -176,35 +176,16 @@ right_update_kernel(T* __restrict__ M0, T* __restrict__ M1, int64_t n, int64_t s
 }
 
 // One column step: reflector from column k with pivot row s, left update of
-// `left` (rows >= s, columns >= k), right update of `right0` (and `right1`)
-// on columns >= s.
+// `left` (rows >= s, columns >= k), right update of `right` on columns >= s.
 template <typename T>
-int column_step(T* left, T* right0, T* right1, int64_t n, int64_t k, int64_t s,
-                T* v, const double* state, cudaStream_t st) {
+int column_step(T* left, T* right, int64_t n, int64_t k, int64_t s, T* v, const double* state,
+                cudaStream_t st) {
   reflector_kernel<T><<<1, kThreads, 0, st>>>(left, n, k, s, v, state);
   if (int rc = last_error()) return rc;
   left_update_kernel<T><<<blocks_for(n - k, kTileCols), kThreads, 0, st>>>(left, n, k, s, v, state);
   if (int rc = last_error()) return rc;
-  if (right0 == nullptr) return 0;
-  const int64_t rows = right1 != nullptr ? 2 * n : n;
-  right_update_kernel<T><<<blocks_for(rows, kThreads / 32), kThreads, 0, st>>>(
-      right0, right1, n, s, v, state);
+  right_update_kernel<T><<<blocks_for(n, kThreads / 32), kThreads, 0, st>>>(right, n, s, v, state);
   return last_error();
-}
-
-// ---- B7 ------------------------------------------------------------------
-
-template <typename T>
-int run_hessenberg(const T* a, T* h, T* q, T* v, int64_t n, cudaStream_t st) {
-  cudaMemcpyAsync(h, a, n * n * sizeof(T), cudaMemcpyDeviceToDevice, st);
-  if (int rc = last_error()) return rc;
-  if (q != nullptr) {
-    eye_kernel<T><<<blocks_for(n * n, kThreads), kThreads, 0, st>>>(q, n);
-    if (int rc = last_error()) return rc;
-  }
-  for (int64_t k = 0; k + 2 < n; ++k)
-    if (int rc = column_step<T>(h, h, q, n, k, k + 1, v, nullptr, st)) return rc;
-  return 0;
 }
 
 // ---- B9: blocked compact-WY Householder QR ---------------------------------
@@ -756,7 +737,7 @@ int run_parity(const T* h_in, T* h, T* r, T* q, T* v, double* state, int64_t n, 
       parity_begin_kernel<T><<<blocks_for(n * n, kThreads), kThreads, 0, st>>>(h, r, q, n, state);
       if (int rc = last_error()) return rc;
       for (int64_t k = 0; k < n; ++k)
-        if (int rc = column_step<T>(r, q, nullptr, n, k, k, v, state, st)) return rc;
+        if (int rc = column_step<T>(r, q, n, k, k, v, state, st)) return rc;
       gemm_kernel<T><<<gemm_grid, kThreads, 0, st>>>(r, q, h, n, state);
       if (int rc = last_error()) return rc;
       parity_end_kernel<T><<<1, kReduceThreads, 0, st>>>(h, n, state, max_it, tol);
@@ -775,26 +756,6 @@ int run_parity(const T* h_in, T* h, T* r, T* q, T* v, double* state, int64_t n, 
 }  // namespace
 
 extern "C" {
-
-// B7: h = Hessenberg form of the n x n matrix a; q (nullable) = the
-// accumulated unitary with a = q h q^H. scratch holds n + 1 scalars.
-int qr_hessenberg(int dtype, int device, const void* a, void* h, void* q, void* scratch,
-                  long long n, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QR_ARGS(T) static_cast<const T*>(a), static_cast<T*>(h), static_cast<T*>(q), \
-                   static_cast<T*>(scratch), n, s
-  switch (dtype) {
-    case kF32: return run_hessenberg<float>(QR_ARGS(float));
-    case kF64: return run_hessenberg<double>(QR_ARGS(double));
-    case kC64: return run_hessenberg<float2>(QR_ARGS(float2));
-    case kC128: return run_hessenberg<double2>(QR_ARGS(double2));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef QR_ARGS
-}
 
 // B9: a = q r after kmax Householder column steps, by panels of nb <= 64
 // columns. scratch holds 3 n^2 + (ceil(kmax / nb) + 2) nb n + nb^2 + nb

@@ -120,14 +120,21 @@ def load() -> ctypes.CDLL:
             lib.dia_planes_spmv.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i64, i64, i32,
                                             ptr, ptr]
             lib.dia_planes_spmv.restype = i32
-            # dtype, device, vals, xs, offsets, k, pr, m, x vector stride, nvec, window, y,
-            # stream
-            lib.dia_block_spmm.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i64, i64, i32, i32,
-                                           ptr, ptr]
+            # dtype, device, vals, x, offsets, k, omin, omax, pr, len, x_len, x strides
+            # (vector, position), y strides, nvec, window, staged, smem, y, stream
+            lib.dia_block_spmm.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64,
+                                           i64, i64, i64, i64, i32, i32, i32, i64, ptr, ptr]
             lib.dia_block_spmm.restype = i32
-            # dtype, device, a, h, q, scratch, n, stream
-            lib.qr_hessenberg.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, ptr]
+            # dtype, device, a, h, q, slabs, n, cluster, h_smem, q_smem, smem, stream
+            lib.qr_hessenberg.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64,
+                                          ptr]
             lib.qr_hessenberg.restype = i32
+            # dtype, device, cluster, smem, clusters (host int out)
+            lib.hessenberg_cluster_capacity.argtypes = [i32, i32, i32, i64, ptr]
+            lib.hessenberg_cluster_capacity.restype = i32
+            # device, cluster, iterations, stream
+            lib.cluster_barrier_probe.argtypes = [i32, i32, i32, ptr]
+            lib.cluster_barrier_probe.restype = i32
             # dtype, device, a, r, q, scratch, n, kmax, nb, launches (host), stream
             lib.qr_householder.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, i64, i32, ptr, ptr]
             lib.qr_householder.restype = i32

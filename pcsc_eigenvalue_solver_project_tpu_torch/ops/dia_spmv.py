@@ -14,16 +14,19 @@ all in ``csrc/dia_spmv.cu`` (see its header for the design):
   (B4): the complex SpMV on real re/im planes, row-major ``(2, k, n)`` and
   interleaved ``(2, k, R, 128)``, four FMAs per diagonal;
 - ``dia_block_kernel`` and ``dia_il_block_kernel`` (B5): the band times a
-  block of ``nvec`` vectors, row-major and interleaved, each diagonal read
-  once per chunk of up to 8 vectors.
+  block of ``nvec`` vectors, row-major (an ``(nvec, n)`` block, or by
+  strides the ``(n, nvec)`` block of the block solvers) and interleaved,
+  each diagonal read once per chunk of up to 8 vectors, x staged in shared
+  memory (``block_route`` picks that route, or the direct kernel for bands
+  too wide for a tile).
 
 Each kernel wrapper checks its inputs, allocates the output, launches on
 the current stream and counts its launches in ``.launches``. The
 dispatchers (``dia_matvec``, ``dia_matvec_il``, ``dia_matvec_il_window``,
 ``dia_matvec_planes``, ``dia_matvec_il_planes``, ``dia_matmat``,
-``dia_matmat_il``, ``dia_matmat_il_window``) run the plain PyTorch version
-when the operands lie on the CPU, and the kernel otherwise: a tensor on a
-CUDA device launches the kernel or raises. Outputs have the accumulation
+``dia_matmat_cols``, ``dia_matmat_il``, ``dia_matmat_il_window``) run the
+plain PyTorch version when the operands lie on the CPU, and the kernel
+otherwise: a tensor on a CUDA device launches the kernel or raises. Outputs have the accumulation
 dtype ``acc_dtype(stored)``, as the Pallas kernels' do.
 
 Layout: the interleaved layout stores element ``i`` of an n-vector at
@@ -393,43 +396,113 @@ def dia_il_planes_kernel(vals_il_p: torch.Tensor, offsets, w_p: torch.Tensor) ->
 dia_il_planes_kernel.launches = 0
 
 
-def _launch_block(name, vals, offsets, xs, pr, m, out_shape, window):
+# B5's staged route (csrc/dia_spmv.cu::dia_block_staged_kernel): blocks of
+# 256 threads, each thread 16 bytes of output rows (4 in float32), a tile of
+# x for a chunk of up to 8 vectors and a ring of 8 diagonals' values in
+# shared memory; bands whose tile does not fit in BLOCK_STAGED_SMEM take the
+# direct kernel.
+BLOCK_CHUNK = 8
+BLOCK_STAGES = 8
+BLOCK_THREADS = 256
+BLOCK_SLAB_LANES = 32
+BLOCK_STAGED_SMEM = 160 * 1024
+
+
+def block_stage_smem(window: bool, offsets, dtype: torch.dtype, nvec: int) -> int:
+    """Bytes of shared memory B5's staged kernel takes for diagonals stored in
+    ``dtype`` (vectors in ``acc_dtype(dtype)``): per vector of a chunk of
+    ``min(nvec, 8)``, the x tile over the positions the band reaches,
+    row-major ``256 r + span`` positions with one spare element after every
+    128 bytes, interleaved ``(8 r + span)`` sublanes of 32 lanes, with
+    ``r = 16 / itemsize`` rows a thread and ``span`` the largest offset less
+    the least; rounded up to 16 bytes, then a ring of 8 diagonals' stored
+    values, ``r`` of them for each of the 256 threads."""
+    acc = acc_dtype(dtype)
+    itemsize = torch.empty((), dtype=acc).element_size()
+    rows = 16 // itemsize
+    span = max(offsets, default=0) - min(offsets, default=0)
+    if window:
+        elems = ((BLOCK_THREADS // BLOCK_SLAB_LANES) * rows + span) * BLOCK_SLAB_LANES
+    else:
+        positions = BLOCK_THREADS * rows + span
+        elems = positions + positions // (128 // itemsize) + 1
+    tile = -(-elems * min(nvec, BLOCK_CHUNK) * itemsize // 16) * 16
+    ring = BLOCK_STAGES * BLOCK_THREADS * rows * torch.empty((), dtype=dtype).element_size()
+    return tile + ring
+
+
+def block_route(window: bool, offsets, dtype: torch.dtype, nvec: int,
+                vectors_last: bool = False) -> str:
+    """B5's route for diagonals stored in ``dtype``, decided before the
+    launch: ``"staged"`` or ``"direct"``, the kernel that reads x through L1.
+    Staged where the tile fits in ``BLOCK_STAGED_SMEM`` and it was the faster
+    on the H100 (``chip_smoke.py`` phase 15 times both; PERF.md): the
+    interleaved window with 4-byte vectors (float32 and bf16 diagonals), and
+    the ``(n, nvec)`` block of the block solvers. The ``(nvec, n)`` row-major
+    block, and 8- and 16-byte vectors interleaved, take the direct kernel."""
+    faster = vectors_last if not window else acc_dtype(dtype).itemsize == 4
+    fits = block_stage_smem(window, offsets, dtype, nvec) <= BLOCK_STAGED_SMEM
+    return "staged" if faster and fits else "direct"
+
+
+def _launch_block(name, vals, offsets, xs, pr, length, x_len, x_strides, y, y_strides, nvec,
+                  window, route=None):
     _check_operands(name, vals, xs, offsets, vals.shape[0])
-    nvec = xs.shape[0]
     if nvec >= 2 ** 31:
         raise ValueError(f"{name}: {nvec} vectors, more than int32 holds")
+    route = route or block_route(window, offsets, vals.dtype, nvec, x_strides[0] == 1)
+    smem = block_stage_smem(window, offsets, vals.dtype, nvec)
+    if route not in ("staged", "direct"):
+        raise ValueError(f"{name}: route {route!r}, expected 'staged' or 'direct'")
+    if route == "staged" and smem > BLOCK_STAGED_SMEM:
+        raise ValueError(f"{name}: the band's tile takes {smem} bytes, more than the "
+                         f"staged route's {BLOCK_STAGED_SMEM}")
+    if window and route == "direct":  # flat window indices
+        x_strides, y_strides = (x_strides[0], 1), (y_strides[0], 1)
     lib = _build.load()
-    y = torch.empty(out_shape, dtype=xs.dtype, device=xs.device)
     rc = lib.dia_block_spmm(
         _DTYPE_CODES[vals.dtype], xs.device.index, vals.data_ptr(), xs.data_ptr(),
-        _device_offsets(offsets, xs.device).data_ptr(), vals.shape[0], pr, m,
-        xs[0].numel() if nvec else 0, nvec, int(window), y.data_ptr(),
+        _device_offsets(offsets, xs.device).data_ptr(), vals.shape[0],
+        min(offsets, default=0), max(offsets, default=0), pr, length, x_len, *x_strides,
+        *y_strides, nvec, int(window), int(route == "staged"), smem, y.data_ptr(),
         torch.cuda.current_stream(xs.device).cuda_stream)
     _raise_on_error(name, lib, rc)
-    return y
+    return route
 
 
-def dia_block_kernel(vals: torch.Tensor, offsets, xs: torch.Tensor) -> torch.Tensor:
+def dia_block_kernel(vals: torch.Tensor, offsets, xs: torch.Tensor, *,
+                     vectors_last: bool = False, route: str | None = None) -> torch.Tensor:
     """B5 on the card, row-major: (k, n) diagonals (f32, bf16, f64, c64,
     c128) times an (nvec, n) block of dtype ``acc_dtype(vals.dtype)`` ->
-    (nvec, n)."""
+    (nvec, n); with ``vectors_last`` an (n, nvec) block -> (n, nvec), read
+    and written by strides, with no transposed copy. ``route`` ("staged" or
+    "direct") overrides ``block_route``; the route taken is in
+    ``dia_block_kernel.last_route``."""
     offsets = tuple(int(o) for o in offsets)
-    if vals.ndim != 2 or xs.ndim != 2 or xs.shape[1] != vals.shape[1]:
-        raise ValueError(f"dia_block_kernel: expected (k, n) diagonals and an (nvec, n) block, "
+    n_axis = 0 if vectors_last else 1
+    if vals.ndim != 2 or xs.ndim != 2 or xs.shape[n_axis] != vals.shape[1]:
+        shape = "(n, nvec)" if vectors_last else "(nvec, n)"
+        raise ValueError(f"dia_block_kernel: expected (k, n) diagonals and an {shape} block, "
                          f"got {tuple(vals.shape)} and {tuple(xs.shape)}")
-    n = vals.shape[1]
-    y = _launch_block("dia_block_kernel", vals, offsets, xs, 0, n, tuple(xs.shape), False)
+    n, nvec = vals.shape[1], xs.shape[1 - n_axis]
+    y = torch.empty(tuple(xs.shape), dtype=xs.dtype, device=xs.device)
+    strides = (1, nvec) if vectors_last else (n, 1)
+    dia_block_kernel.last_route = _launch_block("dia_block_kernel", vals, offsets, xs, 0, n, n,
+                                                strides, y, strides, nvec, False, route)
     dia_block_kernel.launches += 1
     return y
 
 
 dia_block_kernel.launches = 0
+dia_block_kernel.last_route = None
 
 
-def dia_il_block_kernel(vals_il: torch.Tensor, offsets, w: torch.Tensor) -> torch.Tensor:
+def dia_il_block_kernel(vals_il: torch.Tensor, offsets, w: torch.Tensor,
+                        route: str | None = None) -> torch.Tensor:
     """B5 on the card, interleaved: (k, R, 128) diagonals times the haloed
     windows (nvec, R + 2*pr, 128) of dtype ``acc_dtype(vals_il.dtype)`` ->
-    (nvec, R, 128)."""
+    (nvec, R, 128). ``route`` overrides ``block_route``; the route taken is
+    in ``dia_il_block_kernel.last_route``."""
     offsets = tuple(int(o) for o in offsets)
     if vals_il.ndim != 3 or vals_il.shape[2] != LANES:
         raise ValueError(f"dia_il_block_kernel: expected (k, R, {LANES}) diagonals, "
@@ -439,13 +512,17 @@ def dia_il_block_kernel(vals_il: torch.Tensor, offsets, w: torch.Tensor) -> torc
     if w.ndim != 3 or tuple(w.shape[1:]) != (R + 2 * pr, LANES):
         raise ValueError(f"dia_il_block_kernel: window shape {tuple(w.shape)}, expected "
                          f"(nvec, {R + 2 * pr}, {LANES})")
-    y = _launch_block("dia_il_block_kernel", vals_il, offsets, w, pr, R * LANES,
-                      (w.shape[0], R, LANES), True)
+    nvec = w.shape[0]
+    y = torch.empty((nvec, R, LANES), dtype=w.dtype, device=w.device)
+    dia_il_block_kernel.last_route = _launch_block(
+        "dia_il_block_kernel", vals_il, offsets, w, pr, R, R + 2 * pr,
+        ((R + 2 * pr) * LANES, LANES), y, (R * LANES, LANES), nvec, True, route)
     dia_il_block_kernel.launches += 1
     return y
 
 
 dia_il_block_kernel.launches = 0
+dia_il_block_kernel.last_route = None
 
 KERNELS = (dia_il_kernel, dia_kernel, dia_complex_kernel, dia_il_planes_kernel,
            dia_planes_kernel, dia_block_kernel, dia_il_block_kernel)
@@ -541,6 +618,16 @@ def dia_matmat(vals: torch.Tensor, offsets, xs: torch.Tensor) -> torch.Tensor:
     if vals.device.type == "cpu":
         return dia_matmat_plain(vals, offsets, xs)
     return dia_block_kernel(vals, offsets, xs)
+
+
+def dia_matmat_cols(vals: torch.Tensor, offsets, X: torch.Tensor) -> torch.Tensor:
+    """Banded block SpMM on an (n, b) block of column vectors -> (n, b), the
+    layout of the block solvers. On the card ``X`` must be contiguous with
+    dtype ``acc_dtype(vals.dtype)``: the kernel reads and writes it by
+    strides, with no transposed copy."""
+    if vals.device.type == "cpu":
+        return dia_matmat_plain(vals, offsets, X.T).T
+    return dia_block_kernel(vals, offsets, X, vectors_last=True)
 
 
 def dia_matmat_il(vals_il: torch.Tensor, offsets, xs_il: torch.Tensor) -> torch.Tensor:

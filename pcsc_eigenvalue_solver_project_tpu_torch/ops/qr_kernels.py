@@ -1,10 +1,13 @@
 """Dense QR stack: CUDA kernels for the H100 and their plain versions.
 
 Counterpart of the JAX package's ``ops/pallas/qr_kernels.py``. Four kernels,
-all in ``csrc/qr_kernels.cu`` (see its header for the design):
+in ``csrc/qr_kernels.cu`` and, for B7, ``csrc/hessenberg_cluster.cu`` (see
+their headers for the design):
 
 - ``hessenberg_kernel`` (B7): Householder Hessenberg reduction, optionally
-  accumulating ``Q`` with ``A = Q H Q^H``;
+  accumulating ``Q`` with ``A = Q H Q^H``, as one launch of one thread-block
+  cluster (``csrc/hessenberg_cluster.cu``; ``hessenberg_route`` picks the
+  cluster size and where H and Q live);
 - ``qr_eig_kernel`` (B8): the whole Wilkinson-shifted complex Givens QR
   iteration with deflation on a Hessenberg matrix, in one launch;
 - ``qr_decompose_kernel`` (B9): square Householder QR with the full ``Q``,
@@ -39,6 +42,7 @@ normalisation, B8's ``[lo, hi)`` window), not the XLA solver loops of
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -67,6 +71,94 @@ def qr_panel_width(n: int, dtype: torch.dtype) -> int:
     itemsize = torch.empty((), dtype=dtype).element_size()
     return 32 if n * 32 * itemsize <= QR_PANEL_SMEM else 16
 
+
+
+# B7's cluster sizes, in the order tried: 16 blocks (non-portable, where the
+# card schedules them), else the portable 8.
+HESSENBERG_CLUSTERS = (16, 8)
+# The dynamic shared memory a block of B7 may take (227 KB a block on the
+# H100, less the static part; csrc/hessenberg_cluster.cu::kHessSmemBudget).
+HESSENBERG_SMEM_BUDGET = 227 * 1024 - 1024
+
+
+@dataclass(frozen=True)
+class HessenbergPlan:
+    """How B7 runs: one cluster of ``cluster`` blocks; block r owns the
+    columns r, r + cluster, ... of H and the ``width`` rows from r * width of
+    Q; ``h_smem`` / ``q_smem`` say whether those live in the block's shared
+    memory (else in L2-resident global memory); ``smem`` is its dynamic
+    shared memory in bytes."""
+    cluster: int
+    width: int
+    h_smem: bool
+    q_smem: bool
+    smem: int
+
+
+def hessenberg_cluster_plan(n: int, dtype: torch.dtype, accumulate_q: bool, cluster: int,
+                            smem_budget: int = HESSENBERG_SMEM_BUDGET):
+    """B7's layout for a cluster size, as ``csrc/hessenberg_cluster.cu``
+    reckons it: six vectors of n + 1 scalars (two partials of u, two
+    published columns, the reflector, the block's copy of the next column),
+    then the H slab (``width`` columns of n)
+    and Q's ``width`` rows, each in shared memory where it still fits, H
+    first. None when not even the vectors fit."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    width = -(-n // cluster)
+    used = 6 * (n + 1) * itemsize
+    if used > smem_budget:
+        return None
+    slab = width * n * itemsize
+    h_smem = used + slab <= smem_budget
+    used += slab if h_smem else 0
+    q_smem = accumulate_q and used + slab <= smem_budget
+    used += slab if q_smem else 0
+    return HessenbergPlan(cluster, width, h_smem, q_smem, used)
+
+
+def choose_hessenberg_plan(n: int, dtype: torch.dtype, accumulate_q: bool, capacity):
+    """The first of ``HESSENBERG_CLUSTERS`` whose plan the card can run:
+    ``capacity(cluster, smem)`` is the number of such clusters it holds at
+    once. Raises where none fits."""
+    for cluster in HESSENBERG_CLUSTERS:
+        plan = hessenberg_cluster_plan(n, dtype, accumulate_q, cluster)
+        if plan is not None and capacity(cluster, plan.smem) >= 1:
+            return plan
+    raise ValueError(f"hessenberg_kernel: no cluster of {HESSENBERG_CLUSTERS} blocks fits "
+                     f"n = {n} in {dtype} on this device")
+
+
+_CLUSTER_CAPACITY = {}
+
+
+def hessenberg_route(n: int, dtype: torch.dtype, accumulate_q: bool,
+                     device: torch.device) -> HessenbergPlan:
+    """B7's plan on a CUDA device, decided before the launch
+    (``cudaOccupancyMaxActiveClusters``, cached per device, dtype, cluster
+    size and shared memory)."""
+    code, index = DTYPE_CODES[dtype], device.index if device.index is not None else 0
+
+    def capacity(cluster, smem):
+        key = (index, code, cluster, smem)
+        if key not in _CLUSTER_CAPACITY:
+            lib = _build.load()
+            count = ctypes.c_int(0)
+            rc = lib.hessenberg_cluster_capacity(code, index, cluster, smem, ctypes.byref(count))
+            raise_on_error("hessenberg_kernel", lib, rc)
+            _CLUSTER_CAPACITY[key] = count.value
+        return _CLUSTER_CAPACITY[key]
+
+    return choose_hessenberg_plan(n, dtype, accumulate_q, capacity)
+
+
+def cluster_barrier_probe(device: torch.device, cluster: int, iterations: int) -> None:
+    """Enqueue one cluster of ``cluster`` blocks that runs ``iterations``
+    cluster barriers and nothing else (what a barrier of B7's steps costs)."""
+    lib = _build.load()
+    index = device.index if device.index is not None else 0
+    rc = lib.cluster_barrier_probe(index, cluster, iterations,
+                                   torch.cuda.current_stream(device).cuda_stream)
+    raise_on_error("cluster_barrier_probe", lib, rc)
 
 
 # --------------------------------------------------------------------------
@@ -231,21 +323,27 @@ def qr_parity_plain(h: torch.Tensor, max_iterations: int, tol: float):
 # --------------------------------------------------------------------------
 
 def hessenberg_kernel(a: torch.Tensor, accumulate_q: bool = False):
-    """B7 on the card: ``H`` (and ``Q``) of a square CUDA matrix."""
+    """B7 on the card: ``H`` (and ``Q``) of a square CUDA matrix, in one
+    cluster launch. The plan it ran is in ``hessenberg_kernel.last_plan``."""
     code = check_square("hessenberg_kernel", a, DTYPE_CODES)
     n = a.shape[0]
+    plan = hessenberg_route(n, a.dtype, accumulate_q, a.device)
     lib = _build.load()
     h = torch.empty_like(a)
     q = torch.empty_like(a) if accumulate_q else None
-    scratch = torch.empty(n + 1, dtype=a.dtype, device=a.device)
+    slabs = None if plan.h_smem else torch.empty(plan.cluster * plan.width * n,
+                                                 dtype=a.dtype, device=a.device)
     rc = lib.qr_hessenberg(code, a.device.index, a.data_ptr(), h.data_ptr(), ptr(q),
-                           scratch.data_ptr(), n, stream(a))
+                           ptr(slabs), n, plan.cluster, int(plan.h_smem), int(plan.q_smem),
+                           plan.smem, stream(a))
     raise_on_error("hessenberg_kernel", lib, rc)
     hessenberg_kernel.launches += 1
+    hessenberg_kernel.last_plan = plan
     return (h, q) if accumulate_q else h
 
 
 hessenberg_kernel.launches = 0
+hessenberg_kernel.last_plan = None
 
 
 def qr_eig_kernel(h: torch.Tensor, max_sweeps: int, tol: float,

@@ -26,11 +26,12 @@ from ..matrix.protocol import AbstractMatrix
 
 
 # The n from which a Hessenberg reduction runs the blocked B11 rather than
-# the unblocked B7. chip_smoke.py's sweep on an H100 (700 W) had B11 ahead
-# from n = 1024 on in float32 and complex64 alike (14.4 against 19.6 ms and
-# 17.3 against 30.3 ms there, 31.3 against 88.5 ms and 43.4 against 125.7 ms
-# at 2048) and behind at 256 and 512 (8.2 against 6.4 ms and 9.3 against
-# 8.0 ms at 512; PERF.md).
+# the unblocked B7. chip_smoke.py's sweep on an H100 (700 W), with B7 as one
+# cluster kernel, had B11 ahead from n = 1024 on in float32 and complex64
+# alike (15.1 against 20.7 ms and 17.5 against 29.6 ms there; B7's H leaves
+# shared memory beyond 912 rows in float32, 628 in complex64) and behind up
+# to 768 (2.72 against 8.22 ms and 3.99 against 9.31 ms at 512, 6.14
+# against 14.18 ms and 15.67 against 16.09 ms at 768; PERF.md).
 HESSENBERG_BLOCKED_MIN_N = 1024
 
 

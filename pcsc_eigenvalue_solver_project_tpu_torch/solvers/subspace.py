@@ -32,16 +32,16 @@ from ..core.results import QRResult
 from ..core.tolerance import is_close_relative
 from ..matrix.dia import InterleavedDIA, SparseDIA
 from ..matrix.protocol import AbstractMatrix, require_nonempty, require_square
-from ..ops.dia_spmv import dia_matmat
+from ..ops.dia_spmv import dia_matmat_cols
 from ..utils.prng import default_generator
 
 
 def _apply_block(M: AbstractMatrix, X: torch.Tensor) -> torch.Tensor:
-    """A @ X for X (n, b): the block kernel for DIA (on a contiguous copy of
-    ``X.T``, the (b, n) block it takes), a matmul for dense, a matvec per
+    """A @ X for X (n, b): the block kernel for DIA (on the (n, b) block as
+    it lies, read and written by strides), a matmul for dense, a matvec per
     column otherwise."""
     if isinstance(M, SparseDIA):
-        return dia_matmat(M.data, M.offsets, X.T.contiguous()).T
+        return dia_matmat_cols(M.data, M.offsets, X.contiguous())
     if M.is_dense:
         return M.as_dense() @ X
     return torch.stack([M.matvec(X[:, j]) for j in range(X.shape[1])], dim=1)

@@ -22,6 +22,12 @@ entry of D is the phase of a pivot, which moves by about eps / |pivot|, so
 by up to ~1e-2 at a small pivot in single-precision complex. D itself is
 held to 1 within ``PHASE_TOL``, which a wrong phase convention still fails.
 
+B7 as one cluster kernel is held the same way in four dtypes from n = 1 to
+1023, with D read from Q's columns (q = qp D) and the entries to three units
+in single precision (its sums run in another order, as B11's against B7);
+the residuals to one unit; H and Q bitwise equal call after call; one
+device kernel a call.
+
 The blocked Hessenberg kernel B11 (B12 on complex data) is held to its plain
 version the same way, and to the unblocked B7 at three units (the blocked
 and unblocked sums differ in order, as tests/test_torch_hessenberg_blocked.py
@@ -41,7 +47,11 @@ The split-plane SpMV (B4 interleaved, B3's planes entry row-major) and the
 block SpMM B5 (row-major and interleaved, nvec 1, 3, 8 and 13, so one full
 chunk of 8 and a ragged one) are held to their plain versions as the SpMV
 kernels are, relative to ``max|y|`` (``TOL``), at a ragged n and at offsets
-(-130, 0, 129) that cross the lane seams of the interleaved layout.
+(-130, 0, 129) that cross the lane seams of the interleaved layout. Its
+staged route is held the same way at the route's edges (consecutive and
+non-consecutive offsets, one-sided bands, ragged n, 1, 7, 8, 9 and 17
+vectors, a band too wide for the tile, halo rows carrying values) and on the
+(n, nvec) entry of the block solvers.
 
 The general sparse SpMV B6 (``gell_kernel`` on real and native complex
 vectors, ``gell_planes_kernel`` on re/im planes) is held to its plain version
@@ -466,6 +476,110 @@ def test_hessenberg_reduce_picks_the_blocked_kernel(cuda, monkeypatch):
             (counts[0] + 1, counts[1] + 1)
 
 
+B7_SIZES = [1, 2, 3, 31, 32, 33, 127, 129, 255, 512, 767, 1023]
+
+
+def device_kernels(fn):
+    """The names of the device kernels one call of ``fn`` runs
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def q_phases(q, qp):
+    """D with q = qp D, from the columns (q_j^H qp_j over |.|): the
+    diagonal unitary that H and Q are unique up to, read where it is
+    defined (the subdiagonals' phase ratios multiply their rounding along
+    the n pivots)."""
+    d = (qp.conj() * q).sum(dim=0)
+    return d / d.abs()
+
+
+def assert_matches_plain(a, h, q, hp, qp):
+    """h and q against the plain version's with D divided out, to three
+    units in single precision and one in double (every sum of the cluster
+    kernel runs in another order than the plain version's, as B11's do
+    against B7; 2.6 units measured in complex64 at n = 127 and 129); D near
+    1; the residuals and the zeros below the subdiagonal to one unit."""
+    n, dtype = a.shape[0], a.dtype
+    scale, tol = float(a.abs().max()), qr_tol(dtype, n)
+    units = 1.0 if is_double(dtype) else 3.0
+    eye = torch.eye(n, dtype=dtype, device=a.device)
+    d = q_phases(q, qp)
+    assert float((d - 1).abs().max()) <= PHASE_TOL[is_double(dtype)]
+    assert rel_to(h, d.conj()[:, None] * hp * d, scale) <= units * tol
+    assert rel_to(q, qp * d, 1.0) <= units * tol
+    assert rel_to(q @ h @ q.conj().T, a, scale) <= tol
+    assert rel_to(q.conj().T @ q, eye, 1.0) <= tol
+    if n > 2:
+        assert float(torch.tril(h, -2).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("accumulate_q", [False, True])
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+@pytest.mark.parametrize("n", B7_SIZES)
+def test_cluster_hessenberg_kernel_matches_plain(cuda, n, dtype, accumulate_q):
+    # sizes that do and do not divide over 16 blocks, on both sides of the
+    # shared-memory capacity (H in shared memory to 912 rows in float32, 628
+    # in float64 and complex64, 432 in complex128); D is read from Q, and the
+    # H of a call without Q is the same H, bit for bit
+    a = well_conditioned(n, dtype, seed=500 + n, device=cuda)
+    out = qk.hessenberg_kernel(a, accumulate_q=accumulate_q)
+    torch.cuda.synchronize()
+    plan = qk.hessenberg_kernel.last_plan
+    assert plan == qk.hessenberg_route(n, dtype, accumulate_q, a.device)
+    assert plan.cluster in qk.HESSENBERG_CLUSTERS
+    assert plan == qk.hessenberg_cluster_plan(n, dtype, accumulate_q, plan.cluster)
+    h, q = qk.hessenberg_kernel(a, accumulate_q=True)
+    assert torch.equal(out[0] if accumulate_q else out, h)
+    hp, qp = qk.hessenberg_plain(a, accumulate_q=True)
+    assert_matches_plain(a, h, q, hp, qp)
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+@pytest.mark.parametrize("n", [5, 40, 300])
+def test_cluster_hessenberg_kernel_skips(cuda, n, dtype):
+    # column 0 zero from its pivot down (the degenerate skip) and column 1
+    # zero below its pivot (the tail-zero skip): both keep factor 0, so H
+    # keeps those zeros exactly
+    a = well_conditioned(n, dtype, seed=600 + n, device=cuda)
+    a[1:, 0] = 0
+    a[3:, 1] = 0
+    h, q = qk.hessenberg_kernel(a, accumulate_q=True)
+    torch.cuda.synchronize()
+    assert float(h[1:, 0].abs().max()) == 0.0 and float(h[3:, 1].abs().max()) == 0.0
+    hp, qp = qk.hessenberg_plain(a, accumulate_q=True)
+    assert_matches_plain(a, h, q, hp, qp)
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+@pytest.mark.parametrize("n", [129, 512, 1023])
+def test_cluster_hessenberg_kernel_is_one_deterministic_launch(cuda, n, dtype):
+    # one device kernel a call (the copy of A and Q's identity included),
+    # and no atomics: the same bits call after call
+    a = dense(n, dtype, seed=n, device=cuda)
+    h1, q1 = qk.hessenberg_kernel(a, accumulate_q=True)
+    names = device_kernels(lambda: qk.hessenberg_kernel(a, accumulate_q=True))
+    assert len(names) == 1 and "hessenberg_cluster_kernel" in names[0]
+    assert len(device_kernels(lambda: qk.hessenberg_kernel(a))) == 1
+    h2, q2 = qk.hessenberg_kernel(a, accumulate_q=True)
+    torch.cuda.synchronize()
+    assert torch.equal(h1, h2) and torch.equal(q1, q2)
+
+
+def test_cluster_hessenberg_capacity(cuda):
+    # the card holds a cluster of 16 (or 8) blocks at the plan's shared
+    # memory; beyond the budget it holds none and the route raises
+    plan = qk.hessenberg_route(512, torch.float32, True, cuda)
+    assert plan.h_smem and plan.q_smem and plan.width == -(-512 // plan.cluster)
+    assert qk.hessenberg_route(512, torch.complex128, True, cuda).h_smem is False
+    with pytest.raises(ValueError, match="no cluster"):
+        qk.hessenberg_route(8000, torch.complex128, False, cuda)
+
+
 def random_triangular(n, dtype, seed, device, repeated=False):
     """tests/test_trisolve.py's operands: a random upper triangle with the
     spectrum over [1, 3], or (repeated) a small one over a single eigenvalue."""
@@ -734,6 +848,90 @@ def test_block_window_kernel_with_halo_values(cuda, nvec):
     w = torch.rand((nvec, R + 2 * pr, ds.LANES), generator=gen, device=cuda) * 2 - 1
     ys = ds.dia_matmat_il_window(vals_il, offsets, w)
     assert rel_err(ys, ds.dia_matmat_il_window_plain(vals_il, offsets, w)) <= 1e-5
+
+
+# B5's staged route at its edges: consecutive and non-consecutive offsets,
+# a one-sided band on each side, ragged n (not a multiple of the rows a
+# thread takes), chunks of 1, 7, 8, 9 and 17 vectors; and a row-major band
+# whose span sends the tile past the shared memory (the direct route)
+STAGED_BANDS = [(10_001, tuple(range(-16, 17))), (5003, (-9, -4, -3, 0, 5, 6, 7)),
+                (4099, (0, 1, 2, 3, 11)), (3001, (-20, -19, -1)), (30_011, (-5000, 0, 4999))]
+STAGED_CASES = [(n, offsets, nvec, dtype) for n, offsets in STAGED_BANDS
+                for nvec in (1, 7, 8, 9, 17)
+                for dtype in (torch.float32, torch.bfloat16, torch.float64, torch.complex64,
+                              torch.complex128)]
+
+
+@pytest.mark.parametrize("n,offsets,nvec,dtype", STAGED_CASES)
+def test_block_kernels_staged_route(cuda, n, offsets, nvec, dtype):
+    rng = np.random.default_rng(nvec + 100)
+    vals, _ = band(n, offsets, dtype, seed=24, device=cuda)
+    xs = rng.uniform(-1, 1, (nvec, n))
+    if dtype.is_complex:
+        xs = xs + 1j * rng.uniform(-1, 1, (nvec, n))
+    acc = ds.acc_dtype(dtype)
+    xs = torch.from_numpy(xs).to(device=cuda, dtype=acc)
+    ref = ds.dia_matmat_plain(vals, offsets, xs)
+    fits = {w: ds.block_stage_smem(w, offsets, dtype, nvec) <= ds.BLOCK_STAGED_SMEM
+            for w in (False, True)}
+    # both routes where the tile fits, on both row-major entries: the (nvec, n)
+    # block and the (n, nvec) block, read and written by strides
+    for route in ("staged", "direct") if fits[False] else ("direct",):
+        ys = ds.dia_block_kernel(vals, offsets, xs, route=route)
+        ys_cols = ds.dia_block_kernel(vals, offsets, xs.T.contiguous(), vectors_last=True,
+                                      route=route)
+        torch.cuda.synchronize()
+        assert ds.dia_block_kernel.last_route == route
+        assert ys.shape == (nvec, n) and ys_cols.shape == (n, nvec) and ys_cols.is_contiguous()
+        assert rel_err(ys, ref) <= TOL[dtype]
+        assert rel_err(ys_cols.T, ref) <= TOL[dtype]
+    ds.dia_block_kernel(vals, offsets, xs.T.contiguous(), vectors_last=True)
+    assert ds.dia_block_kernel.last_route == \
+        ds.block_route(False, offsets, dtype, nvec, vectors_last=True)
+    R = ds.il_rows(n)
+    if ds.il_window_halo(offsets) <= R:  # the interleaved layout holds the band
+        vals_il = ds.interleave_dia_vals(vals, R)
+        xs_il = torch.stack([ds.interleave_vec(v, R) for v in xs])
+        ref_il = ds.dia_matmat_il_plain(vals_il, offsets, xs_il)
+        w = ds._il_window(xs_il, ds.il_window_halo(offsets))
+        for route in ("staged", "direct") if fits[True] else ("direct",):
+            ys_il = ds.dia_il_block_kernel(vals_il, offsets, w, route=route)
+            torch.cuda.synchronize()
+            assert ds.dia_il_block_kernel.last_route == route
+            assert rel_err(ys_il, ref_il) <= TOL[dtype]
+        ds.dia_matmat_il(vals_il, offsets, xs_il)
+        assert ds.dia_il_block_kernel.last_route == ds.block_route(True, offsets, dtype, nvec)
+
+
+def test_block_routes_at_the_bench_band(cuda):
+    # the 1M x 33 band of the block solvers takes the staged route on their
+    # (n, 8) block in every dtype, and interleaved with 4-byte vectors;
+    # (-130, 0, 129) interleaved does not fit a tile
+    band33 = tuple(range(-16, 17))
+    for dt in (torch.float32, torch.bfloat16, torch.float64, torch.complex64, torch.complex128):
+        assert ds.block_route(False, band33, dt, 8, vectors_last=True) == "staged"
+        assert ds.block_route(True, band33, dt, 8) == \
+            ("staged" if dt in (torch.float32, torch.bfloat16) else "direct")
+    assert ds.block_route(True, (-130, 0, 129), torch.float32, 8) == "direct"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+@pytest.mark.parametrize("nvec", [1, 9, 17])
+def test_block_window_kernel_with_halo_values_staged(cuda, nvec, dtype):
+    # halo rows carrying values, as in test_block_window_kernel_with_halo_values,
+    # on the staged route, and one chunk of 8 plus a ragged one
+    n, offsets = 100_003, (-9, 0, 3, 9)
+    vals, _ = band(n, offsets, dtype, seed=25, device=cuda)
+    R = ds.il_rows(n)
+    pr = ds.il_window_halo(offsets)
+    vals_il = ds.interleave_dia_vals(vals, R)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    w = (torch.rand((nvec, R + 2 * pr, ds.LANES), generator=gen, device=cuda) * 2 - 1).to(dtype)
+    ref = ds.dia_matmat_il_window_plain(vals_il, offsets, w)
+    ys = ds.dia_il_block_kernel(vals_il, offsets, w, route="staged")
+    assert ds.dia_il_block_kernel.last_route == "staged"
+    assert rel_err(ys, ref) <= TOL[dtype]
+    assert rel_err(ds.dia_matmat_il_window(vals_il, offsets, w), ref) <= TOL[dtype]
 
 
 def test_new_kernels_reject_what_they_do_not_take(cuda):

@@ -254,11 +254,12 @@ class TestDispatch:
         assert os.path.dirname(path) == _build.BUILD_DIR
         assert [os.path.basename(s) for s in _build.sources()] == [
             "dia_spmv.cu", "eig_common.cuh", "gell_spmv.cu", "gell_window_spmv.cu",
-            "hessenberg_blocked.cu", "qr_eig_blocked.cu", "qr_kernels.cu", "trisolve_vec.cu"]
+            "hessenberg_blocked.cu", "hessenberg_cluster.cu", "qr_eig_blocked.cu",
+            "qr_kernels.cu", "trisolve_vec.cu"]
         # the header enters through the sources that include it
         assert [os.path.basename(s) for s in _build.compiled_sources()] == [
             "dia_spmv.cu", "gell_spmv.cu", "gell_window_spmv.cu", "hessenberg_blocked.cu",
-            "qr_eig_blocked.cu", "qr_kernels.cu", "trisolve_vec.cu"]
+            "hessenberg_cluster.cu", "qr_eig_blocked.cu", "qr_kernels.cu", "trisolve_vec.cu"]
 
     def test_import_builds_nothing_and_imports_no_jax(self):
         code = ("import sys\n"

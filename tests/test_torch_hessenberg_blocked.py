@@ -206,6 +206,22 @@ class TestDispatch:
         np.testing.assert_array_equal(tq.hessenberg_reduce(a).numpy(),
                                       hb.hessenberg_blocked_plain(a).numpy())
 
+    @pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.complex64,
+                                    torch.complex128])
+    def test_default_boundary_dispatch(self, dt):
+        # at the boundary the sweep set (B7, one cluster kernel, ahead to 768;
+        # B11 from 1024): one row below it B7, with a plan for either cluster
+        # size, and B11 from it on, with Q and without
+        n = hs.HESSENBERG_BLOCKED_MIN_N
+        for q in (False, True):
+            assert all(tq.hessenberg_cluster_plan(n - 1, dt, q, c) is not None
+                       for c in tq.HESSENBERG_CLUSTERS)
+            with pytest.raises(ValueError, match="^hessenberg_kernel: "):
+                tq.hessenberg_reduce(torch.empty((n - 1, n - 1), dtype=dt, device="meta"), q)
+            with pytest.raises(ValueError, match="^hessenberg_blocked_kernel: "):
+                tq.hessenberg_reduce(torch.empty((n, n), dtype=dt, device="meta"), q)
+        assert _build._lib is None
+
     def test_default_boundary(self):
         # measured on the H100: B7 ahead at 512, B11 from 1024 on; the
         # full-size path (4096) always runs B11

@@ -106,6 +106,83 @@ class TestHessenbergB7:
         np.testing.assert_array_equal(hj, a)
 
 
+class TestHessenbergClusterPlan:
+    """B7's route on the card as a pure function of (n, dtype, Q, cluster
+    size, shared memory): csrc/hessenberg_cluster.cu reckons the same layout,
+    and the card tests hold the two to each other."""
+
+    @pytest.mark.parametrize("n,dtype,q,cluster,h_smem,q_smem", [
+        (512, torch.float32, True, 16, True, True),       # H and Q on chip: 2 MB over 16 blocks
+        (512, torch.float32, False, 16, True, False),
+        (512, torch.complex64, True, 16, True, False),    # Q through L2
+        (512, torch.float64, True, 16, True, False),
+        (512, torch.complex128, True, 16, False, False),  # a 256 KB slab: both through L2
+        (656, torch.float32, True, 16, True, True),       # H and Q fit to n = 656 in float32
+        (657, torch.float32, True, 16, True, False),
+        (912, torch.float32, False, 16, True, False),     # H alone to n = 912
+        (913, torch.float32, False, 16, False, False),
+        (628, torch.complex64, False, 16, True, False),   # to 628 in complex64 and float64
+        (629, torch.float64, False, 16, False, False),
+        (432, torch.complex128, False, 16, True, False),  # to 432 in complex128
+        (433, torch.complex128, False, 16, False, False),
+        (512, torch.float32, True, 8, True, False),       # eight blocks: twice the slab
+        (1, torch.float32, True, 16, True, True),
+        (33, torch.complex128, True, 8, True, True),
+    ])
+    def test_layout(self, n, dtype, q, cluster, h_smem, q_smem):
+        plan = tq.hessenberg_cluster_plan(n, dtype, q, cluster)
+        item = torch.empty((), dtype=dtype).element_size()
+        width = -(-n // cluster)
+        assert (plan.cluster, plan.width, plan.h_smem, plan.q_smem) == \
+            (cluster, width, h_smem, q_smem)
+        slab = width * n * item
+        assert plan.smem == 6 * (n + 1) * item + slab * (int(h_smem) + int(q_smem))
+        assert plan.smem <= tq.HESSENBERG_SMEM_BUDGET
+
+    def test_shared_memory_budget(self):
+        # a smaller budget moves H, then the vectors, off chip
+        vectors = 6 * 257 * 4
+        full = tq.hessenberg_cluster_plan(256, torch.float32, True, 16)
+        assert full.h_smem and full.q_smem and full.smem == vectors + 2 * 16 * 256 * 4
+        plan = tq.hessenberg_cluster_plan(256, torch.float32, True, 16, smem_budget=full.smem - 1)
+        assert plan.h_smem and not plan.q_smem
+        plan = tq.hessenberg_cluster_plan(256, torch.float32, True, 16, smem_budget=vectors)
+        assert not plan.h_smem and not plan.q_smem and plan.smem == vectors
+        assert tq.hessenberg_cluster_plan(256, torch.float32, True, 16,
+                                          smem_budget=vectors - 1) is None
+
+    def test_no_room_for_the_vectors(self):
+        # six vectors of n + 1 complex128 scalars exceed 226 KB from n = 2410
+        assert tq.hessenberg_cluster_plan(2409, torch.complex128, False, 8) is not None
+        assert tq.hessenberg_cluster_plan(2410, torch.complex128, False, 16) is None
+        assert tq.hessenberg_cluster_plan(2410, torch.float32, False, 16) is not None
+
+    def test_cluster_choice(self):
+        seen = []
+
+        def capacity(clusters_of):
+            def cap(cluster, smem):
+                seen.append((cluster, smem))
+                return clusters_of[cluster]
+            return cap
+
+        plan = tq.choose_hessenberg_plan(512, torch.float32, True, capacity({16: 1, 8: 2}))
+        assert plan.cluster == 16 and seen == [(16, plan.smem)]
+        seen.clear()
+        plan = tq.choose_hessenberg_plan(512, torch.float32, True, capacity({16: 0, 8: 3}))
+        assert plan.cluster == 8 and [c for c, _ in seen] == [16, 8]
+        assert plan == tq.hessenberg_cluster_plan(512, torch.float32, True, 8)
+        with pytest.raises(ValueError, match="no cluster of \\(16, 8\\) blocks fits"):
+            tq.choose_hessenberg_plan(512, torch.float32, True, capacity({16: 0, 8: 0}))
+        with pytest.raises(ValueError, match="no cluster"):
+            tq.choose_hessenberg_plan(4096, torch.complex128, True, capacity({16: 9, 8: 9}))
+
+    def test_plan_is_decided_before_any_build(self):
+        with pytest.raises(ValueError, match="^hessenberg_kernel: .*CUDA device"):
+            tq.hessenberg_kernel(torch.empty((8, 8), device="meta"))
+        assert _build._lib is None
+
+
 class TestQRDecomposeB9:
     @pytest.mark.parametrize("complex_values", KINDS)
     @pytest.mark.parametrize("n", SIZES)

@@ -177,6 +177,83 @@ class TestBlockKernels:
         assert all(k.launches == 0 for k in tds.KERNELS)
 
 
+class TestBlockColumns:
+    """B5's (n, b) entry, which the block solvers take on a SparseDIA, and
+    the rule that picks B5's route on the card."""
+
+    @pytest.mark.parametrize("storage", ["float32", "bfloat16", "float64"])
+    @pytest.mark.parametrize("b", [1, 7, 9])
+    def test_columns_plain_matches_pallas(self, b, storage):
+        n = 20000
+        vals = band(n, OFFSETS, seed=7, dtype=np.float64 if storage == "float64" else np.float32)
+        X = np.random.default_rng(8).random((n, b)).astype(vals.dtype)
+        vj, vt = stored(vals, storage)
+        y_jax = jds.dia_matmat(vj, OFFSETS, jnp.asarray(X.T), force="interpret").T
+        y = tds.dia_matmat_cols(vt, OFFSETS, torch.from_numpy(X))
+        assert y.shape == (n, b) and y.dtype == tds.acc_dtype(vt.dtype)
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_jax), rtol=TOL[storage],
+                                   atol=TOL[storage])
+
+    @pytest.mark.parametrize("dtype,limit", [(np.float64, 1e-12), (np.complex128, 1e-12),
+                                             (np.float32, 2e-5)])
+    def test_apply_block_matches_jax(self, dtype, limit):
+        # _apply_block hands the (n, b) block to the kernel as it lies; the same
+        # X0 through JAX's _apply_block and the port's
+        dj = jgen.banded_full(3000, bandwidth=4, dtype=dtype, seed=10, diag_boost=1.0)
+        X0 = start_block(3000, 8, seed=11).astype(dtype)
+        y_jax = np.asarray(jsub._apply_block(dj, jnp.asarray(X0)))
+        y = tsub._apply_block(to_port(dj), torch.from_numpy(X0))
+        assert y.shape == (3000, 8)
+        np.testing.assert_allclose(y.numpy(), y_jax, rtol=limit, atol=limit * np.abs(y_jax).max())
+        # and a chunk of sweeps, with its projected block
+        Xj, Bj = jsub._subspace_chunk(dj, jsub._cholqr2(jnp.asarray(X0)), 3)
+        Xt, Bt = tsub._subspace_chunk(to_port(dj), tsub._cholqr2(torch.from_numpy(X0)), 3)
+        np.testing.assert_allclose(Bt.numpy(), np.asarray(Bj), rtol=100 * limit,
+                                   atol=100 * limit * np.abs(np.asarray(Bj)).max())
+
+    def test_non_cpu_columns_never_take_the_plain_path(self):
+        vals = torch.empty((3, 1000), device="meta")
+        with pytest.raises(ValueError, match="^dia_block_kernel: .*CUDA device"):
+            tds.dia_matmat_cols(vals, (-1, 0, 1), torch.empty((1000, 4), device="meta"))
+        with pytest.raises(ValueError, match="expected \\(k, n\\) diagonals and an "
+                                             "\\(n, nvec\\) block"):
+            tds.dia_block_kernel(vals, (-1, 0, 1), torch.empty((4, 1000), device="meta"),
+                                 vectors_last=True)
+        assert _build._lib is None
+
+    @pytest.mark.parametrize("dtype,rows", [(torch.float32, 4), (torch.bfloat16, 4),
+                                            (torch.float64, 2), (torch.complex64, 2),
+                                            (torch.complex128, 1)])
+    def test_route_rule(self, dtype, rows):
+        # a thread takes 16 bytes of rows of the accumulation dtype; a block
+        # 256 threads; the tile holds x of min(nvec, 8) vectors over the
+        # positions the band reaches, then a ring of 8 diagonals' stored values
+        item = torch.empty((), dtype=tds.acc_dtype(dtype)).element_size()
+        stored = torch.empty((), dtype=dtype).element_size()
+        ring = 8 * 256 * rows * stored
+        band33 = tuple(range(-16, 17))
+        positions = 256 * rows + 32
+        rowmajor = -(-(positions + positions // (128 // item) + 1) * 8 * item // 16) * 16 + ring
+        window = (8 * rows + 32) * 32 * 8 * item + ring
+        assert tds.block_stage_smem(False, band33, dtype, 8) == rowmajor
+        assert tds.block_stage_smem(True, band33, dtype, 8) == window
+        assert tds.block_stage_smem(True, band33, dtype, 17) == window
+        assert tds.block_stage_smem(True, band33, dtype, 3) == (window - ring) // 8 * 3 + ring
+        # staged where it was the faster: the solvers' (n, nvec) block, and
+        # the interleaved window with 4-byte vectors; and where the tile fits
+        assert tds.block_route(False, band33, dtype, 8, vectors_last=True) == "staged"
+        assert tds.block_route(False, band33, dtype, 8) == "direct"
+        assert tds.block_route(True, band33, dtype, 8) == \
+            ("staged" if item == 4 and window <= tds.BLOCK_STAGED_SMEM else "direct")
+        # a one-sided band's span is its width, not twice its reach
+        assert tds.block_stage_smem(True, (0, 1, 2), dtype, 8) == \
+            (8 * rows + 2) * 32 * 8 * item + ring
+        # spans that make the tile too large take the direct route
+        assert tds.block_route(True, (-130, 0, 129), dtype, 8) == "direct"
+        assert tds.block_route(False, (-5000, 0, 4999), dtype, 8, vectors_last=True) == "direct"
+        assert tds.block_route(False, (-130, 0, 129), dtype, 8, vectors_last=True) == "staged"
+
+
 class TestCholQR2:
     @pytest.mark.parametrize("rows", [False, True])
     def test_matches_jax(self, rows):
