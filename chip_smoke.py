@@ -29,8 +29,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 7. the QR path through the public API on CUDA tensors at n = 512: the
    bench operand (symmetric, spectrum 0.9^i) in float32 and a complex64
    operand with spectrum 0.9^i e^(i theta) in both modes, a real
-   non-symmetric matrix in accelerated mode against numpy in float64, and
-   the reference demo's QR section on ``data/A.txt``;
+   non-symmetric matrix in accelerated mode against numpy in float64, the
+   bench operand's construction at 128 in accelerated mode (B8: at most
+   ``UNBLOCKED_MAX_N``; B13 beyond it), and the reference demo's QR section
+   on ``data/A.txt``;
 8. the blocked Hessenberg kernel B11 (B12 on complex data) and the
    triangular-eigenvector kernel B14 against their plain versions: B11 with
    Q at n = 4096 float32, 2048 complex64 and 1024 float64 on a
@@ -52,8 +54,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 10. the eigenpair path through the public API on CUDA tensors:
     ``qr_eigenvalues(A, QROptions(mode="accelerated", compute_vectors=True))``
     on (a) the bench operand at 512 in float32, (b) the complex64 operand of
-    phase 7, (c) the non-symmetric float32 matrix of phase 7 (B8 at 512) and
-    (e) the bench operand's construction at 2048 (B11 and B13), each held to
+    phase 7, (c) the non-symmetric float32 matrix of phase 7 (B13 at 512),
+    (d) the bench operand's construction at 128 (B8) and (e) at 2048 (B11
+    and B13), each held to
     its spectrum and to the residual ``max_k ||A v_k - lambda_k v_k|| / ||A||``;
 11. ``to_hessenberg`` through the public API at n = 4096 float32 and at
     n = 2048 complex64 (the blocked kernel on real and on complex data);
@@ -66,8 +69,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
     3-shift schedule, with B13's time per sweep beside the plain version's;
 13. the sweep that set ``UNBLOCKED_MAX_N``: B8 against B13 in complex64 at
     n = 128 ... 4096, per sweep with the window full and per whole solve on
-    the bench operand; B13's block sizes at 4096 and a torch.profiler
-    breakdown of B13 there;
+    the bench operand; B13's block sizes at 4096 and its device kernels per
+    call there;
 14. the path beyond ``UNBLOCKED_MAX_N`` through ``qr_eigenvalues`` on CUDA
     tensors: eigenvalues of the bench operand at 4096 float32, of the
     complex64 normal operand at 2048 and of a non-symmetric float32 matrix at
@@ -133,6 +136,21 @@ times B11 (B12 on complex data) with the port found under ROOT, with Q and
 without, over three calls after a warm-up between two CUDA events, at
 4096 float32, 2048 complex64, 1024, 2048 and 512 float32, with its device
 kernels per call where the port counts them.
+
+    python3 chip_smoke.py --b13 ROOT
+
+times B13 with the port found under ROOT: a full-window sweep (4 sweeps a
+call, deflation off) at 512, 2048 and 4096 complex64 in eigenvalues-only and
+Schur mode, with its device kernels per call (torch.profiler), and phase
+14's non-symmetric float32 solve at 2048 through ``qr_eigenvalues`` (twice);
+for a port whose B13 is one cooperative launch, also B13's block sizes at
+2048 and 4096.
+
+    python3 chip_smoke.py --b14 ROOT
+
+times B14 with the port found under ROOT at 512 and 2048 in complex64 and
+complex128 on a random triangle (CUDA-graph replay), with its device kernels
+per call.
 """
 
 from __future__ import annotations
@@ -243,7 +261,9 @@ def device_kernels(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # kineto's own list: prof.events() can miss a cooperative launch
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
     return names or None
 
 
@@ -878,11 +898,15 @@ def eigenpair_path_phase(eigsol, dev):
     g32 = torch.from_numpy(g).to(dev, torch.float32)
     g_eigs = np.linalg.eigvals(g32.double().cpu().numpy())
     a_large, d_large = device_operand(rng, LARGE_N, torch.float32, dev, "geometric")
+    a_small, d_small = device_operand(np.random.default_rng(3), QR_SWEEP_N, torch.float32, dev,
+                                      "geometric")
     # eigenvalue limits as in phase 7; the residual is backward stable: one
     # unit, 1e-6 n, of ||A||_2; unit columns to 1e-5
     runs = {"(a) f32 symmetric 512": (a32, d, 1e-4),
             "(b) c64 normal 512": (a64c, dc, 1e-4),
             "(c) f32 non-symmetric 512": (g32, g_eigs, 5e-3),
+            f"(d) f32 symmetric {QR_SWEEP_N} (B8, at most UNBLOCKED_MAX_N)": (a_small, d_small,
+                                                                          1e-4),
             f"(e) f32 symmetric {LARGE_N}": (a_large, d_large, 1e-4)}
     torch.cuda.synchronize()
     results, seconds = {}, {}
@@ -977,11 +1001,19 @@ def qr_path_phase(eigsol, dev):
     # non-symmetric matrix deflates at ~3e-6 * (|h_ii| + |h_jj|) ~ 1e-4 and its
     # eigenvalues have condition numbers of order sqrt(n): 5e-3 absolute
     # against a spectral radius of ~13.
+    # (e): the bench operand's construction at QR_SWEEP_N, where the
+    # accelerated sweeps are B8's (UNBLOCKED_MAX_N)
+    m = QR_SWEEP_N
+    dm = 0.9 ** np.arange(m)
+    Qm, _ = np.linalg.qr(np.random.default_rng(3).standard_normal((m, m)))
+    a_small = torch.from_numpy((Qm * dm) @ Qm.T).to(dev, torch.float32)
+    accel_small = eigsol.QROptions(mode="accelerated", max_iterations=20 * m, tolerance=QR_TOL)
     runs = {"(a) f32 symmetric accelerated": (a32, accel, d, 1e-4),
             "(a) f32 symmetric parity": (a32, parity, d, 1e-4),
             "(b) c64 normal accelerated": (a64c, accel, dc, 1e-4),
             "(b) c64 normal parity": (a64c, parity, dc, 1e-4),
-            "(c) f32 non-symmetric accelerated": (g32, accel, g_eigs, 5e-3)}
+            "(c) f32 non-symmetric accelerated": (g32, accel, g_eigs, 5e-3),
+            f"(e) f32 symmetric accelerated {m}": (a_small, accel_small, dm, 1e-4)}
     A = eigsol.read_matrix_from_file("data/A.txt", torch.complex128, device=dev)
     B = eigsol.read_matrix_from_file("data/B.txt", torch.complex128, device=dev)
     torch.cuda.synchronize()
@@ -1005,7 +1037,7 @@ def qr_path_phase(eigsol, dev):
     for name, (a, opts, want, limit) in runs.items():
         r = results[name]
         got = r.eigenvalues.cpu().numpy()
-        check(got.shape == (n,) and np.isfinite(got).all(), f"{name}: bad eigenvalues")
+        check(got.shape == (a.shape[0],) and np.isfinite(got).all(), f"{name}: bad eigenvalues")
         err = nearest_err(got, want)
         print(f"QR {name}: max eigenvalue error {err:.3e} (limit {limit:.0e}), "
               f"{int(r.iterations)} {'sweeps' if opts.mode == 'accelerated' else 'iterations'}, "
@@ -1107,8 +1139,8 @@ def blocked_boundary_phase(dev, card_name, card_limit):
     budget of 4 sweeps and deflation off (the window stays full), per whole
     solve on the bench operand (whose active window is small) and, up to
     ``NONSYM_MAX_N``, on a non-symmetric uniform(-1, 1) operand (whose window
-    shrinks from full); B13's block sizes at 4096; a torch.profiler breakdown
-    of B13 there."""
+    shrinks from full); B13's block sizes at 4096 and its device kernels per
+    call there."""
     import torch
 
     from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_eig_blocked as qb
@@ -1157,8 +1189,11 @@ def blocked_boundary_phase(dev, card_name, card_limit):
         whole = time_events_ms(lambda: qb.qr_eig_blocked_kernel(hg, 20 * n, QR_TOL, block=bs), 1)
         print(f"block {bs}: B13 complex64 n={n} {per_sweep:.4f} ms/sweep (Schur mode "
               f"{schur:.4f}), bench-operand solve {whole:.3f} ms [{card_name}, {card_limit}]")
-    profile_breakdown(f"B13 complex64 n={n}, {sweeps} sweeps",
-                      lambda: qb.qr_eig_blocked_kernel(full, sweeps, 0.0))
+    names = device_kernels(lambda: qb.qr_eig_blocked_kernel(full, sweeps, 0.0))
+    kernels = "not measured" if names is None else \
+        f"{len(names)} ({sum('sweeps_kernel' in x for x in names)} of B13's)"
+    print(f"B13 complex64 n={n}, {sweeps} sweeps a call: device kernels a call {kernels}, "
+          f"cooperative launches {qb.qr_eig_blocked_kernel.device_launches}")
 
 
 def blocked_path_phase(eigsol, dev):
@@ -2185,6 +2220,86 @@ def b5_compare(root: str) -> None:
                               lambda: chunk(M, X, 10), top=3)
 
 
+def b13_compare(root: str) -> None:
+    """``--b13 ROOT`` (see the module docstring). Prints one line a case;
+    fails if the port is not the one under ROOT, a result is not finite or
+    the solve does not converge."""
+    eigsol = import_port(root)
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_eig_blocked as qb
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+
+    card_name, card_limit = card_line().split(", ")
+    rng = np.random.default_rng(13)
+    sweeps = 4
+    full = {}
+    for n in (QR_N, LARGE_N, FULL_N):
+        h = qk.hessenberg_reduce(device_operand(rng, n, torch.complex64, "cuda", "gaussian")[0])
+        eig_ms = time_events_ms(lambda: qb.qr_eig_blocked_kernel(h, sweeps, 0.0), 2) / sweeps
+        schur_ms = time_events_ms(
+            lambda: qb.qr_eig_blocked_kernel(h, sweeps, 0.0, accumulate_q=True), 2) / sweeps
+        check(bool(torch.isfinite(qb.qr_eig_blocked_kernel(h, sweeps, 0.0)[0]).all()),
+              "B13: eigenvalues not finite")
+        kernels = device_kernels(lambda: qb.qr_eig_blocked_kernel(h, sweeps, 0.0))
+        print(f"b13 {root}: complex64 n={n} bs={qb.BLOCK}: {eig_ms:.4f} ms a full-window sweep, "
+              f"Schur mode {schur_ms:.4f} ({sweeps} sweeps a call, two calls after a warm-up), "
+              f"device kernels a call {'not measured' if kernels is None else len(kernels)} "
+              f"[{card_name}, {card_limit}]")
+        full[n] = h
+    # phase 14's non-symmetric solve at LARGE_N through the public path
+    g = torch.from_numpy(rng.uniform(-1, 1, (LARGE_N, LARGE_N))).to("cuda", torch.float32)
+    opts = eigsol.QROptions(mode="accelerated", max_iterations=20 * LARGE_N, tolerance=QR_TOL)
+    eigsol.qr_eigenvalues(eigsol.DenseMatrix(g[:600, :600].contiguous()), opts)  # warm-up
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = eigsol.qr_eigenvalues(eigsol.DenseMatrix(g), opts)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(bool(r.converged), "B13: the non-symmetric solve did not converge")
+        launches = getattr(qb.qr_eig_blocked_kernel, "device_launches", "not counted")
+        print(f"b13 {root}: non-symmetric float32 n={LARGE_N} solve {seconds:.3f} s, "
+              f"{int(r.iterations)} sweeps, B13 launches {launches} [{card_name}, {card_limit}]")
+    if not hasattr(qb, "blocked_capacity"):
+        return
+    # block sizes per full-window sweep
+    for n in (LARGE_N, FULL_N):
+        line = f"b13 {root}: block sizes, complex64 n={n}, ms a sweep (Schur mode):"
+        for bs in (16, 30, 32, 46, 48, 62, 64):
+            eig_ms = time_events_ms(
+                lambda: qb.qr_eig_blocked_kernel(full[n], sweeps, 0.0, block=bs), 1) / sweeps
+            schur_ms = time_events_ms(lambda: qb.qr_eig_blocked_kernel(
+                full[n], sweeps, 0.0, accumulate_q=True, block=bs), 1) / sweeps
+            line += f" {bs}: {eig_ms:.4f} ({schur_ms:.4f});"
+        print(f"{line} [{card_name}, {card_limit}]")
+
+
+def b14_compare(root: str) -> None:
+    """``--b14 ROOT`` (see the module docstring). Prints one line a case;
+    fails if the port is not the one under ROOT or a Y is not finite."""
+    import_port(root)
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import trisolve_vec as tv
+
+    card_name, card_limit = card_line().split(", ")
+    rng = np.random.default_rng(14)
+    for n in (QR_N, LARGE_N):
+        for dt in (torch.complex64, torch.complex128):
+            t = np.triu(rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+            T = torch.from_numpy(t + np.diag(np.linspace(1.0, 3.0, n))).to("cuda", dt)
+            eps = torch.finfo(dt.to_real()).eps * max(float(T.abs().max()), 1.0)
+            ms = min(time_ms(lambda: tv.triangular_eigenvectors_kernel(T, eps), reps=5)
+                     for _ in range(2))
+            check(bool(torch.isfinite(tv.triangular_eigenvectors_kernel(T, eps)).all()),
+                  "B14: Y not finite")
+            kernels = device_kernels(lambda: tv.triangular_eigenvectors_kernel(T, eps))
+            print(f"b14 {root}: {dt} n={n}: {ms:.4f} ms a call (CUDA-graph replay of five), "
+                  f"device kernels a call {'not measured' if kernels is None else len(kernels)} "
+                  f"[{card_name}, {card_limit}]")
+
+
 def main() -> None:
     import torch
 
@@ -2430,6 +2545,9 @@ def main() -> None:
     for kernel in (qk.hessenberg_kernel, qk.qr_eig_kernel, qk.qr_decompose_kernel,
                    qk.qr_parity_kernel):  # the eigenvalue path at 512 (B11, B14: phases 10-11)
         check(kernel.launches > 0, f"{kernel.__name__} was not launched by the QR path")
+    if qr_dispatch(QR_N, dev) == "cuda_blocked":
+        check(qk.qr_eig_blocked_kernel.launches > 0,
+              "qr_eig_blocked_kernel was not launched by the QR path")
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
     # ---- 8. the blocked Hessenberg and eigenvector kernels -----------------
@@ -2605,6 +2723,10 @@ if __name__ == "__main__":
         b7_compare(sys.argv[2])
     elif sys.argv[1:2] == ["--b5"] and len(sys.argv) == 3:
         b5_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--b13"] and len(sys.argv) == 3:
+        b13_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--b14"] and len(sys.argv) == 3:
+        b14_compare(sys.argv[2])
     else:
         main()
     sys.stdout.flush()

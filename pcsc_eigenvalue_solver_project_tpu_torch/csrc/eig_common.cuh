@@ -1,5 +1,7 @@
 // Scalar arithmetic and small helpers shared by the dense kernels
 // (qr_kernels.cu, hessenberg_blocked.cu, trisolve_vec.cu, qr_eig_blocked.cu),
+// the element copies by cp.async of trisolve_vec.cu and qr_eig_blocked.cu,
+// the chained launches of hessenberg_blocked.cu and trisolve_vec.cu,
 // and the tiled GEMM of the compact-WY updates (B9, B11, B12) with its
 // deterministic split-K form (B11, B12).
 //
@@ -12,6 +14,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <utility>
 
 namespace {
 
@@ -203,6 +206,23 @@ __device__ T wilkinson_shift(const T* H, int64_t n, int hi) {
   return m1 < m2 ? mu1 : mu2;
 }
 
+// One element into shared memory by cp.async (Bytes = its size, 8 or 16);
+// zeros when !valid. Asynchronous: cp_async_commit(), then cp_async_wait<N>()
+// before the thread reads it (a barrier before other threads do).
+template <int Bytes>
+__device__ __forceinline__ void cp_async_elem(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int size = valid ? Bytes : 0;
+  if constexpr (Bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(size));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(Bytes),
+                 "r"(size));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
 inline unsigned blocks_for(int64_t count, int per_block) {
   return static_cast<unsigned>((count + per_block - 1) / per_block);
 }
@@ -222,6 +242,32 @@ int allow_dynamic_smem(int bytes) {
   if (int rc = last_error()) return rc;
   if (device < 64) done[device] = true;
   return 0;
+}
+
+// ---- programmatic dependent launch (B11's column steps, B14's blocks)
+//
+// A kernel launched by launch_chained(..., chained = true) may start while
+// the kernel before it on the stream finishes. It loads what that kernel
+// does not write, then waits for it (all its writes visible) before it reads
+// or writes anything that kernel touches; once past the wait, it lets the
+// next kernel start. Without the launch attribute both are no-ops.
+__device__ __forceinline__ void wait_previous() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+__device__ __forceinline__ void start_next() { asm volatile("griddepcontrol.launch_dependents;"); }
+
+template <typename... Params, typename... Args>
+int launch_chained(void (*kernel)(Params...), dim3 grid, int threads, int smem, bool chained,
+                   cudaStream_t st, Args&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = chained ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...));
 }
 
 // ---- the tiled GEMM (B11/B12 in hessenberg_blocked.cu, B9 in qr_kernels.cu)

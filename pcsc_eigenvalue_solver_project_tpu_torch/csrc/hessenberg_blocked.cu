@@ -81,8 +81,6 @@
 // on the caller's stream and returns the first CUDA error (0 on success),
 // checked after every launch.
 
-#include <utility>
-
 #include "eig_common.cuh"
 
 namespace {
@@ -96,14 +94,9 @@ constexpr int kLanes = 8;                 // lanes per output in the panel sums
 constexpr int kTriRounds = kMaxPanel / (kColThreads / kLanes);  // outputs per lane group
 constexpr int kTriTerms = kMaxPanel / kLanes;                   // terms per lane
 
-// Programmatic dependent launch (Hopper): each column-step kernel but the
-// panel's first is launched to start while the one before it finishes. It
-// loads what that kernel does not write, then waits for it (all its
-// writes visible) before it reads or writes anything that kernel touches;
-// once past the wait, it lets the next kernel start. Without the launch
-// attribute both are no-ops.
-__device__ __forceinline__ void wait_previous() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
-__device__ __forceinline__ void start_next() { asm volatile("griddepcontrol.launch_dependents;"); }
+// Programmatic dependent launch (Hopper; launch_chained, wait_previous and
+// start_next of eig_common.cuh): each column-step kernel but the panel's
+// first is launched to start while the one before it finishes.
 
 // Rows per tile of col_update and col_reflect: 8, 16 or 32, the fewest
 // that keep the grid within kColBlocks blocks (n <= 4224), so that the
@@ -435,26 +428,6 @@ inline int64_t scratch_size(int64_t n, int nb) {
   return 5 * n * nb + 3 * nb * nb + n + (2 * nb + 2) * B + split_capacity(n, nb);
 }
 
-// Launch a column-step kernel of kColThreads threads on `blocks` blocks;
-// `chained`: with programmatic stream serialization, so that it may start
-// while the column-step kernel before it finishes (its wait_previous()
-// orders what matters).
-template <typename... Params, typename... Args>
-int launch_col(void (*kernel)(Params...), unsigned blocks, bool chained, cudaStream_t st,
-               Args&&... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kColThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = chained ? 1 : 0;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...));
-}
-
 template <typename T>
 int run_blocked(const T* a, T* h, T* q, T* scratch, int64_t n, int nb, long long* launches,
                 cudaStream_t st) {
@@ -491,14 +464,14 @@ int run_blocked(const T* a, T* h, T* q, T* scratch, int64_t n, int nb, long long
     if (int rc = last_error()) return rc;
     for (int j = 0; j < jn; ++j) {  // phase A
       const unsigned gemv_blocks = blocks_for(n, kGemvRows);
-      if (int rc = counted(launch_col(col_update_kernel<T>, B, j > 0, st, h, Vt, Zt, Tf, c, Pu, n,
-                                      nb, k0, j, rows), 1))
+      if (int rc = counted(launch_chained(col_update_kernel<T>, dim3(B), kColThreads, 0, j > 0,
+                                          st, h, Vt, Zt, Tf, c, Pu, n, nb, k0, j, rows), 1))
         return rc;
-      if (int rc = counted(launch_col(col_reflect_kernel<T>, B, true, st, Vt, Tf, c, Pu, Pw, n, nb,
-                                      k0, j, rows), 1))
+      if (int rc = counted(launch_chained(col_reflect_kernel<T>, dim3(B), kColThreads, 0, true, st,
+                                          Vt, Tf, c, Pu, Pw, n, nb, k0, j, rows), 1))
         return rc;
-      if (int rc = counted(launch_col(col_finish_kernel<T>, gemv_blocks, true, st, h, Vt, Zt, Tf,
-                                      c, Pw, n, nb, k0, j, B), 1))
+      if (int rc = counted(launch_chained(col_finish_kernel<T>, dim3(gemv_blocks), kColThreads, 0,
+                                          true, st, h, Vt, Zt, Tf, c, Pw, n, nb, k0, j, B), 1))
         return rc;
     }
     // phase B; columns < k0 of rows >= s0 are zero, so P and W start at k0

@@ -10,323 +10,637 @@
 // qr_kernels.cu): the shift mu (Wilkinson's from the trailing active 2x2, or
 // the caller's schedule: sweep s takes shifts[s % n_shifts]); H - mu I on the
 // window; the left rotations k = lo .. hi-2 in blocks of bs (block i owns
-// b = lo + i bs .. e - 1 with e = min(b + bs, hi - 1), its rows are b .. e);
-// then the right rotations block by block in order (consecutive blocks share
-// column e); + mu I; the deflation scan into the new hi and lo.
+// b_i = lo + i bs .. e_i - 1 with e_i = min(b_i + bs, hi - 1), its rows are
+// b_i .. e_i, and b_{i+1} = e_i); each block's rotations accumulated into
+// U_i ((bs + 1)^2, from I) and applied to the block's rows beyond the window
+// (the slab, columns e_i + 1 .. col_end - 1: col_end = hi for eigenvalues, n
+// in Schur mode); the right rotations block by block (rows 0 .. e_i + 1 times
+// columns b_i .. e_i := . U_i^H, and in Schur mode Q's columns); + mu I; the
+// deflation scan into the new hi and lo.
 //
-// What bounds it on this card, and what the design does about it:
-//  * The rotations form a serial chain: rotation k is formed from column k
-//    after rotation k - 1 has been applied. B8 runs the whole sweep in one
-//    block, so every rotation rewrites a row pair of length n on one SM, and
-//    a sweep costs O(n^2) time on one SM of 132. Here the chain touches only
-//    a (bs + 1) x (bs + 2) window per block in shared memory (window_kernel,
-//    one block, one barrier per rotation: the thread that owns column k + 1
-//    forms rotation k + 1, as in B8), and the block's rotations are
-//    accumulated into U_b ((bs + 1) x (bs + 1), from I), which is kept in
-//    device memory for the right pass (not rebuilt from coefficients).
-//  * The O(n) work per rotation becomes products that run on every SM, written
-//    by hand (FMA in the working precision, no tensor cores, so no TF32):
-//    slab_kernel, rows b .. e times columns e + 1 .. col_end := U_b * slab
-//    (col_end = hi for eigenvalues, n in Schur mode), a block per 32 columns;
-//    right_kernel, rows 0 .. min(e + 2, n) - 1 times columns b .. e :=
-//    . * U_b^H, and in Schur mode Q's columns b .. e over all n rows, a block
-//    per 32 rows. A full-window sweep moves about 4 n^2 elements of H (8 n^2
-//    with Q, whose columns and H's slabs run through all n) and does (bs + 1)
-//    complex multiply-adds per element touched: bytes-bound at bs <= 64, so
-//    the chain of n rotations behind barriers, plus the launches, bound it.
-//  * Launches: per sweep one window and one slab launch per block, one right
-//    launch per block and one boundary launch (3 nblk + 1). hi and lo live on
-//    the device; the host reads them before each chunk of about
-//    launches_per_read launches (as B10 reads its flag) and enqueues the
-//    chunk's sweeps with the nblk of the hi it read, and every kernel returns
-//    at once when its block lies past the live window or the iteration is
-//    done (the TPU kernel's pl.when(bi < nblk)). The chunk bounds the
-//    launches wasted after convergence. A persistent kernel or a CUDA graph
-//    of a sweep is later work.
-//  * boundary_kernel, one block between sweeps: adds the shift back, runs the
-//    deflation scan (a parallel reduction over the subdiagonal), counts the
-//    sweep, sets done, and for the next sweep forms the shift and subtracts
-//    it on the new window.
-// The left window reaches column b - 1 (for b = lo that is the deflated
-// subdiagonal entry H[lo, lo - 1]) and the right pass row e + 1, so that a
-// sweep touches what B8's touches but for exact zeros; eigenvalues-only mode
-// never updates a column at or beyond hi. The TPU's 120/136/256 window
-// shapes, 128-lane padding, 8/128-aligned anchoring and diagonal caches are
-// VMEM layout and have no counterpart; no row or column outside [0, n) is
-// ever read.
+// What bounds it on this card, and what the design does about it. The
+// rotations form a serial chain: rotation k is formed from column k after
+// rotation k - 1. Everything else is short, wide products that depend on the
+// chain only through the U_i. So one cooperative launch runs a chunk of
+// sweeps on a grid no larger than the card holds at once:
+//  * Block 0 runs the chain. For block i it rotates the window (rows b_i ..
+//    e_i, columns max(b_i - 1, 0) .. e_i, in shared memory) in ONE warp: a
+//    lane owns window column lane (and lane + 32 at bs > 30, lane + 64 at
+//    bs > 62: each slot costs the warp a rotation's worth of instructions),
+//    carries its current row in registers and streams the next from shared
+//    memory; the lane that owns the next pivot column hands its rotated entry
+//    to the warp by __shfl_sync, and every lane forms the same rotation from
+//    it, with no block barrier. The same warp accumulates U_i (lane l its
+//    columns l + 32 s) and writes its rows as they finish; the other seven
+//    warps prefetch the next window and the rows of the look-ahead by
+//    cp.async. (The rotation keeps B8's correctly
+//    rounded 1 / sqrt: an rsqrtf estimate with one Newton step, faster in a
+//    microbenchmark, left the non-symmetric 2048 solve's eigenvalues 13x
+//    further from numpy's.)
+//    The window needs one entry range that the sweep has written: row b_i
+//    over columns e_{i-1} + 1 .. e_i, the last row of slab i - 1 there (its
+//    look-ahead). The chain computes it itself, U_{i-1}'s last row times
+//    those columns, right after window i - 1, keeps the columns' original
+//    row in `side` for the slab, and publishes U_{i-1} and a flag only then.
+//    Its one wait: row b_{i-1} over those columns is slab i - 2's output, so
+//    it waits for slab i - 2 on the column tiles there, which had a whole
+//    window's time to finish.
+//  * Blocks 1 .. nslab own fixed 32-column tiles of the slabs; each takes
+//    the blocks in order, waits for U_j's flag, applies U_j to its tiles
+//    (skipping the look-ahead entries, whose input row comes from `side`),
+//    and publishes a per-tile count of slabs done. The remaining blocks own
+//    fixed 32-row tiles of the right passes, on H (each waits for every
+//    window that reaches row e_j + 1 and for the slabs on columns b_j .. e_j)
+//    and in Schur mode on Q (each waits only for U_j). No one waits for a
+//    right pass. Tasks wait on flags and counts by ld.acquire.gpu and publish
+//    them by st.release.gpu; flags carry the launch's sweep number, so sweep
+//    s + 1 never reads one of sweep s. Data another block wrote is read
+//    through L2 (__ldcg). Every output entry is written by one thread in a
+//    fixed order, with no atomics in any sum: T and Q repeat bit for bit.
+//    ops/qr_eig_blocked.py::_sweep_tasks is this dependency graph in
+//    PyTorch, run in random orders on the CPU.
+//  * Between sweeps a grid barrier; block 0 adds the shift back, runs the
+//    deflation scan, counts the sweep, sets done, forms the next shift
+//    (schedule or Wilkinson) and subtracts it; a second grid barrier. The
+//    launch runs until done or its sweep budget, and the host reads the
+//    state once a launch.
+//  * Products: FMA in the working precision (no tensor cores, so no TF32).
+//    A full-window sweep moves about 4 n^2 elements of H (8 n^2 with Q) at
+//    (bs + 1) complex multiply-adds each, so the workers, spread over the
+//    card, keep pace with the chain, which bounds the sweep: n rotations,
+//    each a shuffle, a rotation of a few columns and a square root.
+// Eigenvalues-only mode never updates a column at or beyond hi. The TPU's
+// 120/136/256 window shapes, 128-lane padding, 8/128-aligned anchoring and
+// diagonal caches are VMEM layout and have no counterpart; no row or column
+// outside [0, n) is ever read.
 //
 // Plain C interface for ctypes: the entry point selects the device, launches
 // on the caller's stream and returns the first CUDA error (0 on success),
 // checked after every launch.
 
+#include <cooperative_groups.h>
+
 #include "eig_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxBlock = 64;         // largest bs (rotations per block)
-constexpr int kWinThreads = 96;       // window_kernel: thread j owns window column j
-constexpr int kProdThreads = 256;     // slab_kernel, right_kernel
-constexpr int kSlabCols = 32;         // slab_kernel: columns per block
-constexpr int kRightRows = 32;        // right_kernel: rows per block
-constexpr int kRowGroups = kProdThreads / 32;
+constexpr int kMaxBlock = 64;       // largest bs (rotations per block)
+constexpr int kSweepThreads = 256;  // every block of the grid
+constexpr int kSlabCols = 32;       // columns a slab tile
+constexpr int kRightRows = 32;      // rows a right-pass tile
+// Sweeps a launch at most (SWEEPS_PER_LAUNCH of ops/qr_eig_blocked.py): on
+// the H100 the budget moved the non-symmetric 2048 solve by 1.3% from 8 to
+// 8192 sweeps (PERF.md); it bounds the sweeps past convergence a host waits
+// for before it reads the state.
+constexpr int kSweepsPerLaunch = 256;
+constexpr int kRowGroups = kSweepThreads / 32;
 constexpr int kSlabRowsPerThread = (kMaxBlock + 1 + kRowGroups - 1) / kRowGroups;
 constexpr int kRightColsPerThread = (kMaxBlock + 1 + 31) / 32;
-constexpr int kBoundaryThreads = 1024;
-static_assert(kWinThreads >= kMaxBlock + 2, "a thread per window column");
-static_assert(kRightRows % kRowGroups == 0, "right_kernel row groups");
+constexpr int kRightRowsPerThread = kRightRows / kRowGroups;
+static_assert(kRightRows % kRowGroups == 0, "right-pass row groups");
 
 // Device state (int32): the active window, the sweeps done in this call, and
 // whether the iteration has ended.
 enum State { kHi = 0, kLo = 1, kSweeps = 2, kDone = 3 };
 
-// Block bi of the current sweep: rows b .. e, live while b < hi - 1.
-struct Block {
-  int b, e;
-  bool live;
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Every thread of the block past *p >= target.
+__device__ __forceinline__ void wait_for(const unsigned* p, unsigned target) {
+  if (threadIdx.x == 0)
+    while (ld_acquire(p) < target) {
+    }
+  __syncthreads();
+}
+
+// *p = v once every thread's writes before the call are visible on the card.
+__device__ __forceinline__ void publish(unsigned* p, unsigned v) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(p, v);
+}
+
+// Column tiles of the slabs (row tiles of the right passes) of n.
+__host__ __device__ __forceinline__ int tiles_of(int64_t n, int per_tile) {
+  return static_cast<int>((n + per_tile - 1) / per_tile);
+}
+
+// What every block of the launch reads.
+template <typename T>
+struct Sweep {
+  T* h;
+  T* q;          // null: eigenvalues only
+  T* u;          // the U_i, (bs + 1)^2 each
+  T* side;       // n: row e_i's original entries over its look-ahead columns
+  T* eig;
+  int* st;
+  T* mu;
+  const T* shifts;
+  unsigned* flags;  // n U flags, then a slab count per column tile
+  int n_shifts;
+  int64_t n;
+  int max_sweeps;
+  typename Ops<T>::Real tol;
+  int bs;
+  int budget;     // sweeps this launch at most
+  int first;      // the call's first launch: the initial scan and shift
+  int nslab;      // slab blocks (1 .. nslab); the rest take the right passes
 };
 
-__device__ __forceinline__ Block block_of(const int* st, int bi, int bs) {
-  const int hi = st[kHi], b = st[kLo] + bi * bs;
-  return {b, min(b + bs, hi - 1), st[kDone] == 0 && b < hi - 1};
+// The sweep's blocks: b_i = lo + i bs, e_i = min(b_i + bs, hi - 1).
+struct Blocks {
+  int lo, hi, bs, count;
+  __device__ int b(int i) const { return lo + i * bs; }
+  __device__ int e(int i) const { return min(lo + i * bs + bs, hi - 1); }
+  // the last block whose window reaches row e_j + 1
+  __device__ int reach(int j) const { return min(count - 1, (e(j) + 1 - lo) / bs); }
+};
+
+// |H[c+1, c]| <= tol * max(|H[c, c]| + |H[c+1, c+1]|, 1), read through L2
+// (negligible() of eig_common.cuh: the entries were written by other blocks).
+template <typename T>
+__device__ __forceinline__ bool negligible_cg(const T* H, int64_t n, int c,
+                                              typename Ops<T>::Real tol) {
+  using O = Ops<T>;
+  using R = typename O::Real;
+  const R scale = dsqrt(O::abs2(__ldcg(&H[c * n + c]))) + dsqrt(O::abs2(__ldcg(&H[(c + 1) * n + c + 1])));
+  return dsqrt(O::abs2(__ldcg(&H[(c + 1) * n + c]))) <= tol * (scale > R(1) ? scale : R(1));
 }
 
-// (a) The block's left rotations on its window, rows b .. e times columns
-// c0 = max(b - 1, 0) .. e, in shared memory, accumulated into U_b, which is
-// written to U (stride bs + 1).
+// deflate_and_lo() of eig_common.cuh through L2: sh[0] + 2 is the new hi,
+// sh[1] + 1 the new lo.
 template <typename T>
-__global__ void __launch_bounds__(kWinThreads)
-window_kernel(T* __restrict__ H, T* __restrict__ U, int64_t n, const int* __restrict__ st, int bi,
-              int bs) {
+__device__ void deflate_and_lo_cg(const T* H, int64_t n, int hi, typename Ops<T>::Real tol,
+                                  int* sh) {
+  if (threadIdx.x == 0) sh[0] = sh[1] = -1;
+  __syncthreads();
+  int best = -1;
+  for (int c = threadIdx.x; c < hi - 1; c += blockDim.x)
+    if (!negligible_cg(H, n, c, tol)) best = c;
+  if (best >= 0) atomicMax(&sh[0], best);
+  __syncthreads();
+  const int new_hi = sh[0] + 2;
+  best = -1;
+  for (int c = threadIdx.x; c < new_hi - 1; c += blockDim.x)
+    if (negligible_cg(H, n, c, tol)) best = c;
+  if (best >= 0) atomicMax(&sh[1], best);
+  __syncthreads();
+}
+
+// Between sweeps (block 0): unless `first`, adds the sweep's shift back on
+// [lo, hi) and counts the sweep. Then the deflation scan into hi and lo,
+// done = hi <= 1 or sweeps >= max_sweeps, and if not done the next shift
+// (schedule or Wilkinson), stored in mu and subtracted on the new window.
+template <typename T>
+__device__ void boundary(const Sweep<T>& a, bool first, int* sh, T* s_mu) {
   using O = Ops<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ T s_g[2][2];  // rotations k (even/odd slot): g00, g01
-  const Block blk = block_of(st, bi, bs);
-  if (!blk.live) return;
-  const int b = blk.b, m = blk.e - b + 1, c0 = b > 0 ? b - 1 : 0, wc = blk.e - c0 + 1;
-  const int ws = bs + 2, us = bs + 1, t = threadIdx.x;
-  T* W = reinterpret_cast<T*>(smem);  // m x wc, stride ws
-  T* Us = W + (bs + 1) * ws;          // m x m, stride us
-  for (int i = t; i < m * wc; i += blockDim.x)
-    W[(i / wc) * ws + i % wc] = H[(b + i / wc) * n + c0 + i % wc];
-  for (int i = t; i < m * m; i += blockDim.x)
-    Us[(i / m) * us + i % m] = i / m == i % m ? O::one() : O::zero();
+  T* H = a.h;
+  const int64_t n = a.n;
+  const int t = threadIdx.x, nt = blockDim.x;
+  int hi = static_cast<int>(n), sweeps = 0;
+  if (!first) {
+    hi = a.st[kHi];
+    const T m = *a.mu;
+    for (int i = a.st[kLo] + t; i < hi; i += nt) H[i * n + i] = O::add(__ldcg(&H[i * n + i]), m);
+    sweeps = a.st[kSweeps] + 1;
+  }
   __syncthreads();
-  if (t == 0) givens(W[b - c0], W[ws + b - c0], s_g[0]);
-  __syncthreads();
-  for (int r = 0; r + 1 < m; ++r) {  // rotation k = b + r on local rows r, r + 1
-    const T g00 = s_g[r & 1][0], g01 = s_g[r & 1][1];
-    if (t < wc) {
-      rotate_pair(g00, g01, &W[r * ws + t], &W[(r + 1) * ws + t]);
-      if (c0 + t == b + r + 1 && r + 2 < m)  // the owner of column k + 1 forms rotation k + 1
-        givens(W[(r + 1) * ws + t], W[(r + 2) * ws + t], s_g[(r + 1) & 1]);
+  deflate_and_lo_cg(H, n, hi, a.tol, sh);
+  hi = sh[0] + 2;
+  const int lo = sh[1] + 1;
+  const bool done = hi <= 1 || sweeps >= a.max_sweeps;
+  if (!done) {
+    if (t == 0) {
+      T corner[4];  // the trailing active 2 x 2
+      for (int k = 0; k < 4; ++k) corner[k] = __ldcg(&H[(hi - 2 + k / 2) * n + hi - 2 + k % 2]);
+      *s_mu = a.n_shifts > 0 ? a.shifts[sweeps % a.n_shifts] : wilkinson_shift(corner, 2, 2);
     }
-    if (t < m) rotate_pair(g00, g01, &Us[r * us + t], &Us[(r + 1) * us + t]);
     __syncthreads();
+    for (int i = lo + t; i < hi; i += nt) H[i * n + i] = O::sub(__ldcg(&H[i * n + i]), *s_mu);
   }
-  for (int i = t; i < m * wc; i += blockDim.x)
-    H[(b + i / wc) * n + c0 + i % wc] = W[(i / wc) * ws + i % wc];
-  T* Ub = U + static_cast<int64_t>(bi) * us * us;
-  for (int i = t; i < m * m; i += blockDim.x) Ub[(i / m) * us + i % m] = Us[(i / m) * us + i % m];
+  __syncthreads();
+  if (t == 0) {
+    a.st[kHi] = hi;
+    a.st[kLo] = lo;
+    a.st[kSweeps] = sweeps;
+    a.st[kDone] = done ? 1 : 0;
+    if (!done) *a.mu = *s_mu;
+  }
 }
 
-// (b) The left slab: rows b .. e times columns e + 1 .. col_end - 1 := U_b *
-// slab, 32 columns per block; thread (group g, lane x) forms rows g, g + 8, ...
-// of column x.
-template <typename T>
-__global__ void __launch_bounds__(kProdThreads)
-slab_kernel(T* __restrict__ H, const T* __restrict__ U, int64_t n, const int* __restrict__ st,
-            int bi, int bs, int schur) {
+// Warp 0: the left rotations of one window W (m rows, wc columns, stride
+// ws; rotation r's pivot is local column r + off), accumulated into U (from
+// I; written to Ug, stride us, as its rows finish, and its last row also to
+// Ul). Lane l owns columns l + 32 s of W and of U and carries their current
+// two rows in registers; each step loads the next row (and the next pivot's
+// entry below it) before it stores anything, and the next rotation comes
+// from the pivot column's owner by one shuffle. The body has no branch, so
+// that the warp's one instruction stream can overlap the stores and U with
+// the chain: the step past the last rotation reads row m - 1 again and forms
+// a rotation that is never used.
+template <typename T, int kSlots>
+__device__ void rotate_window(T* W, int ws, int m, int wc, int off, T* Ug, T* Ul, int us) {
   using O = Ops<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Block blk = block_of(st, bi, bs);
-  if (!blk.live) return;
-  const int64_t col_end = schur ? n : st[kHi];
-  const int64_t j0 = blk.e + 1 + static_cast<int64_t>(blockIdx.x) * kSlabCols;
-  if (j0 >= col_end) return;
-  const int b = blk.b, m = blk.e - b + 1, us = bs + 1, t = threadIdx.x;
-  const int x = t % 32, g = t / 32;
+  const int lane = threadIdx.x;
+  T cur[kSlots], nxt[kSlots], cu[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int col = lane + 32 * s;
+    cur[s] = col < wc ? W[col] : O::zero();
+    nxt[s] = col < wc ? W[ws + col] : O::zero();
+    cu[s] = col == 0 ? O::one() : O::zero();
+  }
+  T g[2];
+  givens(W[off], W[ws + off], g);  // every lane: the same inputs, the same rotation
+  for (int r = 0; r + 1 < m; ++r) {
+    const int r2 = r + 2 < m ? r + 2 : m - 1;             // the next row down
+    const int pc = r + 1 + off < wc ? r + 1 + off : wc - 1;  // rotation r + 1's pivot column
+    T n2[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int col = lane + 32 * s;
+      n2[s] = col < wc ? W[r2 * ws + col] : O::zero();
+    }
+    const T below = W[r2 * ws + pc];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) rotate_pair(g[0], g[1], &cur[s], &nxt[s]);
+    T mine = nxt[0];  // rotation r + 1 from its pivot column, rows r + 1 and r + 2
+#pragma unroll
+    for (int s = 1; s < kSlots; ++s)
+      if (pc / 32 == s) mine = nxt[s];
+    const T top = O::make(__shfl_sync(0xffffffffu, O::re(mine), pc % 32),
+                          __shfl_sync(0xffffffffu, O::im(mine), pc % 32));
+    T gn[2];
+    givens(top, below, gn);
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int col = lane + 32 * s;
+      T un = col == r + 1 ? O::one() : O::zero();  // U's row r + 1 is still e_{r+1}
+      rotate_pair(g[0], g[1], &cu[s], &un);
+      if (col < m) Ug[r * us + col] = cu[s];
+      cu[s] = un;
+      if (col < wc) W[r * ws + col] = cur[s];
+      cur[s] = nxt[s];
+      nxt[s] = n2[s];
+    }
+    g[0] = gn[0];
+    g[1] = gn[1];
+  }
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int col = lane + 32 * s;
+    if (col < wc) W[(m - 1) * ws + col] = cur[s];
+    if (col < m) {
+      Ug[(m - 1) * us + col] = cu[s];
+      Ul[col] = cu[s];
+    }
+  }
+}
+
+// Block 0: the chain of sweep s (launch-relative).
+template <typename T, int kSlots>
+__device__ void chain(const Sweep<T>& a, const Blocks& B, unsigned s, unsigned char* smem) {
+  using O = Ops<T>;
+  T* H = a.h;
+  const int64_t n = a.n;
+  const int bs = a.bs, us = bs + 1, ws = bs + 2, t = threadIdx.x;
+  T* Wb[2] = {reinterpret_cast<T*>(smem), reinterpret_cast<T*>(smem) + us * ws};
+  T* X = Wb[1] + us * ws;   // us x bs: rows b_i .. e_i over the look-ahead columns
+  T* Ul = X + us * bs;      // U_i's last row
+  unsigned* uflag = a.flags;
+  const unsigned* tile_done = a.flags + n;
+  const unsigned seq0 = s * static_cast<unsigned>(n + 1);
+  {  // window 0 as it stands
+    const int b = B.b(0), e = B.e(0), c0 = b > 0 ? b - 1 : 0, m = e - b + 1, wc = e - c0 + 1;
+    for (int i = t; i < m * wc; i += blockDim.x)
+      cp_async_elem<sizeof(T)>(&Wb[0][(i / wc) * ws + i % wc], &H[(b + i / wc) * n + c0 + i % wc],
+                               true);
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  for (int i = 0; i < B.count; ++i) {
+    T* W = Wb[i & 1];
+    T* Wn = Wb[(i + 1) & 1];
+    const int b = B.b(i), e = B.e(i), c0 = b > 0 ? b - 1 : 0;
+    const int m = e - b + 1, wc = e - c0 + 1;
+    const bool ahead = i + 1 < B.count;
+    const int e2 = ahead ? B.e(i + 1) : e, la = e2 - e;  // look-ahead columns e + 1 .. e2
+    T* Ui = a.u + static_cast<int64_t>(i) * us * us;
+    // (a) the rotations and U_i; the next window's rows and the look-ahead's
+    if (t < 32) {
+      rotate_window<T, kSlots>(W, ws, m, wc, b - c0, Ui, Ul, us);
+    } else if (ahead) {
+      const int f = t - 32, nf = blockDim.x - 32;
+      const int b2 = B.b(i + 1), c2 = b2 - 1, m2 = e2 - b2 + 1, wc2 = e2 - c2 + 1;
+      for (int k = f; k < (m2 - 1) * wc2; k += nf)  // window i + 1's rows b2 + 1 .. e2
+        cp_async_elem<sizeof(T)>(&Wn[(1 + k / wc2) * ws + k % wc2],
+                                 &H[(b2 + 1 + k / wc2) * n + c2 + k % wc2], true);
+      for (int k = f; k < (m - 1) * la; k += nf)  // rows b + 1 .. e over e + 1 .. e2
+        cp_async_elem<sizeof(T)>(&X[(1 + k / la) * bs + k % la],
+                                 &H[(b + 1 + k / la) * n + e + 1 + k % la], true);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // (b) window i to H, and the look-ahead's side row
+    for (int k = t; k < m * wc; k += blockDim.x)
+      H[(b + k / wc) * n + c0 + k % wc] = W[(k / wc) * ws + k % wc];
+    if (ahead && t < 2) Wn[t] = W[(m - 1) * ws + wc - 2 + t];  // row e over e - 1, e
+    for (int k = t; ahead && k < la; k += blockDim.x)  // row e's original entries, for slab i
+      a.side[e + 1 + k] = X[(m - 1) * bs + k];
+    // (c) the look-ahead of window i + 1: row e over e + 1 .. e2 after slab
+    // i - 1 (row b there), times U_i's last row
+    if (ahead) {
+      if (i > 0) {
+        if (t == 0)
+          for (int tile = (e + 1) / kSlabCols; tile <= e2 / kSlabCols; ++tile)
+            while (ld_acquire(&tile_done[tile]) < seq0 + i) {
+            }
+      }
+      __syncthreads();
+      for (int k = t; k < la; k += blockDim.x) X[k] = __ldcg(&H[b * n + e + 1 + k]);
+      __syncthreads();
+      for (int k = t; k < la; k += blockDim.x) {
+        T acc = O::zero();
+        for (int r = 0; r < m; ++r) acc = O::madd(acc, Ul[r], X[r * bs + k]);
+        Wn[2 + k] = acc;
+      }
+    }
+    publish(&uflag[i], s + 1);
+  }
+}
+
+// Blocks 1 .. nslab: the slabs on column tiles t = w, w + nslab, ...
+template <typename T>
+__device__ void slab_worker(const Sweep<T>& a, const Blocks& B, unsigned s, int w,
+                            unsigned char* smem) {
+  using O = Ops<T>;
+  T* H = a.h;
+  const int64_t n = a.n;
+  const int us = a.bs + 1, t = threadIdx.x, x = t % 32, g = t / 32;
+  const int col_end = a.q != nullptr ? static_cast<int>(n) : B.hi;
+  const int tiles = tiles_of(n, kSlabCols);
   T* Us = reinterpret_cast<T*>(smem);  // m x m, stride us
-  T* S = Us + us * us;                 // m x 32
-  const T* Ub = U + static_cast<int64_t>(bi) * us * us;
-  for (int i = t; i < m * m; i += blockDim.x) Us[(i / m) * us + i % m] = Ub[(i / m) * us + i % m];
-  for (int i = t; i < m * kSlabCols; i += blockDim.x) {
-    const int r = i / kSlabCols, c = i % kSlabCols;
-    S[i] = j0 + c < col_end ? H[(b + r) * n + j0 + c] : O::zero();
-  }
-  __syncthreads();
-  T acc[kSlabRowsPerThread];
+  T* S = Us + us * us;                 // m x kSlabCols
+  const unsigned seq0 = s * static_cast<unsigned>(n + 1);
+  unsigned* tile_done = a.flags + n;
+  for (int j = 0; j < B.count; ++j) {
+    const int b = B.b(j), e = B.e(j), m = e - b + 1;
+    const int la_end = j + 1 < B.count ? B.e(j + 1) : e;  // look-ahead columns e + 1 .. la_end
+    bool loaded = false;
+    for (int tile = w; tile < tiles; tile += a.nslab) {
+      const int t0 = tile * kSlabCols;
+      const bool empty = t0 + kSlabCols - 1 <= e || t0 >= col_end;
+      const bool was_empty = j > 0 && (t0 + kSlabCols - 1 <= B.e(j - 1) || t0 >= col_end);
+      if (empty) {  // for good: later blocks start further right
+        if (!was_empty) publish(&tile_done[tile], seq0 + B.count);
+        continue;
+      }
+      if (!loaded) {
+        wait_for(&a.flags[j], s + 1);
+        const T* Uj = a.u + static_cast<int64_t>(j) * us * us;
+        for (int k = t; k < m * m; k += blockDim.x)
+          cp_async_elem<sizeof(T)>(&Us[(k / m) * us + k % m], &Uj[(k / m) * us + k % m], true);
+        loaded = true;
+      }
+      const int c1 = t0 > e + 1 ? t0 : e + 1;
+      const int c2 = t0 + kSlabCols < col_end ? t0 + kSlabCols : col_end;
+      for (int k = t; k < m * kSlabCols; k += blockDim.x) {
+        const int r = k / kSlabCols, c = c1 + k % kSlabCols;
+        const T* src = r == m - 1 && c <= la_end ? &a.side[c] : &H[(b + r) * n + c];
+        cp_async_elem<sizeof(T)>(&S[k], c < c2 ? src : H, c < c2);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      T acc[kSlabRowsPerThread];
 #pragma unroll
-  for (int q = 0; q < kSlabRowsPerThread; ++q) acc[q] = O::zero();
-  for (int c = 0; c < m; ++c) {
-    const T s = S[c * kSlabCols + x];
+      for (int p = 0; p < kSlabRowsPerThread; ++p) acc[p] = O::zero();
+      for (int c = 0; c < m; ++c) {
+        const T v = S[c * kSlabCols + x];
 #pragma unroll
-    for (int q = 0; q < kSlabRowsPerThread; ++q)
-      if (g + q * kRowGroups < m) acc[q] = O::madd(acc[q], Us[(g + q * kRowGroups) * us + c], s);
-  }
-  if (j0 + x < col_end) {
+        for (int p = 0; p < kSlabRowsPerThread; ++p)
+          if (g + p * kRowGroups < m) acc[p] = O::madd(acc[p], Us[(g + p * kRowGroups) * us + c], v);
+      }
+      const int col = c1 + x;
+      if (col < c2) {
 #pragma unroll
-    for (int q = 0; q < kSlabRowsPerThread; ++q)
-      if (g + q * kRowGroups < m) H[(b + g + q * kRowGroups) * n + j0 + x] = acc[q];
+        for (int p = 0; p < kSlabRowsPerThread; ++p) {
+          const int r = g + p * kRowGroups;
+          if (r < m && !(r == m - 1 && col <= la_end)) H[(b + r) * n + col] = acc[p];
+        }
+      }
+      publish(&tile_done[tile], seq0 + j + 1);
+    }
+    if (loaded) __syncthreads();  // Us is read again for the next block
   }
 }
 
-// (c) The right pass of block bi: columns b .. e := . * U_b^H on H's rows
-// 0 .. min(e + 2, n) - 1 (blocks 0 .. h_tiles - 1) and, when Q is given, on
-// all of Q's rows (the blocks after). 32 rows per block; thread (group g,
-// lane x) forms rows g, g + 8, g + 16, g + 24 of columns x, x + 32, x + 64.
+// One right-pass tile: rows r0 .. r1 - 1 of M times columns b .. b + m - 1
+// := . U^H, with U (stride us) in shared memory.
 template <typename T>
-__global__ void __launch_bounds__(kProdThreads)
-right_kernel(T* __restrict__ H, T* __restrict__ Q, const T* __restrict__ U, int64_t n,
-             const int* __restrict__ st, int bi, int bs, int h_tiles) {
+__device__ void right_tile(T* M, int64_t n, int64_t r0, int64_t r1, int b, int m, int us,
+                           const T* Us, T* C) {
   using O = Ops<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Block blk = block_of(st, bi, bs);
-  if (!blk.live) return;
-  const bool on_q = static_cast<int>(blockIdx.x) >= h_tiles;
-  T* M = on_q ? Q : H;
-  const int64_t r0 = static_cast<int64_t>(on_q ? blockIdx.x - h_tiles : blockIdx.x) * kRightRows;
-  const int64_t row_end = on_q || blk.e + 2 > n ? n : blk.e + 2;
-  if (r0 >= row_end) return;
-  const int b = blk.b, m = blk.e - b + 1, us = bs + 1, t = threadIdx.x;
-  const int x = t % 32, g = t / 32;
-  T* Ut = reinterpret_cast<T*>(smem);  // Ut[j][c] = conj(U_b[c][j]), stride us
-  T* C = Ut + us * us;                 // kRightRows x m, stride us
-  const T* Ub = U + static_cast<int64_t>(bi) * us * us;
-  for (int i = t; i < m * m; i += blockDim.x)
-    Ut[(i % m) * us + i / m] = O::conj(Ub[(i / m) * us + i % m]);
-  for (int i = t; i < kRightRows * m; i += blockDim.x) {
-    const int r = i / m, c = i % m;
-    C[r * us + c] = r0 + r < row_end ? M[(r0 + r) * n + b + c] : O::zero();
+  const int t = threadIdx.x, x = t % 32, g = t / 32;
+  for (int k = t; k < kRightRows * m; k += blockDim.x) {
+    const int r = k / m, c = k % m;
+    const bool valid = r0 + r < r1;
+    cp_async_elem<sizeof(T)>(&C[r * us + c], valid ? &M[(r0 + r) * n + b + c] : M, valid);
   }
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  constexpr int kRows = kRightRows / kRowGroups;
-  T acc[kRows][kRightColsPerThread];
+  T acc[kRightRowsPerThread][kRightColsPerThread];
 #pragma unroll
-  for (int p = 0; p < kRows; ++p)
+  for (int p = 0; p < kRightRowsPerThread; ++p)
 #pragma unroll
     for (int q = 0; q < kRightColsPerThread; ++q) acc[p][q] = O::zero();
   for (int j = 0; j < m; ++j) {
     T u[kRightColsPerThread];
 #pragma unroll
     for (int q = 0; q < kRightColsPerThread; ++q)
-      u[q] = x + 32 * q < m ? Ut[j * us + x + 32 * q] : O::zero();
+      u[q] = x + 32 * q < m ? O::conj(Us[(x + 32 * q) * us + j]) : O::zero();  // U^H[j][.]
 #pragma unroll
-    for (int p = 0; p < kRows; ++p) {
+    for (int p = 0; p < kRightRowsPerThread; ++p) {
       const T c = C[(g + p * kRowGroups) * us + j];
 #pragma unroll
       for (int q = 0; q < kRightColsPerThread; ++q) acc[p][q] = O::madd(acc[p][q], c, u[q]);
     }
   }
 #pragma unroll
-  for (int p = 0; p < kRows; ++p) {
+  for (int p = 0; p < kRightRowsPerThread; ++p) {
     const int64_t row = r0 + g + p * kRowGroups;
 #pragma unroll
     for (int q = 0; q < kRightColsPerThread; ++q)
-      if (row < row_end && x + 32 * q < m) M[row * n + b + x + 32 * q] = acc[p][q];
+      if (row < r1 && x + 32 * q < m) M[row * n + b + x + 32 * q] = acc[p][q];
+  }
+  __syncthreads();  // C is refilled by the next tile
+}
+
+// Blocks nslab + 1 ..: the right passes on row tiles w, w + nright, ... of H
+// and, in Schur mode, of Q.
+template <typename T>
+__device__ void right_worker(const Sweep<T>& a, const Blocks& B, unsigned s, int w, int nright,
+                             unsigned char* smem) {
+  const int64_t n = a.n;
+  const int us = a.bs + 1, t = threadIdx.x;
+  T* Us = reinterpret_cast<T*>(smem);  // m x m, stride us
+  T* C = Us + us * us;                 // kRightRows x m, stride us
+  const int tiles = tiles_of(n, kRightRows);
+  const unsigned seq0 = s * static_cast<unsigned>(n + 1);
+  const unsigned* tile_done = a.flags + n;
+  for (int j = 0; j < B.count; ++j) {
+    const int b = B.b(j), e = B.e(j), m = e - b + 1;
+    const int64_t row_end = e + 2 < n ? e + 2 : n;
+    const bool on_q = a.q != nullptr && w < tiles;
+    const bool on_h = w * kRightRows < row_end;
+    if (!on_q && !on_h) continue;
+    wait_for(&a.flags[j], s + 1);
+    const T* Uj = a.u + static_cast<int64_t>(j) * us * us;
+    for (int k = t; k < m * m; k += blockDim.x)  // waited for by right_tile
+      cp_async_elem<sizeof(T)>(&Us[(k / m) * us + k % m], &Uj[(k / m) * us + k % m], true);
+    if (on_q)
+      for (int tile = w; tile < tiles; tile += nright)
+        right_tile(a.q, n, static_cast<int64_t>(tile) * kRightRows,
+                   static_cast<int64_t>(tile + 1) * kRightRows < n ? (tile + 1) * kRightRows : n,
+                   b, m, us, Us, C);
+    if (on_h) {
+      wait_for(&a.flags[B.reach(j)], s + 1);
+      if (j > 0 && t == 0)
+        for (int tile = b / kSlabCols; tile <= e / kSlabCols; ++tile)
+          while (ld_acquire(&tile_done[tile]) < seq0 + j) {
+          }
+      __syncthreads();
+      for (int tile = w; static_cast<int64_t>(tile) * kRightRows < row_end; tile += nright)
+        right_tile(a.h, n, static_cast<int64_t>(tile) * kRightRows,
+                   (tile + 1) * kRightRows < row_end ? (tile + 1) * kRightRows : row_end, b, m, us,
+                   Us, C);
+    }
   }
 }
 
-// (d) Between sweeps, one block. Unless `first`: returns at once when done;
-// else adds the sweep's shift back on [lo, hi) and counts the sweep. Then the
-// deflation scan into hi and lo, done = hi <= 1 or sweeps >= max_sweeps, and
-// if not done the next shift (schedule or Wilkinson) is formed, stored in mu
-// and subtracted on the new window.
-template <typename T>
-__global__ void __launch_bounds__(kBoundaryThreads)
-boundary_kernel(T* __restrict__ H, int64_t n, int* __restrict__ st, T* __restrict__ mu,
-                const T* __restrict__ shifts, int n_shifts, int max_sweeps,
-                typename Ops<T>::Real tol, int first) {
-  using O = Ops<T>;
+template <typename T, int kSlots>
+__global__ void __launch_bounds__(kSweepThreads, 1) sweeps_kernel(Sweep<T> a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sh[2];
   __shared__ T s_mu;
-  const int t = threadIdx.x, nt = blockDim.x;
-  int hi = static_cast<int>(n), sweeps = 0;
-  if (!first) {
-    if (st[kDone]) return;
-    hi = st[kHi];
-    const T m = *mu;
-    for (int i = st[kLo] + t; i < hi; i += nt) H[i * n + i] = O::add(H[i * n + i], m);
-    sweeps = st[kSweeps] + 1;
+  const int64_t n = a.n;
+  const int64_t nflags = n + tiles_of(n, kSlabCols);
+  for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; k < nflags;
+       k += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    a.flags[k] = 0;
+  if (blockIdx.x == 0 && a.first) boundary(a, true, sh, &s_mu);
+  grid.sync();
+  for (int s = 0; s < a.budget; ++s) {
+    const int hi = __ldcg(&a.st[kHi]), lo = __ldcg(&a.st[kLo]);
+    if (__ldcg(&a.st[kDone])) break;
+    const Blocks B{lo, hi, a.bs, (hi - 1 - lo + a.bs - 1) / a.bs};
+    const int w = static_cast<int>(blockIdx.x);
+    if (w == 0)
+      chain<T, kSlots>(a, B, static_cast<unsigned>(s), smem);
+    else if (w <= a.nslab)
+      slab_worker(a, B, static_cast<unsigned>(s), w - 1, smem);
+    else
+      right_worker(a, B, static_cast<unsigned>(s), w - 1 - a.nslab,
+                   static_cast<int>(gridDim.x) - 1 - a.nslab, smem);
+    grid.sync();
+    if (w == 0) boundary(a, false, sh, &s_mu);
+    grid.sync();
   }
-  deflate_and_lo(H, n, hi, tol, sh);
-  hi = sh[0] + 2;
-  const int lo = sh[1] + 1;
-  const bool done = hi <= 1 || sweeps >= max_sweeps;
-  if (!done) {
-    if (t == 0) s_mu = n_shifts > 0 ? shifts[sweeps % n_shifts] : wilkinson_shift(H, n, hi);
-    __syncthreads();
-    for (int i = lo + t; i < hi; i += nt) H[i * n + i] = O::sub(H[i * n + i], s_mu);
-  }
-  if (t == 0) {
-    st[kHi] = hi;
-    st[kLo] = lo;
-    st[kSweeps] = sweeps;
-    st[kDone] = done ? 1 : 0;
-    if (!done) *mu = s_mu;
-  }
+  if (__ldcg(&a.st[kDone]))
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+         i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+      a.eig[i] = __ldcg(&a.h[i * n + i]);
 }
 
+// Shared memory of a block: the chain's two windows, the look-ahead rows and
+// U_i's last row, or a worker's U and tile.
 template <typename T>
-__global__ void diagonal_kernel(const T* __restrict__ H, T* __restrict__ eig, int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n) eig[i] = H[i * n + i];
-}
-
-template <typename T>
-int run_sweeps(T* h, T* q, T* ubuf, T* eig, int* st, T* mu, const T* shifts, int n_shifts,
-               int64_t n, int max_sweeps, double tol, int bs, int launches_per_read,
-               cudaStream_t s) {
-  using R = typename Ops<T>::Real;
-  const R rtol = static_cast<R>(tol);
+int smem_bytes(int bs) {
   const int us = bs + 1;
-  const int win_smem = static_cast<int>(sizeof(T)) * us * (bs + 2 + us);
-  const int slab_smem = static_cast<int>(sizeof(T)) * us * (us + kSlabCols);
-  const int right_smem = static_cast<int>(sizeof(T)) * us * (us + kRightRows);
-  cudaFuncSetAttribute(window_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, win_smem);
-  cudaFuncSetAttribute(slab_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, slab_smem);
-  cudaFuncSetAttribute(right_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, right_smem);
-  if (int rc = last_error()) return rc;
-  boundary_kernel<T><<<1, kBoundaryThreads, 0, s>>>(h, n, st, mu, shifts, n_shifts, max_sweeps,
-                                                    rtol, 1);
-  if (int rc = last_error()) return rc;
-  for (int queued = 0;;) {
+  const int chain = static_cast<int>(sizeof(T)) * (2 * us * (bs + 2) + us * bs + us);
+  const int worker = static_cast<int>(sizeof(T)) * us * (us + kSlabCols);
+  return chain > worker ? chain : worker;
+}
+
+template <typename T, int kSlots>
+int capacity(int bs, int* blocks) {
+  const int smem = smem_bytes<T>(bs);
+  if (int rc = allow_dynamic_smem<sweeps_kernel<T, kSlots>>(smem_bytes<T>(kMaxBlock))) return rc;
+  int device = 0, sms = 0, per_sm = 0;
+  if (cudaError_t err = cudaGetDevice(&device)) return static_cast<int>(err);
+  if (cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))
+    return static_cast<int>(err);
+  if (cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sweeps_kernel<T, kSlots>, kSweepThreads, smem))
+    return static_cast<int>(err);
+  blocks[0] = per_sm * sms;
+  blocks[1] = sms;
+  return 0;
+}
+
+template <typename T, int kSlots>
+int run_sweeps(Sweep<T> a, int grid_req, long long* launches, cudaStream_t s) {
+  int cap[2];
+  if (int rc = capacity<T, kSlots>(a.bs, cap)) return rc;
+  const int64_t n = a.n;
+  const int tiles = tiles_of(n, kSlabCols);
+  const int rows = tiles_of(n, kRightRows);
+  const int wanted = 1 + tiles + rows * (a.q != nullptr ? 2 : 1);
+  const int grid = grid_req > 0 ? grid_req : (wanted < cap[1] ? wanted : cap[1]);
+  if (grid < 3) return static_cast<int>(cudaErrorInvalidValue);  // chain, slab, right pass
+  if (grid > cap[0]) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  // the slab blocks' share of the workers: slabs and H's right passes move
+  // the same entries, Q's right passes twice as many, but the chain waits
+  // only for slabs
+  const int workers = grid - 1;
+  int nslab = a.q != nullptr ? workers / 3 : workers / 2;
+  nslab = nslab < 1 ? 1 : (nslab > workers - 1 ? workers - 1 : nslab);
+  a.nslab = nslab;
+  // sequence numbers s (n + 1) + j + 1 stay below 2^32
+  const int64_t cap_sweeps = (int64_t{1} << 32) / (n + 1) - 1;
+  a.budget = kSweepsPerLaunch < cap_sweeps ? kSweepsPerLaunch : static_cast<int>(cap_sweeps);
+  const int smem = smem_bytes<T>(a.bs);
+  for (a.first = 1;; a.first = 0) {
+    void* args[] = {&a};
+    cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(sweeps_kernel<T, kSlots>),
+                                                  dim3(grid), dim3(kSweepThreads), args, smem, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
     int state[4];
-    cudaMemcpyAsync(state, st, sizeof(state), cudaMemcpyDeviceToHost, s);
+    cudaMemcpyAsync(state, a.st, sizeof(state), cudaMemcpyDeviceToHost, s);
     if (int rc = last_error()) return rc;
     if (int rc = static_cast<int>(cudaStreamSynchronize(s))) return rc;
-    if (state[kDone] || queued >= max_sweeps) break;
-    const int hi = state[kHi];  // an upper bound of the live hi for the chunk: it never grows
-    const int nblk = (hi - 2) / bs + 1;  // blocks of [0, hi - 1), a bound for [lo, hi - 1)
-    int sweeps = launches_per_read / (3 * nblk + 1);
-    sweeps = sweeps < 1 ? 1 : (sweeps > max_sweeps - queued ? max_sweeps - queued : sweeps);
-    const int64_t col_end = q != nullptr ? n : hi;
-    const unsigned h_tiles = blocks_for(hi + 1 < n ? hi + 1 : n, kRightRows);
-    const unsigned q_tiles = q != nullptr ? blocks_for(n, kRightRows) : 0;
-    for (int sw = 0; sw < sweeps; ++sw) {
-      for (int bi = 0; bi < nblk; ++bi) {
-        window_kernel<T><<<1, kWinThreads, win_smem, s>>>(h, ubuf, n, st, bi, bs);
-        if (int rc = last_error()) return rc;
-        // the slab starts at e + 1 >= bi * bs + 2
-        const int64_t slab_cols = col_end - static_cast<int64_t>(bi) * bs - 2;
-        if (slab_cols > 0) {
-          slab_kernel<T><<<blocks_for(slab_cols, kSlabCols), kProdThreads, slab_smem, s>>>(
-              h, ubuf, n, st, bi, bs, q != nullptr);
-          if (int rc = last_error()) return rc;
-        }
-      }
-      for (int bi = 0; bi < nblk; ++bi) {
-        right_kernel<T><<<h_tiles + q_tiles, kProdThreads, right_smem, s>>>(h, q, ubuf, n, st, bi,
-                                                                          bs, h_tiles);
-        if (int rc = last_error()) return rc;
-      }
-      boundary_kernel<T><<<1, kBoundaryThreads, 0, s>>>(h, n, st, mu, shifts, n_shifts,
-                                                        max_sweeps, rtol, 0);
-      if (int rc = last_error()) return rc;
-    }
-    queued += sweeps;
+    if (state[kDone]) return 0;
   }
-  diagonal_kernel<T><<<blocks_for(n, kThreads), kThreads, 0, s>>>(h, eig, n);
-  return last_error();
+}
+
+// Columns a lane of the chain's warp carries: the window is bs + 2 wide.
+template <typename T>
+int dispatch_slots(Sweep<T> a, int grid, long long* launches, cudaStream_t s) {
+  if (a.bs + 2 <= 32) return run_sweeps<T, 1>(a, grid, launches, s);
+  if (a.bs + 2 <= 64) return run_sweeps<T, 2>(a, grid, launches, s);
+  return run_sweeps<T, 3>(a, grid, launches, s);
+}
+
+template <typename T>
+int dispatch_capacity(int bs, int* blocks) {
+  if (bs + 2 <= 32) return capacity<T, 1>(bs, blocks);
+  if (bs + 2 <= 64) return capacity<T, 2>(bs, blocks);
+  return capacity<T, 3>(bs, blocks);
 }
 
 }  // namespace
@@ -337,30 +651,48 @@ extern "C" {
 // place) until hi <= 1 or max_sweeps sweeps; q (nullable: eigenvalues only)
 // is multiplied by the right rotations and h's slabs run through all n
 // columns (Schur mode). eig = diag(h); state = {hi, lo, sweeps, done}
-// (int32); mu one scalar; ubuf ceil((n - 1) / bs) (bs + 1)^2 scalars; shifts
-// (nullable) n_shifts scalars, sweep s shifting by shifts[s % n_shifts]
-// instead of Wilkinson's. The host reads the state once per chunk of about
-// launches_per_read launches.
-int qr_eig_blocked_sweeps(int dtype, int device, void* h, void* q, void* ubuf, void* eig,
-                          void* state, void* mu, const void* shifts, int n_shifts, long long n,
-                          int max_sweeps, double tol, int bs, int launches_per_read,
-                          void* stream) {
+// (int32); mu one scalar; ubuf ceil((n - 1) / bs) (bs + 1)^2 scalars; side n
+// scalars; flags n + ceil(n / 32) uint32; shifts (nullable) n_shifts
+// scalars, sweep s shifting by shifts[s % n_shifts] instead of Wilkinson's.
+// Cooperative launches of one block an SM (fewer when the tiles are fewer),
+// each of at most kSweepsPerLaunch sweeps; the host reads the state after
+// each and counts them in *launches. A grid > 0 sets the launch's size
+// instead, for tests: under 3 or more than the card holds at once fails.
+int qr_eig_blocked_sweeps(int dtype, int device, void* h, void* q, void* ubuf, void* side,
+                          void* flags, void* eig, void* state, void* mu, const void* shifts,
+                          int n_shifts, long long n, int max_sweeps, double tol, int bs, int grid,
+                          long long* launches, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  *launches = 0;
   if (n <= 0) return 0;
-  if (bs < 1 || bs > kMaxBlock || launches_per_read < 1 || n_shifts < 0 || n >= (1LL << 31))
+  if (bs < 1 || bs > kMaxBlock || n_shifts < 0 || grid < 0 || n >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QRB_ARGS(T) static_cast<T*>(h), static_cast<T*>(q), static_cast<T*>(ubuf),          \
-                    static_cast<T*>(eig), static_cast<int*>(state), static_cast<T*>(mu),      \
-                    static_cast<const T*>(shifts), n_shifts, n, max_sweeps, tol, bs,          \
-                    launches_per_read, s
+#define QRB_SWEEP(T)                                                                        \
+  Sweep<T>{static_cast<T*>(h), static_cast<T*>(q), static_cast<T*>(ubuf),                  \
+           static_cast<T*>(side), static_cast<T*>(eig), static_cast<int*>(state),           \
+           static_cast<T*>(mu), static_cast<const T*>(shifts), static_cast<unsigned*>(flags), \
+           n_shifts, n, max_sweeps, static_cast<typename Ops<T>::Real>(tol), bs, 1, 1, 1}
   switch (dtype) {
-    case kC64: return run_sweeps<float2>(QRB_ARGS(float2));
-    case kC128: return run_sweeps<double2>(QRB_ARGS(double2));
+    case kC64: return dispatch_slots<float2>(QRB_SWEEP(float2), grid, launches, s);
+    case kC128: return dispatch_slots<double2>(QRB_SWEEP(double2), grid, launches, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef QRB_ARGS
+#undef QRB_SWEEP
+}
+
+// The blocks B13's cooperative launch can hold at once (out[0]) and the
+// card's SMs (out[1]), for the dtype and block size.
+int qr_eig_blocked_capacity(int dtype, int device, int bs, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bs < 1 || bs > kMaxBlock) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case kC64: return dispatch_capacity<float2>(bs, out);
+    case kC128: return dispatch_capacity<double2>(bs, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -155,11 +155,19 @@ def load() -> ctypes.CDLL:
             # dtype, device, t, y, racc, counts, n, eps, stream
             lib.trisolve_eigenvectors.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, f64, ptr]
             lib.trisolve_eigenvectors.restype = i32
-            # dtype, device, h, q, ubuf, eig, state, mu, shifts, n_shifts, n, max_sweeps,
-            # tol, bs, launches_per_read, stream
+            lib.trisolve_block_rows.argtypes = [i32]  # dtype
+            lib.trisolve_block_rows.restype = i32
+            lib.trisolve_scratch.argtypes = [i32, i64]  # dtype, n
+            lib.trisolve_scratch.restype = i64
+            # dtype, device, h, q, ubuf, side, flags, eig, state, mu, shifts, n_shifts, n,
+            # max_sweeps, tol, bs, grid (0: the default), launches (host), stream
             lib.qr_eig_blocked_sweeps.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                                  i32, i64, i32, f64, i32, i32, ptr]
+                                                  ptr, ptr, i32, i64, i32, f64, i32, i32, ptr,
+                                                  ptr]
             lib.qr_eig_blocked_sweeps.restype = i32
+            # dtype, device, bs, (blocks, SMs) (host int[2] out)
+            lib.qr_eig_blocked_capacity.argtypes = [i32, i32, i32, ptr]
+            lib.qr_eig_blocked_capacity.restype = i32
             # the pack's launch arguments (a struct), x, x plane stride, y, stream
             lib.gell_csr_spmv.argtypes = [ptr, ptr, i64, ptr, ptr]
             lib.gell_csr_spmv.restype = i32

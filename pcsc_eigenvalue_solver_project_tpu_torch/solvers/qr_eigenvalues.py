@@ -333,17 +333,14 @@ def _qr_eigenvalues_accel_real(H0: torch.Tensor, max_sweeps: int, tol: float):
 # ---------------------------------------------------------------------------
 
 # The largest n at which the accelerated sweeps run unblocked (B8); beyond it
-# they run blocked (B13). chip_smoke.py's boundary sweep on an NVIDIA H100
-# 80GB HBM3 at 700 W (complex64, PERF.md section 6): B13 ahead from
-# 1024 on in every measure (per full-window sweep, whole solves of the bench
-# and of a non-symmetric operand); at 512 B13 ahead per sweep (0.57 against
-# 0.76 ms) and on the non-symmetric solve (297 against 420 ms), but B8 ahead
-# on the bench solve (6.3 against 11.7 ms), whose active window stays small;
-# B8 ahead in every measure at 128 and 256. So at 512 the choice favours
-# small active windows, at a cost of about 30% on solves whose window starts
-# full; choosing after the first deflation scan would serve both (PERF.md
-# section 7).
-UNBLOCKED_MAX_N: int | None = 512
+# they run blocked (B13). chip_smoke.py's boundary sweep (phase 13) on an
+# NVIDIA H100 80GB HBM3 at 700 W (complex64, PERF.md section 6), with B13 as
+# one cooperative launch: B13 ahead from 256 on in every measure (per
+# full-window sweep, whole solves of the bench and of a non-symmetric
+# operand; at 256 0.1761 against 0.2709 ms a sweep, 2.961 against 3.658 ms
+# and 34.738 against 66.046 ms a solve), B8 ahead in every measure at 128
+# (0.1026 against 0.1274 ms, 2.646 against 3.089 ms, 10.867 against 11.343 ms).
+UNBLOCKED_MAX_N: int | None = 128
 
 
 def qr_dispatch(n: int, device) -> str:

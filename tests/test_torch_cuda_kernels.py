@@ -41,7 +41,13 @@ tests/test_trisolve.py (5e-3 in complex64).
 The blocked sweeps B13 are held to their plain version like B8: after a fixed
 budget with deflation off, T and Q to ten units (the products sum in another
 order than torch.matmul), the sweep count and window exactly, and
-``||H - Q T Q^H||`` to one unit; to convergence, the spectrum as B8's.
+``||H - Q T Q^H||`` to one unit; to convergence, the spectrum as B8's. Its
+cooperative launch repeats bit for bit whatever the grid's size, runs one
+device kernel a launch, keeps the plain version's sweep count while hi
+shrinks inside a launch and across launches, and raises on a grid larger
+than the card holds. B14 repeats bit for bit, and is held at n = -+ 1 of one
+and two blocks of BLOCK_ROWS on the repeated eigenvalue, where every column
+rescales.
 
 The split-plane SpMV (B4 interleaved, B3's planes entry row-major) and the
 block SpMM B5 (row-major and interleaved, nvec 1, 3, 8 and 13, so one full
@@ -64,12 +70,14 @@ import numpy as np
 import pytest
 import torch
 
+from pcsc_eigenvalue_solver_project_tpu_torch.ops import _build
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import gell_spmv as gs
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import hessenberg_blocked as hb
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_eig_blocked as qb
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
 from pcsc_eigenvalue_solver_project_tpu_torch.ops import trisolve_vec as tv
+from pcsc_eigenvalue_solver_project_tpu_torch.ops._common import COMPLEX_CODES
 from pcsc_eigenvalue_solver_project_tpu_torch.solvers import hessenberg as hs
 from pcsc_eigenvalue_solver_project_tpu_torch.solvers import qr_eigenvalues as qe
 
@@ -617,6 +625,38 @@ def test_triangular_eigenvectors_kernel_matches_plain(cuda, n, repeated, dtype):
         assert float((Tc @ Yn - Yn * Tc.diagonal()[None, :]).abs().max()) <= 5e-3
 
 
+B14_EDGES = [(blocks, offset, dtype) for dtype in (torch.complex64, torch.complex128)
+             for blocks in (1, 2) for offset in (-1, 1)]
+
+
+@pytest.mark.parametrize("blocks,offset,dtype", B14_EDGES)
+def test_triangular_eigenvectors_kernel_at_block_edges(cuda, blocks, offset, dtype):
+    # n = -+ 1 of whole blocks on the repeated eigenvalue: every pivot clamped
+    # and the 1e18 rescale in every column; at + 1 one more block, whose
+    # event counts enter the product of the block above
+    assert _build.load().trisolve_block_rows(COMPLEX_CODES[dtype]) == tv.BLOCK_ROWS[dtype]
+    n = blocks * tv.BLOCK_ROWS[dtype] + offset
+    T = random_triangular(n, dtype, seed=n, device=cuda, repeated=True)
+    eps = torch.finfo(dtype.to_real()).eps * max(float(T.abs().max()), 1.0)
+    Y = tv.triangular_eigenvectors_kernel(T, eps)
+    Yp = tv.triangular_eigenvectors_plain(T, eps)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(Y).all()) and float(Y.abs().max()) > 1e15  # rescaled
+    limit = 1e-10 if dtype == torch.complex128 else 1e-4
+    assert float((normalised(Y) - normalised(Yp)).abs().max()) <= limit
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_triangular_eigenvectors_kernel_repeats_bitwise(cuda, dtype):
+    # split depth in a fixed order, no atomics: the same bits call after call
+    for T in (random_triangular(300, dtype, seed=3, device=cuda),
+              random_triangular(300, dtype, seed=4, device=cuda, repeated=True)):
+        eps = torch.finfo(dtype.to_real()).eps * max(float(T.abs().max()), 1.0)
+        Y = tv.triangular_eigenvectors_kernel(T, eps)
+        for _ in range(2):
+            assert torch.equal(tv.triangular_eigenvectors_kernel(T, eps), Y)
+
+
 def test_eigenvector_kernel_rejects_real_input(cuda):
     with pytest.raises(TypeError, match="unsupported dtype"):
         tv.triangular_eigenvectors_kernel(dense(8, torch.float32, seed=0, device=cuda), 1e-6)
@@ -747,6 +787,84 @@ def test_blocked_sweeps_kernel_rejects_what_it_does_not_take(cuda):
     e1, s1, hi1 = qb.qr_eig_blocked_kernel(h, 10, 0.0)
     torch.cuda.synchronize()
     assert torch.equal(e0, e1) and int(s0) == int(s1) == 10 and int(hi0) == int(hi1)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_blocked_sweeps_kernel_repeats_bitwise(cuda, dtype):
+    # every entry written by one thread in a fixed order: T, Q and the
+    # eigenvalues repeat bit for bit, and do not depend on the grid's size
+    h = qk.hessenberg_plain(dense(300, dtype, seed=31, device=cuda))
+    cap, _ = qb.blocked_capacity(dtype, cuda, qb.BLOCK)
+    for schur in (False, True):
+        first = qb.qr_eig_blocked_kernel(h, 8, 0.0, accumulate_q=schur)
+        for grid in (0, 0, 3, cap):  # the private hook sets the launch's size
+            again = qb._sweeps_kernel(h, 8, 0.0, None, schur, None, qb.BLOCK, grid=grid)
+            assert all(torch.equal(x, y) for x, y in zip(again, first))
+
+
+def test_blocked_sweeps_window_shrinks_inside_one_launch(cuda):
+    # deflation on (complex128): hi shrinks sweep by sweep inside each
+    # launch; the solve takes more sweeps than one launch runs, so a second
+    # launch resumes where the first stopped; the sweep count and hi are the
+    # plain version's
+    dtype, n = torch.complex128, 150
+    h = qk.hessenberg_plain(dense(n, dtype, seed=17, device=cuda))
+    tol = 1e-12
+    e, s, hi, t, q = qb.qr_eig_blocked_kernel(h, 60 * n, tol, accumulate_q=True, block=7)
+    ep, sp, hip, tp, qp = qb.qr_eig_blocked_plain(h, 60 * n, tol, accumulate_q=True, block=7)
+    assert int(hi) <= 1 and (int(s), int(hi)) == (int(sp), int(hip))
+    assert int(s) > qb.SWEEPS_PER_LAUNCH
+    assert qb.qr_eig_blocked_kernel.device_launches == -(-int(s) // qb.SWEEPS_PER_LAUNCH)
+    scale = float(h.abs().max())
+    ev = np.linalg.eigvals(h.cpu().numpy())
+    assert matched_err(e.cpu().numpy(), ev) <= 1e-9 * scale
+    assert rel_to(q @ t @ q.conj().T, h, scale) <= qr_tol(dtype, n)
+    assert all(torch.equal(x, y) for x, y in zip(
+        qb.qr_eig_blocked_kernel(h, 60 * n, tol, accumulate_q=True, block=7), (e, s, hi, t, q)))
+    # part way, inside the first launch and inside the second: the same
+    # window as the plain version
+    for part in (int(s) // 3, qb.SWEEPS_PER_LAUNCH + 20):
+        _, s5, hi5 = qb.qr_eig_blocked_kernel(h, part, tol, block=7)
+        _, sp5, hip5 = qb.qr_eig_blocked_plain(h, part, tol, block=7)
+        assert (int(s5), int(hi5)) == (int(sp5), int(hip5)) == (part, int(hip5))
+        assert 1 < int(hi5) < n
+
+
+def test_blocked_sweeps_one_device_kernel_a_launch(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    h = qk.hessenberg_plain(dense(200, torch.complex64, seed=5, device=cuda))
+    budget = 3 * qb.SWEEPS_PER_LAUNCH + 10  # deflation off: four launches
+    for schur in (False, True):
+        qb.qr_eig_blocked_kernel(h, budget, 0.0, accumulate_q=schur)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            qb.qr_eig_blocked_kernel(h, budget, 0.0, accumulate_q=schur)
+            torch.cuda.synchronize()
+        # every device activity the profiler recorded, as kineto gave them
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA]
+        sweeps = [x for x in names if "sweeps_kernel" in x]
+        assert qb.qr_eig_blocked_kernel.device_launches == 4
+        # the profiler drops some cooperative launches (3 of 4 recorded in one
+        # run on the H100), never adds one: at most one B13 kernel a launch,
+        # and besides them only copies of h and the state, the zeroed state
+        # and Q's identity
+        assert 1 <= len(sweeps) <= 4
+        others = [x for x in names if "sweeps_kernel" not in x
+                  and not any(w in x for w in ("Memcpy", "Memset", "elementwise", "eye"))]
+        assert others == []
+
+
+def test_blocked_sweeps_over_capacity_grid_raises(cuda):
+    h = qk.hessenberg_plain(dense(100, torch.complex64, seed=6, device=cuda))
+    for dtype, block in ((torch.complex64, 32), (torch.complex128, 64)):
+        cap, sms = qb.blocked_capacity(dtype, cuda, block)
+        assert cap >= sms >= 3
+        with pytest.raises(RuntimeError, match="qr_eig_blocked_kernel: CUDA launch failed"):
+            qb._sweeps_kernel(h.to(dtype), 4, 0.0, None, False, None, block, grid=cap + 1)
+    for grid in (-1, 1, 2):  # a grid needs the chain, a slab and a right-pass block
+        with pytest.raises(ValueError, match="grid"):
+            qb._sweeps_kernel(h, 4, 0.0, None, False, None, qb.BLOCK, grid=grid)
 
 
 # --------------------------------------------------------------------------

@@ -28,6 +28,13 @@ Tolerances:
   deflation rule, every entry under the diagonal within
   ``tol * max(2 max|T_ii|, 1)`` (measured 0.27 of it).
 - Resumed steps equal one call bit for bit (the window is re-derived from H).
+- The sweep's tasks (the kernel's chain steps, slab column tiles, right-pass
+  row tiles of H and Q, ``_sweep_tasks``) in 20 random orders that respect
+  their dependencies give T, Q, the diagonal, the sweep count and hi bit for
+  bit equal to the tasks in sequence, so a dependency the kernel would miss
+  fails here; and within 1e-14 of max|H| (Q: 1e-14) of today's block-by-block
+  order, whose products have other shapes, which the CPU's BLAS sums in
+  another order (measured up to 3.2e-16).
 - ``blocked_eigenvalues`` against ``qr_eigenvalues_pallas_blocked``:
   eigenvalues as above, residual ``max|A V - V diag(lambda)|`` to 5e-3, the
   JAX test's bound (tests/test_qr_blocked.py:134-144), and unit columns to 1e-5.
@@ -210,6 +217,55 @@ def test_resumed_steps_equal_one_call(schedule):
     assert float((q2 @ t2 @ q2.conj().T - h).abs().max()) <= 1e-14 * n * float(h.abs().max())
 
 
+ORDER_SWEEPS = 2
+ORDER_TILES = (8, 8)  # slab columns and right-pass rows a task: several tiles at n = 33
+
+
+@functools.lru_cache(maxsize=None)
+def order_operand(n, inner):
+    """A complex128 Hessenberg matrix; ``inner`` zeroes subdiagonal entries
+    (H[41, 40] and those from H[91, 90] on) so that the active window is
+    [41, 91), away from both edges."""
+    rng = np.random.default_rng(100 + n)
+    h = tq.hessenberg_plain(torch.from_numpy(rng.standard_normal((n, n))
+                                             + 1j * rng.standard_normal((n, n))))
+    if inner:
+        h[41, 40] = 0
+        h[torch.arange(91, n), torch.arange(90, n - 1)] = 0
+    return h
+
+
+@pytest.mark.parametrize("schur", [False, True], ids=["eigenvalues", "schur"])
+@pytest.mark.parametrize("block", [1, 2, 3, 7, 32])
+@pytest.mark.parametrize("n,inner", [(33, False), (65, False), (100, False), (100, True)])
+def test_random_task_orders_equal_the_sequential_order(n, inner, block, schur):
+    h = order_operand(n, inner)
+    shifts = torch.tensor([0.3 + 0.1j, -0.2, 0.5 - 0.4j], dtype=torch.complex128)
+
+    def run(order):
+        return qb._sweeps_plain(h, ORDER_SWEEPS, 0.0, shifts, schur, None, block, order=order,
+                                tiles=ORDER_TILES)
+
+    seq = run("sequential")
+    assert (int(seq[1]), int(seq[2])) == (ORDER_SWEEPS, 91 if inner else n)
+    for seed in range(20):
+        out = run(seed)
+        assert (int(out[1]), int(out[2])) == (int(seq[1]), int(seq[2]))
+        assert torch.equal(out[0], seq[0]) and torch.equal(out[3], seq[3]), seed
+        if schur:
+            assert torch.equal(out[4], seq[4]), seed
+    today = run(None)
+    assert (int(today[1]), int(today[2])) == (int(seq[1]), int(seq[2]))
+    scale = float(h.abs().max())
+    assert float((seq[3] - today[3]).abs().max()) <= 1e-14 * scale
+    if schur:
+        assert float((seq[4] - today[4]).abs().max()) <= 1e-14
+        if inner:  # Schur mode updates the columns beyond hi, eigenvalues only does not
+            assert not torch.equal(seq[3][:91, 91:], h[:91, 91:])
+    elif inner:
+        assert torch.equal(seq[3][:, 91:], h[:, 91:])
+
+
 @pytest.mark.parametrize("compute_vectors", [False, True])
 def test_blocked_eigenvalues_matches_pallas(compute_vectors):
     n = 33
@@ -253,9 +309,9 @@ class TestDispatch:
             assert qe.qr_dispatch(65536, cuda) == "cuda_blocked"
 
     def test_default_boundary(self):
-        # measured on the H100: B8 ahead of B13 on the bench operand's whole
-        # solve up to 512, B13 ahead on every measure from 1024 on
-        assert 256 <= qe.UNBLOCKED_MAX_N < 1024
+        # measured on the H100: B8 ahead of B13 on every measure at 128, B13
+        # ahead on every measure from 256 on
+        assert 128 <= qe.UNBLOCKED_MAX_N < 256
 
     def test_non_cpu_tensors_never_take_the_plain_path(self):
         c = torch.empty((8, 8), dtype=torch.complex64, device="meta")

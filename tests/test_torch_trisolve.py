@@ -113,8 +113,8 @@ def test_repeated_eigenvalues_rescale_like_pallas():
 
 
 def test_repeated_eigenvalues_across_blocks():
-    # 150 rows: three blocks of BLOCK_ROWS, so rescale events recorded in a
-    # lower block scale its rows in the product of the blocks above
+    # 150 rows: more than one block of BLOCK_ROWS, so rescale events recorded
+    # in a lower block scale its rows in the product of the blocks above
     n = 150
     rng = np.random.default_rng(4)
     T = np.triu(0.3 * rng.standard_normal((n, n)), 1).astype(np.complex64)
