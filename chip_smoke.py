@@ -22,17 +22,24 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    in float32, and the cost of one cluster barrier) and Householder QR (B9)
    at n = 512 in float32, complex64 and float64, the blocked B9 also at 512 in complex128 and at 2048 in all
    four dtypes (against ``qr_decompose_blocked_plain`` there, with its
-   device kernels per call), the shifted Givens sweeps (B8) and the parity sweeps (B10)
-   with a budget of 10 sweeps at n = 128 in four dtypes and of a few sweeps
-   at n = 512 in the path's dtypes, each with its time beside the plain
-   version's;
+   device kernels per call), the shifted Givens sweeps (B8, with its route)
+   and the parity sweeps (B10: against ``qr_parity_blocked_plain`` entry by
+   entry and against the Householder order ``qr_parity_plain`` with the
+   diagonal unitary D divided out) with a budget of 10 sweeps at n = 128 in
+   four dtypes and of a few sweeps at n = 512 in the path's dtypes, each with
+   its time beside the plain version's; B10 per sweep at 512 in float32 and
+   complex64 with its device kernels a call; B8 at 64, 128 and 256 in
+   complex64 without and with Q, per full-window sweep and to convergence on
+   the bench operand, and its block sizes 4-16 at those sizes in complex64
+   and complex128 (from which ``eig_block`` was set);
 7. the QR path through the public API on CUDA tensors at n = 512: the
    bench operand (symmetric, spectrum 0.9^i) in float32 and a complex64
    operand with spectrum 0.9^i e^(i theta) in both modes, a real
    non-symmetric matrix in accelerated mode against numpy in float64, the
    bench operand's construction at 128 in accelerated mode (B8: at most
    ``UNBLOCKED_MAX_N``; B13 beyond it), and the reference demo's QR section
-   on ``data/A.txt``;
+   on ``data/A.txt``, with each parity solve's time, its device kernels
+   (torch.profiler) and B10's cooperative launches;
 8. the blocked Hessenberg kernel B11 (B12 on complex data) and the
    triangular-eigenvector kernel B14 against their plain versions: B11 with
    Q at n = 4096 float32, 2048 complex64 and 1024 float64 on a
@@ -151,6 +158,21 @@ for a port whose B13 is one cooperative launch, also B13's block sizes at
 times B14 with the port found under ROOT at 512 and 2048 in complex64 and
 complex128 on a random triangle (CUDA-graph replay), with its device kernels
 per call.
+
+    python3 chip_smoke.py --b10 ROOT
+
+times B10 with the port found under ROOT: per sweep at 128 and 512 in
+float32 and complex64 (device kernels a call at 128), phase 7's parity
+solves at 512 through ``qr_eigenvalues`` (twice each) with B10's cooperative
+launches where the port counts them, and B9 at 512, 2048 and 4096 float32
+with its device kernels a call and whether a second call repeats bit for bit.
+
+    python3 chip_smoke.py --b8 ROOT
+
+times B8 with the port found under ROOT at 64, 128 and 256 in complex64,
+without and with Q: per full-window sweep (10 sweeps a call, deflation off)
+and to convergence on the bench operand's construction, with its device
+kernels per call.
 """
 
 from __future__ import annotations
@@ -567,8 +589,11 @@ def qr_kernel_phase(dev, card_name, card_limit):
         del a, r, qq, rp, qqp
     # B8 and B10 with deflation off (tol 0), so that both versions run the same
     # iterates: 10 sweeps at n = 128 in every dtype (timed there), and at the
-    # path's n = 512 in its dtypes, B8 for 3 sweeps and B10 for 7, which B10
-    # enqueues as two chunks (5 and 2 sweeps) with a host read of `done` between.
+    # path's n = 512 in its dtypes, B8 for 3 sweeps and B10 for 7. B10's
+    # Givens iterate is held entry by entry to its plain version in its order
+    # (qr_parity_blocked_plain) and to the Pallas order (qr_parity_plain,
+    # Householder sweeps) with the diagonal unitary D divided out, both to ten
+    # units, with the same count.
     sweeps = 10
     cases = [(QR_SWEEP_N, dt, sweeps, sweeps) for dt in
              (torch.complex64, torch.float32, torch.complex128, torch.float64)]
@@ -580,10 +605,11 @@ def qr_kernel_phase(dev, card_name, card_limit):
         timed = n == QR_SWEEP_N and dt in (torch.float32, torch.complex64)
         if dt.is_complex:
             e, s, hi, t, q = qk.qr_eig_kernel(h, b8_sweeps, 0.0, accumulate_q=True)
+            plan = qk.qr_eig_kernel.last_plan
             ep, sp, hip, tp, _ = qk.qr_eig_plain(h, b8_sweeps, 0.0, accumulate_q=True)
             torch.cuda.synchronize()
             err, res = rel(t, tp, scale), rel(q @ t @ q.conj().T, h, scale)
-            print(f"check B8 {dt} n={n}, {b8_sweeps} sweeps: T vs plain {err:.3e} "
+            print(f"check B8 {dt} n={n} ({plan}), {b8_sweeps} sweeps: T vs plain {err:.3e} "
                   f"(limit {10 * unit:.1e}), |H - Q T Q^H| {res:.3e} (limit {unit:.1e}), "
                   f"sweeps {int(s)}/{int(sp)}, hi {int(hi)}/{int(hip)}")
             check(int(s) == int(sp) == b8_sweeps and int(hi) == int(hip),
@@ -596,32 +622,65 @@ def qr_kernel_phase(dev, card_name, card_limit):
                                         lambda fn: time_events_ms(fn, reps=2))
                 timings[("B8", dt)] = (k_ms / sweeps, p_ms / sweeps, "sweep")
         H, it, c, m = qk.qr_parity_kernel(h, b10_sweeps, 0.0)
+        G, itg, cg, mg = qk.qr_parity_blocked_plain(h, b10_sweeps, 0.0)
         Hp, itp, cp, mp = qk.qr_parity_plain(h, b10_sweeps, 0.0)
         torch.cuda.synchronize()
-        err = rel(H, Hp, scale)
-        print(f"check B10 {dt} n={n}, {b10_sweeps} sweeps: H vs plain {err:.3e} "
-              f"(limit {10 * unit:.1e}), it {int(it)}/{int(itp)}, maxsub {float(m):.6e}/"
-              f"{float(mp):.6e}")
-        check(int(it) == int(itp) == b10_sweeps and not bool(c) and not bool(cp),
+        d = torch.from_numpy(hessenberg_phases(H, Hp)).to(dev, dt)
+        err, err_d = rel(H, G, scale), rel(H, d.conj()[:, None] * Hp * d, scale)
+        print(f"check B10 {dt} n={n}, {b10_sweeps} sweeps: H vs plain {err:.3e}, vs the "
+              f"Householder order with D divided out {err_d:.3e} (limit {10 * unit:.1e}), "
+              f"it {int(it)}/{int(itg)}/{int(itp)}, maxsub {float(m):.6e}/{float(mg):.6e}/"
+              f"{float(mp):.6e}, cooperative launches {qk.qr_parity_kernel.device_launches}")
+        check(int(it) == int(itg) == int(itp) == b10_sweeps and not bool(c) and not bool(cp),
               f"B10 {dt} n={n}: counts differ")
-        check(err <= 10 * unit, f"B10 {dt} n={n}: off its plain version")
+        check(H.dtype == dt and err <= 10 * unit and err_d <= 10 * unit,
+              f"B10 {dt} n={n}: off its plain versions")
         if timed:
             if dt == torch.float32:
-                errors["B10"] = float((H - Hp).abs().max())
+                errors["B10"] = float((H - G).abs().max())
             k_ms, p_ms = timed_pair(lambda: qk.qr_parity_kernel(h, sweeps, 0.0),
-                                    lambda: qk.qr_parity_plain(h, sweeps, 0.0),
+                                    lambda: qk.qr_parity_blocked_plain(h, sweeps, 0.0),
                                     lambda fn: time_events_ms(fn, reps=2))
             timings[("B10", dt)] = (k_ms / sweeps, p_ms / sweeps, "sweep")
-    # per-sweep kernel times at the path's size (the plain versions, held
-    # against the kernels above, are timed at n = 128 only)
-    h512 = qk.hessenberg_kernel(operand(QR_N, torch.complex64))
-    print(f"time B8 complex64 n={QR_N}: kernel "
-          f"{time_events_ms(lambda: qk.qr_eig_kernel(h512, sweeps, 0.0)) / sweeps:.3f} ms/sweep "
-          f"(full window) [{card_name}, {card_limit}]")
-    h512r = qk.hessenberg_kernel(operand(QR_N, torch.float32))
-    print(f"time B10 float32 n={QR_N}: kernel "
-          f"{time_events_ms(lambda: qk.qr_parity_kernel(h512r, sweeps, 0.0), 1) / sweeps:.3f}"
-          f" ms/sweep [{card_name}, {card_limit}]")
+    # B10 per sweep at the path's size (the plain versions, held against the
+    # kernels above, are timed at n = 128 only)
+    for dt in (torch.float32, torch.complex64):
+        h512 = qk.hessenberg_kernel(operand(QR_N, dt))
+        k_ms = time_events_ms(lambda: qk.qr_parity_kernel(h512, 4 * sweeps, 0.0), 2)
+        kernels = device_kernels(lambda: qk.qr_parity_kernel(h512, 4 * sweeps, 0.0))
+        print(f"time B10 {dt} n={QR_N}: kernel {k_ms / (4 * sweeps):.4f} ms/sweep ({4 * sweeps} "
+              f"sweeps a call, device kernels a call "
+              f"{'not measured' if kernels is None else len(kernels)}) [{card_name}, {card_limit}]")
+    # B8 at AED's window sizes, per full-window sweep and to convergence on
+    # the bench operand's construction, without and with Q, by its route
+    rng8 = np.random.default_rng(8)
+    for n in (64, QR_SWEEP_N, 256):
+        h = qk.hessenberg_plain(operand(n, torch.complex64))
+        hg, _ = device_operand(rng8, n, torch.float32, dev, "geometric")
+        hg = qk.hessenberg_reduce(hg).to(torch.complex64)
+        line = f"time B8 complex64 n={n}:"
+        for q in (False, True):
+            k_ms = time_events_ms(lambda: qk.qr_eig_kernel(h, sweeps, 0.0, accumulate_q=q), 2)
+            plan = qk.qr_eig_kernel.last_plan
+            solve = time_events_ms(lambda: qk.qr_eig_kernel(hg, 20 * n, QR_TOL, accumulate_q=q), 2)
+            _, s8, hi8 = qk.qr_eig_kernel(hg, 20 * n, QR_TOL, accumulate_q=q)[:3]
+            check(int(hi8) <= 1, f"B8 n={n}: the bench operand did not converge")
+            line += (f" {'with' if q else 'without'} Q {k_ms / sweeps:.4f} ms/sweep, bench "
+                     f"operand {solve:.3f} ms ({int(s8)} sweeps; H in "
+                     f"{'shared' if plan.h_smem else 'global'} memory, bs {plan.block});")
+        kernels = device_kernels(lambda: qk.qr_eig_kernel(h, sweeps, 0.0, accumulate_q=True))
+        print(f"{line} device kernels a call {'not measured' if kernels is None else len(kernels)}"
+              f" [{card_name}, {card_limit}]")
+    # the block sizes from which eig_block was set: ms per full-window sweep
+    for dt in (torch.complex64, torch.complex128):
+        for n in (64, QR_SWEEP_N, 256):
+            h = qk.hessenberg_plain(operand(n, dt))
+            line = f"block sizes B8 {dt} n={n}, ms a sweep without (with) Q:"
+            for bs in (4, 8, 12, 16):
+                a0 = time_events_ms(lambda: qk._qr_eig_launch(h, sweeps, 0.0, False, bs), 1)
+                a1 = time_events_ms(lambda: qk._qr_eig_launch(h, sweeps, 0.0, True, bs), 1)
+                line += f" {bs}: {a0 / sweeps:.4f} ({a1 / sweeps:.4f});"
+            print(f"{line} eig_block {qk.eig_block(n, dt)} [{card_name}, {card_limit}]")
     for (tag, dt), (k_ms, p_ms, unit) in timings.items():
         n = QR_N if tag in ("B7", "B7+Q", "B9") else QR_SWEEP_N
         print(f"time {tag} {dt} n={n}: kernel {k_ms:.3f} ms/{unit}, plain {p_ms:.3f} ms/{unit} "
@@ -1044,6 +1103,16 @@ def qr_path_phase(eigsol, dev):
               f"converged={bool(r.converged)}, {seconds[name]:.3f} s")
         check(bool(r.converged), f"{name}: did not converge")
         check(err <= limit, f"{name}: eigenvalue error {err:.3e} above {limit:.0e}")
+    # the parity solves' device kernels (torch.profiler, one more solve each)
+    # and B10's cooperative launches a solve
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+    for name in ("(a) f32 symmetric parity", "(b) c64 normal parity"):
+        a, opts = runs[name][:2]
+        names = device_kernels(lambda: eigsol.qr_eigenvalues(eigsol.DenseMatrix(a), opts))
+        count = "not measured" if names is None else \
+            f"{len(names)} ({sum('sweeps_kernel' in x for x in names)} of B10's)"
+        print(f"QR {name}: {seconds[name]:.3f} s a solve, device kernels a solve {count}, "
+              f"B10 cooperative launches {qk.qr_parity_kernel.device_launches}")
     a_np = A.to_dense().cpu().numpy()
     h_np, q_np, r_np = hA.cpu().numpy(), qA.cpu().numpy(), rA.cpu().numpy()
     ev_err = nearest_err(rA_eig.eigenvalues.cpu().numpy(), np.linalg.eigvals(a_np))
@@ -2300,6 +2369,90 @@ def b14_compare(root: str) -> None:
                   f"[{card_name}, {card_limit}]")
 
 
+def b10_compare(root: str) -> None:
+    """``--b10 ROOT`` (see the module docstring). Prints one line a case;
+    fails if the port is not the one under ROOT, a result is not finite or a
+    parity solve does not converge."""
+    eigsol = import_port(root)
+    import math
+
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+
+    card_name, card_limit = card_line().split(", ")
+    rng = np.random.default_rng(10)
+    for n, sweeps in ((QR_SWEEP_N, 10), (QR_N, 10)):
+        for dt in (torch.float32, torch.complex64):
+            h = qk.hessenberg_kernel(device_operand(rng, n, dt, "cuda", "gaussian")[0])
+            ms = time_events_ms(lambda: qk.qr_parity_kernel(h, sweeps, 0.0), 2) / sweeps
+            check(bool(torch.isfinite(qk.qr_parity_kernel(h, sweeps, 0.0)[0]).all()),
+                  "B10: H not finite")
+            kernels = device_kernels(lambda: qk.qr_parity_kernel(h, sweeps, 0.0)) \
+                if n == QR_SWEEP_N else None
+            print(f"b10 {root}: {dt} n={n}: {ms:.4f} ms a sweep ({sweeps} sweeps a call, two "
+                  f"calls after a warm-up), device kernels a call "
+                  f"{'not measured' if kernels is None else len(kernels)} [{card_name}, {card_limit}]")
+    # phase 7's parity solves at QR_N through the public path
+    for dt in (torch.float32, torch.complex64):
+        a, want = device_operand(rng, QR_N, dt, "cuda", "geometric")
+        opts = eigsol.QROptions(mode="parity", tolerance=QR_TOL,
+                                max_iterations=max(40 * int(math.log(QR_N) * 10), 2000))
+        eigsol.qr_eigenvalues(eigsol.DenseMatrix(a[:64, :64].contiguous()), opts)  # warm-up
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = eigsol.qr_eigenvalues(eigsol.DenseMatrix(a), opts)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            err = nearest_err(r.eigenvalues.cpu().numpy(), want)
+            check(bool(r.converged) and err <= 1e-4, f"B10 {dt}: the parity solve failed ({err})")
+            launches = getattr(qk.qr_parity_kernel, "device_launches", "not counted")
+            print(f"b10 {root}: parity solve {dt} n={QR_N} {seconds:.4f} s, {int(r.iterations)} "
+                  f"iterations, eigenvalue error {err:.2e}, B10 cooperative launches {launches} "
+                  f"[{card_name}, {card_limit}]")
+    # B9 (its split-K: atomics in the parent, ordered partials here)
+    for n in (QR_N, LARGE_N, FULL_N):
+        a, _ = device_operand(rng, n, torch.float32, "cuda", "gaussian")
+        ms = time_events_ms(lambda: qk.qr_decompose_kernel(a), 3)
+        r1, q1 = qk.qr_decompose_kernel(a)
+        r2, q2 = qk.qr_decompose_kernel(a)
+        same = torch.equal(r1, r2) and torch.equal(q1, q2)
+        print(f"b9 {root}: float32 n={n}: {ms:.3f} ms a call (three calls after a warm-up), "
+              f"device kernels a call {qk.qr_decompose_kernel.device_launches}, a second call "
+              f"bitwise equal: {same} [{card_name}, {card_limit}]")
+        del a, r1, q1, r2, q2
+
+
+def b8_compare(root: str) -> None:
+    """``--b8 ROOT`` (see the module docstring). Prints one line a case;
+    fails if the port is not the one under ROOT, a result is not finite or a
+    solve does not converge."""
+    import_port(root)
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+
+    card_name, card_limit = card_line().split(", ")
+    rng = np.random.default_rng(8)
+    sweeps = 10
+    for n in (64, QR_SWEEP_N, 256):
+        h = qk.hessenberg_plain(device_operand(rng, n, torch.complex64, "cuda", "gaussian")[0])
+        g, _ = device_operand(rng, n, torch.float32, "cuda", "geometric")
+        g = qk.hessenberg_reduce(g).to(torch.complex64)
+        for q in (False, True):
+            ms = time_events_ms(lambda: qk.qr_eig_kernel(h, sweeps, 0.0, accumulate_q=q), 2)
+            solve = time_events_ms(lambda: qk.qr_eig_kernel(g, 20 * n, QR_TOL, accumulate_q=q), 2)
+            e, s, hi = qk.qr_eig_kernel(g, 20 * n, QR_TOL, accumulate_q=q)[:3]
+            check(int(hi) <= 1 and bool(torch.isfinite(e).all()), f"B8 n={n}: the solve failed")
+            kernels = device_kernels(lambda: qk.qr_eig_kernel(h, sweeps, 0.0, accumulate_q=q))
+            print(f"b8 {root}: complex64 n={n} {'with' if q else 'without'} Q: "
+                  f"{ms / sweeps:.4f} ms a full-window sweep ({sweeps} sweeps a call), bench "
+                  f"operand {solve:.3f} ms ({int(s)} sweeps; two calls after a warm-up each), "
+                  f"device kernels a call {'not measured' if kernels is None else len(kernels)} "
+                  f"[{card_name}, {card_limit}]")
+
+
 def main() -> None:
     import torch
 
@@ -2644,17 +2797,27 @@ def main() -> None:
         k_ms, p_ms, nbytes = timings[(tag, dt)]
         add_row(kernel.__name__, KERNEL_SOURCE, f"{TPU_KERNELS}:{line}",
                 launches[kernel.__name__], errors[tag], k_ms, p_ms, nbytes, flops, tag)
-    # B7/B9 per call at 512 float32; B8 (complex64) and B10 (float32) per sweep
-    # at 128 (a call of 10 sweeps reads H once and writes it once)
+    # B7/B9 per call at 512 float32; B8 (complex64) per sweep at 128 (a call
+    # of 10 sweeps reads H once and writes it once). B10 (float32) per sweep
+    # at 128 as a Hessenberg sweep's work, counted as B13's row below, over a
+    # call of 10 sweeps as B8's: the upper-Hessenberg part read and written
+    # once a call, and each sweep's rotations' own arithmetic (left rotation
+    # k on rows k, k + 1 over columns k .. n - 1, right rotation k on columns
+    # k, k + 1 over rows 0 .. k + 1, two real multiply-adds an entry). Its
+    # iterate is that of the reference's
+    # Householder QR and R Q product (14/3 n^3 flops a sweep) up to a
+    # diagonal unitary; that count is the reference's algorithm, not the work
+    # this iteration needs.
     n, m = QR_N, QR_SWEEP_N
+    hess = m * (m + 1) // 2 + m - 1
+    rot_madds = sum(4 * (m - k) + 4 * min(k + 2, m) for k in range(m - 1))
     for kernel, tag, line, dt, nbytes, flops in (
             (qk.hessenberg_kernel, "B7", 55, torch.float32, 2 * 4 * n * n, 10 / 3 * n ** 3),
             (qk.qr_eig_kernel, "B8", 293, torch.complex64, 2 * 8 * m * m / 10, 32 * m * m),
             (qk.qr_decompose_kernel, "B9", 756, torch.float32, 3 * 4 * n * n, 8 / 3 * n ** 3),
-            (qk.qr_parity_kernel, "B10", 797, torch.float32, 2 * 4 * m * m / 10,
-             14 / 3 * m ** 3)):
+            (qk.qr_parity_kernel, "B10", 797, torch.float32, 2 * 4 * hess / 10, 2 * rot_madds)):
         k_ms, p_ms, _ = qr_timings[(tag, dt)]
-        add_row(kernel.__name__, B7_SOURCE if tag == "B7" else QR_SOURCE,
+        add_row(kernel.__name__, {"B7": B7_SOURCE, "B10": QRB_SOURCE}.get(tag, QR_SOURCE),
                 f"{QR_TPU_KERNELS}:{line}", qr_launches[kernel.__name__], qr_errors[tag], k_ms,
                 p_ms, nbytes, flops, tag)
     # B11/B12 per call with Q (A read; H and Q written; 10/3 n^3 + 4/3 n^3
@@ -2727,6 +2890,10 @@ if __name__ == "__main__":
         b13_compare(sys.argv[2])
     elif sys.argv[1:2] == ["--b14"] and len(sys.argv) == 3:
         b14_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--b10"] and len(sys.argv) == 3:
+        b10_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--b8"] and len(sys.argv) == 3:
+        b8_compare(sys.argv[2])
     else:
         main()
     sys.stdout.flush()

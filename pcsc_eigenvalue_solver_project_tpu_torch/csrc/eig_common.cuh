@@ -31,6 +31,7 @@ __device__ __forceinline__ double dfma(double a, double b, double c) { return fm
 template <typename R>
 struct RealOps {
   using Real = R;
+  static constexpr bool kComplex = false;
   static __device__ __forceinline__ R zero() { return R(0); }
   static __device__ __forceinline__ R one() { return R(1); }
   static __device__ __forceinline__ R make(R re, R) { return re; }
@@ -47,11 +48,15 @@ struct RealOps {
   static __device__ __forceinline__ R shfl_xor(R a, int m) {
     return __shfl_xor_sync(0xffffffffu, a, m);
   }
+  static __device__ __forceinline__ R shfl(R a, int lane) {
+    return __shfl_sync(0xffffffffu, a, lane);
+  }
 };
 
 template <typename R, typename C>
 struct ComplexOps {
   using Real = R;
+  static constexpr bool kComplex = true;
   static __device__ __forceinline__ C make(R re, R im) { C c; c.x = re; c.y = im; return c; }
   static __device__ __forceinline__ C zero() { return make(R(0), R(0)); }
   static __device__ __forceinline__ C one() { return make(R(1), R(0)); }
@@ -81,6 +86,9 @@ struct ComplexOps {
   }
   static __device__ __forceinline__ C shfl_xor(C a, int m) {
     return make(__shfl_xor_sync(0xffffffffu, a.x, m), __shfl_xor_sync(0xffffffffu, a.y, m));
+  }
+  static __device__ __forceinline__ C shfl(C a, int lane) {
+    return make(__shfl_sync(0xffffffffu, a.x, lane), __shfl_sync(0xffffffffu, a.y, lane));
   }
 };
 
@@ -126,36 +134,37 @@ __global__ void eye_kernel(T* __restrict__ Q, int64_t n) {
   if (e < n * n) Q[e] = e / n == e % n ? O::one() : O::zero();
 }
 
-// ---- the shifted Givens sweeps (B8 in qr_kernels.cu, B13 in qr_eig_blocked.cu)
+// ---- the Givens sweeps (B8 in qr_kernels.cu; B13 and B10 in qr_eig_blocked.cu)
 
-// |H[c+1, c]| <= tol * max(|H[c, c]| + |H[c+1, c+1]|, 1)
+// |H[c+1, c]| <= tol * max(|H[c, c]| + |H[c+1, c+1]|, 1); ld is H's row stride
 template <typename T>
-__device__ __forceinline__ bool negligible(const T* H, int64_t n, int64_t c,
+__device__ __forceinline__ bool negligible(const T* H, int64_t ld, int64_t c,
                                            typename Ops<T>::Real tol) {
   using O = Ops<T>;
   using R = typename O::Real;
-  const R scale = dsqrt(O::abs2(H[c * n + c])) + dsqrt(O::abs2(H[(c + 1) * n + c + 1]));
-  return dsqrt(O::abs2(H[(c + 1) * n + c])) <= tol * (scale > R(1) ? scale : R(1));
+  const R scale = dsqrt(O::abs2(H[c * ld + c])) + dsqrt(O::abs2(H[(c + 1) * ld + c + 1]));
+  return dsqrt(O::abs2(H[(c + 1) * ld + c])) <= tol * (scale > R(1) ? scale : R(1));
 }
 
 // The window update of qr_kernels.py:339-351 (deflate_and_lo): on return
 // sh[0] + 2 is the new hi (2 + the last c < hi - 1 with a non-negligible
 // subdiagonal, 1 if none) and sh[1] + 1 is lo (1 + the last c < new hi - 1
-// with a negligible subdiagonal, 0 if none). Call with all threads after a
-// barrier; read sh before the next barrier-separated call.
+// with a negligible subdiagonal, 0 if none). ld is H's row stride. Call with
+// all threads after a barrier; read sh before the next barrier-separated call.
 template <typename T>
-__device__ void deflate_and_lo(const T* H, int64_t n, int hi, typename Ops<T>::Real tol, int* sh) {
+__device__ void deflate_and_lo(const T* H, int64_t ld, int hi, typename Ops<T>::Real tol,
+                               int* sh) {
   if (threadIdx.x == 0) sh[0] = sh[1] = -1;
   __syncthreads();
   int best = -1;
   for (int c = threadIdx.x; c < hi - 1; c += blockDim.x)
-    if (!negligible(H, n, c, tol)) best = c;
+    if (!negligible(H, ld, c, tol)) best = c;
   if (best >= 0) atomicMax(&sh[0], best);
   __syncthreads();
   const int new_hi = sh[0] + 2;
   best = -1;
   for (int c = threadIdx.x; c < new_hi - 1; c += blockDim.x)
-    if (negligible(H, n, c, tol)) best = c;
+    if (negligible(H, ld, c, tol)) best = c;
   if (best >= 0) atomicMax(&sh[1], best);
   __syncthreads();
 }
@@ -183,14 +192,99 @@ __device__ __forceinline__ void rotate_pair(T g00, T g01, T* x, T* y) {
   *y = O::msub(O::madd(O::zero(), O::conj(g00), rk1), O::conj(g01), rk);
 }
 
+// Tiles of per_tile columns (or rows) that cover n.
+__host__ __device__ __forceinline__ int tiles_of(int64_t n, int per_tile) {
+  return static_cast<int>((n + per_tile - 1) / per_tile);
+}
+
+// A sweep's blocks of rotations on the window [lo, hi) (B8, B13, B10):
+// b_i = lo + i bs, e_i = min(b_i + bs, hi - 1).
+struct Blocks {
+  int lo, hi, bs, count;
+  __device__ int b(int i) const { return lo + i * bs; }
+  __device__ int e(int i) const { return min(lo + i * bs + bs, hi - 1); }
+  // the last block whose window reaches row e_j + 1
+  __device__ int reach(int j) const { return min(count - 1, (e(j) + 1 - lo) / bs); }
+};
+
+// Warp 0 (lane = threadIdx.x): the left rotations of one window W (m rows,
+// wc columns, stride ws; rotation r's pivot is local column r + off),
+// accumulated into U (from I; written to Ug, stride us, as its rows finish,
+// and its last row also to Ul). Lane l owns columns l + 32 s of W and of U and carries their current
+// two rows in registers; each step loads the next row (and the next pivot's
+// entry below it) before it stores anything, and the next rotation comes
+// from the pivot column's owner by one shuffle. The body has no branch, so
+// that the warp's one instruction stream can overlap the stores and U with
+// the chain: the step past the last rotation reads row m - 1 again and forms
+// a rotation that is never used.
+template <typename T, int kSlots>
+__device__ __forceinline__ void rotate_window(T* W, int ws, int m, int wc, int off, T* Ug, T* Ul,
+                                              int us) {
+  using O = Ops<T>;
+  const int lane = threadIdx.x;
+  T cur[kSlots], nxt[kSlots], cu[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int col = lane + 32 * s;
+    cur[s] = col < wc ? W[col] : O::zero();
+    nxt[s] = col < wc ? W[ws + col] : O::zero();
+    cu[s] = col == 0 ? O::one() : O::zero();
+  }
+  T g[2];
+  givens(W[off], W[ws + off], g);  // every lane: the same inputs, the same rotation
+  for (int r = 0; r + 1 < m; ++r) {
+    const int r2 = r + 2 < m ? r + 2 : m - 1;             // the next row down
+    const int pc = r + 1 + off < wc ? r + 1 + off : wc - 1;  // rotation r + 1's pivot column
+    T n2[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int col = lane + 32 * s;
+      n2[s] = col < wc ? W[r2 * ws + col] : O::zero();
+    }
+    const T below = W[r2 * ws + pc];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) rotate_pair(g[0], g[1], &cur[s], &nxt[s]);
+    T mine = nxt[0];  // rotation r + 1 from its pivot column, rows r + 1 and r + 2
+#pragma unroll
+    for (int s = 1; s < kSlots; ++s)
+      if (pc / 32 == s) mine = nxt[s];
+    const T top = O::shfl(mine, pc % 32);
+    T gn[2];
+    givens(top, below, gn);
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int col = lane + 32 * s;
+      T un = col == r + 1 ? O::one() : O::zero();  // U's row r + 1 is still e_{r+1}
+      rotate_pair(g[0], g[1], &cu[s], &un);
+      if (col < m) Ug[r * us + col] = cu[s];
+      cu[s] = un;
+      if (col < wc) W[r * ws + col] = cur[s];
+      cur[s] = nxt[s];
+      nxt[s] = n2[s];
+    }
+    g[0] = gn[0];
+    g[1] = gn[1];
+  }
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int col = lane + 32 * s;
+    if (col < wc) W[(m - 1) * ws + col] = cur[s];
+    if (col < m) {
+      Ug[(m - 1) * us + col] = cu[s];
+      Ul[col] = cu[s];
+    }
+  }
+}
+
 // Eigenvalue of the trailing active 2x2 [[a, b], [c, d]] nearest d, with
-// the complex square root and the pick of qr_kernels.py:366-385.
+// the complex square root and the pick of qr_kernels.py:366-385 (complex T;
+// ld is H's row stride).
 template <typename T>
-__device__ T wilkinson_shift(const T* H, int64_t n, int hi) {
+__device__ T wilkinson_shift(const T* H, int64_t ld, int hi) {
   using O = Ops<T>;
   using R = typename O::Real;
-  const T a = H[(hi - 2) * n + hi - 2], b = H[(hi - 2) * n + hi - 1];
-  const T c = H[(hi - 1) * n + hi - 2], d = H[(hi - 1) * n + hi - 1];
+  const T a = H[(hi - 2) * ld + hi - 2], b = H[(hi - 2) * ld + hi - 1];
+  const T c = H[(hi - 1) * ld + hi - 2], d = H[(hi - 1) * ld + hi - 1];
   const R delr = (a.x - d.x) * R(0.5), deli = (a.y - d.y) * R(0.5);
   const R zr = delr * delr - deli * deli + b.x * c.x - b.y * c.y;
   const R zi = R(2) * delr * deli + b.x * c.y + b.y * c.x;

@@ -1,10 +1,30 @@
-// Blocked shifted Givens QR sweeps for NVIDIA Hopper (sm_90a).
+// Blocked Givens QR sweeps for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel
-// pcsc_eigenvalue_solver_project_tpu/ops/pallas/qr_eig_blocked.py:
-//   B13 _qr_blocked_kernel (:63), reached through qr_eig_blocked_planes,
-//       _step_pallas and _step_pallas_q -> qr_eig_blocked_sweeps
-// on float2 and double2 ((re, im) in (.x, .y), the four-FMA product).
+// Replaces the Pallas TPU kernels
+//   B13 _qr_blocked_kernel (pcsc_eigenvalue_solver_project_tpu/ops/pallas/
+//       qr_eig_blocked.py:63), reached through qr_eig_blocked_planes,
+//       _step_pallas and _step_pallas_q -> qr_eig_blocked_sweeps, on float2
+//       and double2 ((re, im) in (.x, .y), the four-FMA product);
+//   B10 _qr_parity_kernel (pcsc_eigenvalue_solver_project_tpu/ops/pallas/
+//       qr_kernels.py:797) -> qr_eig_blocked_sweeps in parity mode, on float,
+//       double, float2 and double2 (a real matrix takes real rotations).
+//
+// Parity mode (B10) is the reference's unshifted QR iteration H := R Q with
+// H = Q R on the Hessenberg matrix it is given. On a Hessenberg matrix each
+// Householder reflector of that QR has two nonzero entries: it is a Givens
+// rotation times a diagonal unitary. So the Givens sweep below, with no
+// shift and the window [0, n) every sweep whatever the subdiagonal holds,
+// gives D^H H D of the Householder iterate for a diagonal unitary D, and
+// diag(H), |H|, max|H[i+1, i]| and ||H||_F, all that the stop test and the
+// result read, do not change under D. A sweep is then n - 1 rotations,
+// O(n^2), where the Householder QR and the product R Q are O(n^3). After each
+// sweep every block sums its row tiles of the upper-Hessenberg part
+// (parity_partials: sum |H|^2, max |H[i+1, i]|^2, one fixed order), and
+// every block adds the partials in tile order and takes the same decision:
+// converged when max|H[i+1, i]| <= tol (1 + ||H||_F) in the working
+// precision, done then or after max_sweeps sweeps; block 0 stores the count,
+// the flags and maxsub for the host. A zero pivot pair gives the identity
+// rotation (givens()), as the Householder step's tail-zero skip does.
 //
 // Each sweep on the active window [lo, hi) of the Hessenberg H (that of B8,
 // qr_kernels.cu): the shift mu (Wilkinson's from the trailing active 2x2, or
@@ -101,9 +121,9 @@ constexpr int kRightColsPerThread = (kMaxBlock + 1 + 31) / 32;
 constexpr int kRightRowsPerThread = kRightRows / kRowGroups;
 static_assert(kRightRows % kRowGroups == 0, "right-pass row groups");
 
-// Device state (int32): the active window, the sweeps done in this call, and
-// whether the iteration has ended.
-enum State { kHi = 0, kLo = 1, kSweeps = 2, kDone = 3 };
+// Device state (int32): the active window, the sweeps done in this call,
+// whether the iteration has ended, and (parity mode) whether it converged.
+enum State { kHi = 0, kLo = 1, kSweeps = 2, kDone = 3, kConv = 4 };
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
@@ -130,11 +150,6 @@ __device__ __forceinline__ void publish(unsigned* p, unsigned v) {
   if (threadIdx.x == 0) st_release(p, v);
 }
 
-// Column tiles of the slabs (row tiles of the right passes) of n.
-__host__ __device__ __forceinline__ int tiles_of(int64_t n, int per_tile) {
-  return static_cast<int>((n + per_tile - 1) / per_tile);
-}
-
 // What every block of the launch reads.
 template <typename T>
 struct Sweep {
@@ -147,6 +162,8 @@ struct Sweep {
   T* mu;
   const T* shifts;
   unsigned* flags;  // n U flags, then a slab count per column tile
+  typename Ops<T>::Real* part;  // parity mode: 2 partials a row tile, then maxsub
+  int parity;
   int n_shifts;
   int64_t n;
   int max_sweeps;
@@ -155,15 +172,6 @@ struct Sweep {
   int budget;     // sweeps this launch at most
   int first;      // the call's first launch: the initial scan and shift
   int nslab;      // slab blocks (1 .. nslab); the rest take the right passes
-};
-
-// The sweep's blocks: b_i = lo + i bs, e_i = min(b_i + bs, hi - 1).
-struct Blocks {
-  int lo, hi, bs, count;
-  __device__ int b(int i) const { return lo + i * bs; }
-  __device__ int e(int i) const { return min(lo + i * bs + bs, hi - 1); }
-  // the last block whose window reaches row e_j + 1
-  __device__ int reach(int j) const { return min(count - 1, (e(j) + 1 - lo) / bs); }
 };
 
 // |H[c+1, c]| <= tol * max(|H[c, c]| + |H[c+1, c+1]|, 1), read through L2
@@ -221,9 +229,13 @@ __device__ void boundary(const Sweep<T>& a, bool first, int* sh, T* s_mu) {
   const bool done = hi <= 1 || sweeps >= a.max_sweeps;
   if (!done) {
     if (t == 0) {
-      T corner[4];  // the trailing active 2 x 2
-      for (int k = 0; k < 4; ++k) corner[k] = __ldcg(&H[(hi - 2 + k / 2) * n + hi - 2 + k % 2]);
-      *s_mu = a.n_shifts > 0 ? a.shifts[sweeps % a.n_shifts] : wilkinson_shift(corner, 2, 2);
+      if constexpr (O::kComplex) {
+        T corner[4];  // the trailing active 2 x 2
+        for (int k = 0; k < 4; ++k) corner[k] = __ldcg(&H[(hi - 2 + k / 2) * n + hi - 2 + k % 2]);
+        *s_mu = a.n_shifts > 0 ? a.shifts[sweeps % a.n_shifts] : wilkinson_shift(corner, 2, 2);
+      } else {  // real data runs in parity mode only
+        *s_mu = O::zero();
+      }
     }
     __syncthreads();
     for (int i = lo + t; i < hi; i += nt) H[i * n + i] = O::sub(__ldcg(&H[i * n + i]), *s_mu);
@@ -238,73 +250,81 @@ __device__ void boundary(const Sweep<T>& a, bool first, int* sh, T* s_mu) {
   }
 }
 
-// Warp 0: the left rotations of one window W (m rows, wc columns, stride
-// ws; rotation r's pivot is local column r + off), accumulated into U (from
-// I; written to Ug, stride us, as its rows finish, and its last row also to
-// Ul). Lane l owns columns l + 32 s of W and of U and carries their current
-// two rows in registers; each step loads the next row (and the next pivot's
-// entry below it) before it stores anything, and the next rotation comes
-// from the pivot column's owner by one shuffle. The body has no branch, so
-// that the warp's one instruction stream can overlap the stores and U with
-// the chain: the step past the last rotation reads row m - 1 again and forms
-// a rotation that is never used.
-template <typename T, int kSlots>
-__device__ void rotate_window(T* W, int ws, int m, int wc, int off, T* Ug, T* Ul, int us) {
+// Parity mode, on the call's first launch (block 0): the whole window and no
+// sweep done; done at once without a budget.
+template <typename T>
+__device__ void parity_start(const Sweep<T>& a) {
+  if (threadIdx.x == 0) {
+    a.st[kHi] = static_cast<int>(a.n);
+    a.st[kLo] = 0;
+    a.st[kSweeps] = 0;
+    a.st[kDone] = a.max_sweeps <= 0 ? 1 : 0;
+    a.st[kConv] = 0;
+    a.part[2 * tiles_of(a.n, kRightRows)] = 0;
+  }
+}
+
+// Parity mode, after a sweep: the block's row tiles r = blockIdx.x,
+// + gridDim.x, ... of the stop test: part[2 r] = the sum of |H[i, j]|^2 over
+// the tile's rows i and j >= i - 1, part[2 r + 1] = the max of
+// |H[i, i - 1]|^2 over them. Each thread sums its entries in a fixed order
+// and block_reduce adds the threads in a fixed tree.
+template <typename T>
+__device__ void parity_partials(const Sweep<T>& a, typename Ops<T>::Real* red) {
   using O = Ops<T>;
-  const int lane = threadIdx.x;
-  T cur[kSlots], nxt[kSlots], cu[kSlots];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int col = lane + 32 * s;
-    cur[s] = col < wc ? W[col] : O::zero();
-    nxt[s] = col < wc ? W[ws + col] : O::zero();
-    cu[s] = col == 0 ? O::one() : O::zero();
-  }
-  T g[2];
-  givens(W[off], W[ws + off], g);  // every lane: the same inputs, the same rotation
-  for (int r = 0; r + 1 < m; ++r) {
-    const int r2 = r + 2 < m ? r + 2 : m - 1;             // the next row down
-    const int pc = r + 1 + off < wc ? r + 1 + off : wc - 1;  // rotation r + 1's pivot column
-    T n2[kSlots];
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int col = lane + 32 * s;
-      n2[s] = col < wc ? W[r2 * ws + col] : O::zero();
+  using R = typename O::Real;
+  const int64_t n = a.n;
+  const int tiles = tiles_of(n, kRightRows);
+  for (int r = blockIdx.x; r < tiles; r += gridDim.x) {
+    R sum = 0, sub = 0;
+    const int64_t i1 = (r + 1) * static_cast<int64_t>(kRightRows) < n ? (r + 1) * kRightRows : n;
+    for (int64_t i = static_cast<int64_t>(r) * kRightRows; i < i1; ++i) {
+      const int64_t j0 = i > 0 ? i - 1 : 0;
+      for (int64_t j = j0 + threadIdx.x; j < n; j += blockDim.x) {
+        const R m = O::abs2(__ldcg(&a.h[i * n + j]));
+        sum += m;
+        if (j == i - 1) sub = m > sub ? m : sub;
+      }
     }
-    const T below = W[r2 * ws + pc];
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) rotate_pair(g[0], g[1], &cur[s], &nxt[s]);
-    T mine = nxt[0];  // rotation r + 1 from its pivot column, rows r + 1 and r + 2
-#pragma unroll
-    for (int s = 1; s < kSlots; ++s)
-      if (pc / 32 == s) mine = nxt[s];
-    const T top = O::make(__shfl_sync(0xffffffffu, O::re(mine), pc % 32),
-                          __shfl_sync(0xffffffffu, O::im(mine), pc % 32));
-    T gn[2];
-    givens(top, below, gn);
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int col = lane + 32 * s;
-      T un = col == r + 1 ? O::one() : O::zero();  // U's row r + 1 is still e_{r+1}
-      rotate_pair(g[0], g[1], &cu[s], &un);
-      if (col < m) Ug[r * us + col] = cu[s];
-      cu[s] = un;
-      if (col < wc) W[r * ws + col] = cur[s];
-      cur[s] = nxt[s];
-      nxt[s] = n2[s];
-    }
-    g[0] = gn[0];
-    g[1] = gn[1];
-  }
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int col = lane + 32 * s;
-    if (col < wc) W[(m - 1) * ws + col] = cur[s];
-    if (col < m) {
-      Ug[(m - 1) * us + col] = cu[s];
-      Ul[col] = cu[s];
+    sum = block_reduce(sum, red, false);
+    sub = block_reduce(sub, red, true);
+    if (threadIdx.x == 0) {
+      a.part[2 * r] = sum;
+      a.part[2 * r + 1] = sub;
     }
   }
+}
+
+// Parity mode, after parity_partials and a grid barrier (every block, the
+// same decision): the partials added in tile order, converged when maxsub
+// <= tol (1 + ||H||_F), done then or at max_sweeps. Block 0 stores the
+// sweeps, done, converged and maxsub.
+template <typename T>
+__device__ bool parity_decide(const Sweep<T>& a, int sweeps, int* flag) {
+  using R = typename Ops<T>::Real;
+  if (threadIdx.x == 0) {
+    const int tiles = tiles_of(a.n, kRightRows);
+    R fro2 = 0, sub2 = 0;
+    for (int r = 0; r < tiles; ++r) {
+      fro2 += __ldcg(&a.part[2 * r]);
+      const R m = __ldcg(&a.part[2 * r + 1]);
+      sub2 = m > sub2 ? m : sub2;
+    }
+    const R maxsub = dsqrt(sub2);
+    const bool conv = maxsub <= a.tol * (R(1) + dsqrt(fro2));
+    const bool done = conv || sweeps >= a.max_sweeps;
+    *flag = done ? 1 : 0;
+    if (blockIdx.x == 0) {
+      a.st[kSweeps] = sweeps;
+      a.st[kDone] = done ? 1 : 0;
+      a.st[kConv] = conv ? 1 : 0;
+      a.part[2 * tiles] = maxsub;
+    }
+  }
+  __syncthreads();
+  const bool done = *flag != 0;
+  __syncthreads();  // flag is written again after the next sweep
+  return done;
 }
 
 // Block 0: the chain of sweep s (launch-relative).
@@ -537,30 +557,45 @@ __global__ void __launch_bounds__(kSweepThreads, 1) sweeps_kernel(Sweep<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sh[2];
   __shared__ T s_mu;
+  __shared__ typename Ops<T>::Real red[32];
   const int64_t n = a.n;
   const int64_t nflags = n + tiles_of(n, kSlabCols);
   for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; k < nflags;
        k += static_cast<int64_t>(gridDim.x) * blockDim.x)
     a.flags[k] = 0;
-  if (blockIdx.x == 0 && a.first) boundary(a, true, sh, &s_mu);
+  if (blockIdx.x == 0 && a.first) {
+    if (a.parity)
+      parity_start(a);
+    else
+      boundary(a, true, sh, &s_mu);
+  }
   grid.sync();
-  for (int s = 0; s < a.budget; ++s) {
+  bool done = __ldcg(&a.st[kDone]) != 0;
+  int sweeps = __ldcg(&a.st[kSweeps]);  // parity mode: every block counts
+  for (int s = 0; s < a.budget && !done; ++s) {
     const int hi = __ldcg(&a.st[kHi]), lo = __ldcg(&a.st[kLo]);
-    if (__ldcg(&a.st[kDone])) break;
     const Blocks B{lo, hi, a.bs, (hi - 1 - lo + a.bs - 1) / a.bs};
     const int w = static_cast<int>(blockIdx.x);
-    if (w == 0)
-      chain<T, kSlots>(a, B, static_cast<unsigned>(s), smem);
-    else if (w <= a.nslab)
+    if (w == 0) {
+      if (B.count > 0) chain<T, kSlots>(a, B, static_cast<unsigned>(s), smem);
+    } else if (w <= a.nslab) {
       slab_worker(a, B, static_cast<unsigned>(s), w - 1, smem);
-    else
+    } else {
       right_worker(a, B, static_cast<unsigned>(s), w - 1 - a.nslab,
                    static_cast<int>(gridDim.x) - 1 - a.nslab, smem);
+    }
     grid.sync();
-    if (w == 0) boundary(a, false, sh, &s_mu);
-    grid.sync();
+    if (a.parity) {
+      parity_partials(a, red);
+      grid.sync();
+      done = parity_decide(a, ++sweeps, sh);
+    } else {
+      if (w == 0) boundary(a, false, sh, &s_mu);
+      grid.sync();
+      done = __ldcg(&a.st[kDone]) != 0;
+    }
   }
-  if (__ldcg(&a.st[kDone]))
+  if (done)
     for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
          i += static_cast<int64_t>(gridDim.x) * blockDim.x)
       a.eig[i] = __ldcg(&a.h[i * n + i]);
@@ -620,11 +655,11 @@ int run_sweeps(Sweep<T> a, int grid_req, long long* launches, cudaStream_t s) {
                                                   dim3(grid), dim3(kSweepThreads), args, smem, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launches;
-    int state[4];
-    cudaMemcpyAsync(state, a.st, sizeof(state), cudaMemcpyDeviceToHost, s);
+    int done = 0;
+    cudaMemcpyAsync(&done, a.st + kDone, sizeof(done), cudaMemcpyDeviceToHost, s);
     if (int rc = last_error()) return rc;
     if (int rc = static_cast<int>(cudaStreamSynchronize(s))) return rc;
-    if (state[kDone]) return 0;
+    if (done) return 0;
   }
 }
 
@@ -650,31 +685,43 @@ extern "C" {
 // B13: blocked shifted Givens sweeps on the complex Hessenberg h (n x n, in
 // place) until hi <= 1 or max_sweeps sweeps; q (nullable: eigenvalues only)
 // is multiplied by the right rotations and h's slabs run through all n
-// columns (Schur mode). eig = diag(h); state = {hi, lo, sweeps, done}
-// (int32); mu one scalar; ubuf ceil((n - 1) / bs) (bs + 1)^2 scalars; side n
-// scalars; flags n + ceil(n / 32) uint32; shifts (nullable) n_shifts
-// scalars, sweep s shifting by shifts[s % n_shifts] instead of Wilkinson's.
-// Cooperative launches of one block an SM (fewer when the tiles are fewer),
-// each of at most kSweepsPerLaunch sweeps; the host reads the state after
-// each and counts them in *launches. A grid > 0 sets the launch's size
-// instead, for tests: under 3 or more than the card holds at once fails.
+// columns (Schur mode). eig = diag(h); state = {hi, lo, sweeps, done,
+// converged} (int32); mu one scalar; ubuf ceil((n - 1) / bs) (bs + 1)^2
+// scalars; side n scalars; flags n + ceil(n / 32) uint32; shifts (nullable)
+// n_shifts scalars, sweep s shifting by shifts[s % n_shifts] instead of
+// Wilkinson's. With parity != 0, B10: unshifted sweeps on the whole window
+// (q and shifts null) until max|h[i+1, i]| <= tol (1 + ||h||_F) or
+// max_sweeps sweeps, real or complex h; part holds 2 ceil(n / 32) + 1 reals
+// and ends with the last maxsub. Cooperative launches of one block an SM
+// (fewer when the tiles are fewer), each of at most kSweepsPerLaunch sweeps;
+// the host reads the state after each and counts them in *launches. A grid
+// > 0 sets the launch's size instead, for tests: under 3 or more than the
+// card holds at once fails.
 int qr_eig_blocked_sweeps(int dtype, int device, void* h, void* q, void* ubuf, void* side,
                           void* flags, void* eig, void* state, void* mu, const void* shifts,
                           int n_shifts, long long n, int max_sweeps, double tol, int bs, int grid,
-                          long long* launches, void* stream) {
+                          int parity, void* part, long long* launches, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   *launches = 0;
   if (n <= 0) return 0;
-  if (bs < 1 || bs > kMaxBlock || n_shifts < 0 || grid < 0 || n >= (1LL << 31))
+  if (bs < 1 || bs > kMaxBlock || n_shifts < 0 || grid < 0 || n >= (1LL << 31) ||
+      (parity && (q != nullptr || n_shifts > 0 || part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define QRB_SWEEP(T)                                                                        \
   Sweep<T>{static_cast<T*>(h), static_cast<T*>(q), static_cast<T*>(ubuf),                  \
            static_cast<T*>(side), static_cast<T*>(eig), static_cast<int*>(state),           \
            static_cast<T*>(mu), static_cast<const T*>(shifts), static_cast<unsigned*>(flags), \
-           n_shifts, n, max_sweeps, static_cast<typename Ops<T>::Real>(tol), bs, 1, 1, 1}
+           static_cast<typename Ops<T>::Real*>(part), parity ? 1 : 0, n_shifts, n,          \
+           max_sweeps, static_cast<typename Ops<T>::Real>(tol), bs, 1, 1, 1}
   switch (dtype) {
+    case kF32:
+      if (!parity) return static_cast<int>(cudaErrorInvalidValue);
+      return dispatch_slots<float>(QRB_SWEEP(float), grid, launches, s);
+    case kF64:
+      if (!parity) return static_cast<int>(cudaErrorInvalidValue);
+      return dispatch_slots<double>(QRB_SWEEP(double), grid, launches, s);
     case kC64: return dispatch_slots<float2>(QRB_SWEEP(float2), grid, launches, s);
     case kC128: return dispatch_slots<double2>(QRB_SWEEP(double2), grid, launches, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -682,13 +729,15 @@ int qr_eig_blocked_sweeps(int dtype, int device, void* h, void* q, void* ubuf, v
 #undef QRB_SWEEP
 }
 
-// The blocks B13's cooperative launch can hold at once (out[0]) and the
-// card's SMs (out[1]), for the dtype and block size.
+// The blocks B13's (or B10's) cooperative launch can hold at once (out[0])
+// and the card's SMs (out[1]), for the dtype and block size.
 int qr_eig_blocked_capacity(int dtype, int device, int bs, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (bs < 1 || bs > kMaxBlock) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
+    case kF32: return dispatch_capacity<float>(bs, out);
+    case kF64: return dispatch_capacity<double>(bs, out);
     case kC64: return dispatch_capacity<float2>(bs, out);
     case kC128: return dispatch_capacity<double2>(bs, out);
     default: return static_cast<int>(cudaErrorInvalidValue);

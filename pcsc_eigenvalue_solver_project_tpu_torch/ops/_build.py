@@ -138,14 +138,11 @@ def load() -> ctypes.CDLL:
             # dtype, device, a, r, q, scratch, n, kmax, nb, launches (host), stream
             lib.qr_householder.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, i64, i32, ptr, ptr]
             lib.qr_householder.restype = i32
-            # dtype, device, h_in, h, q, rot, eig, state, n, max_sweeps, tol, stream
-            lib.qr_eig_givens.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32,
-                                          f64, ptr]
+            # dtype, device, h_in, h, q, eig, state, n, max_sweeps, tol, bs, h_smem,
+            # layout (host int64[13]), stream
+            lib.qr_eig_givens.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, i64, i32, f64, i32,
+                                          i32, ptr, ptr]
             lib.qr_eig_givens.restype = i32
-            # dtype, device, h_in, h, r, q, scratch, state, n, max_it, tol, chunk, stream
-            lib.qr_parity_sweeps.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32,
-                                             f64, i32, ptr]
-            lib.qr_parity_sweeps.restype = i32
             # dtype, device, a, h, q, scratch, n, nb, launches (host), stream
             lib.hessenberg_blocked.argtypes = [i32, i32, ptr, ptr, ptr, ptr, i64, i32, ptr, ptr]
             lib.hessenberg_blocked.restype = i32
@@ -160,10 +157,11 @@ def load() -> ctypes.CDLL:
             lib.trisolve_scratch.argtypes = [i32, i64]  # dtype, n
             lib.trisolve_scratch.restype = i64
             # dtype, device, h, q, ubuf, side, flags, eig, state, mu, shifts, n_shifts, n,
-            # max_sweeps, tol, bs, grid (0: the default), launches (host), stream
+            # max_sweeps, tol, bs, grid (0: the default), parity, part, launches (host),
+            # stream
             lib.qr_eig_blocked_sweeps.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                                  ptr, ptr, i32, i64, i32, f64, i32, i32, ptr,
-                                                  ptr]
+                                                  ptr, ptr, i32, i64, i32, f64, i32, i32, i32,
+                                                  ptr, ptr, ptr]
             lib.qr_eig_blocked_sweeps.restype = i32
             # dtype, device, bs, (blocks, SMs) (host int[2] out)
             lib.qr_eig_blocked_capacity.argtypes = [i32, i32, i32, ptr]

@@ -1,5 +1,6 @@
-"""Blocked shifted Givens QR sweeps: the CUDA kernel B13 and its plain
-version, the resumable steps and the blocked eigenvalue solve.
+"""Blocked Givens QR sweeps: the CUDA kernel B13 and its plain version, the
+resumable steps and the blocked eigenvalue solve; and B10, the reference's
+unshifted parity iteration, as the same kernel's sweeps in parity mode.
 
 Counterpart of the JAX package's ``ops/pallas/qr_eig_blocked.py``. Each
 sweep on the active window ``[lo, hi)`` of a complex Hessenberg ``H`` (B8's
@@ -26,6 +27,15 @@ size the sweeps are B8's to rounding. Eigenvalues-only mode updates no
 column at or beyond ``hi``. Each call re-derives ``[lo, hi)`` from the
 subdiagonal scan at entry, so calls can resume one another
 (``qr_eig_blocked_step``, ``qr_eig_blocked_step_q``).
+
+Parity mode (B10, ``_parity_plain`` and ``_parity_kernel``; the public
+wrappers are ``ops/qr_kernels.py``'s ``qr_parity_blocked_plain`` and
+``qr_parity_kernel``): no shift and the window ``[0, n)`` every sweep, on real
+or complex ``H``, until ``max|H[i+1, i]| <= tol * (1 + ||H||_F)`` (the norm over
+the upper-Hessenberg part) or the budget. On a Hessenberg matrix the
+Householder QR of the reference is this Givens QR up to a diagonal unitary
+``D``, so its iterate is ``D^H H D`` of this one: the diagonal, ``|H|``, the
+subdiagonal's moduli and the norm agree.
 
 ``qr_eig_blocked_kernel`` runs ``csrc/qr_eig_blocked.cu`` on a complex64 or
 complex128 CUDA tensor: one cooperative launch for a chunk of sweeps, in
@@ -56,8 +66,9 @@ import numpy as np
 import torch
 
 from . import _build
-from ._common import (COMPLEX_CODES, check_square, deflate_and_lo, eye, givens, ptr,
-                      raise_on_error, real_dtype, rotate_rows, stream, wilkinson_shift)
+from ._common import (COMPLEX_CODES, DTYPE_CODES, abs2, check_square, deflate_and_lo, eye,
+                      givens, ptr, raise_on_error, real_dtype, rotate_rows, stream,
+                      wilkinson_shift)
 
 # Rotations per block, from the sweep of block sizes on the H100 (PERF.md):
 # the chain's warp carries the bs + 2 window columns in slots of 32, and 62
@@ -140,6 +151,38 @@ def _sweeps_plain(h, max_sweeps, tol, shifts, accumulate_q, q, block, order=None
         sweeps += 1
     return (H.diagonal().clone(), torch.tensor(sweeps, dtype=torch.int32),
             torch.tensor(hi, dtype=torch.int32), H, Q)
+
+
+def _parity_stop(H, tol_t):
+    """The parity stop test after a sweep: ``(maxsub, converged)`` with
+    ``maxsub = max|H[i+1, i]|`` (0 when n < 2) and ``converged = maxsub <= tol
+    (1 + ||H||_F)`` in the working precision, the norm over the
+    upper-Hessenberg part."""
+    mag2 = abs2(H)
+    n = H.shape[0]
+    maxsub = mag2.diagonal(-1).max().sqrt() if n > 1 else torch.zeros_like(tol_t)
+    return maxsub, bool(maxsub <= tol_t * (1.0 + torch.triu(mag2, -1).sum().sqrt()))
+
+
+def _parity_plain(h, max_iterations, tol, block, order=None, tiles=None):
+    """B10 in the kernel's order: ``(H, it, converged, maxsub)``. Each sweep
+    is the blocked Givens sweep with no shift on the window ``[0, n)``
+    (``order`` and ``tiles`` as for ``_sweeps_plain``), then the stop test."""
+    n = h.shape[0]
+    H = h.clone()
+    tol_t = torch.tensor(tol, dtype=real_dtype(h.dtype), device=h.device)
+    rng = None if order in (None, "sequential") else np.random.default_rng(order)
+    maxsub, converged, it = torch.zeros_like(tol_t), False, 0
+    while it < max_iterations and not converged:
+        if n > 1 and order is None:
+            _sweep_by_blocks(H, None, 0, n, block, n)
+        elif n > 1:
+            tasks, deps = _sweep_tasks(H, None, 0, n, block, n, tiles or (SLAB_COLS, RIGHT_ROWS))
+            for name in _topological(tasks, deps, rng):
+                tasks[name]()
+        maxsub, converged = _parity_stop(H, tol_t)
+        it += 1
+    return H, torch.tensor(it, dtype=torch.int32), torch.tensor(converged), maxsub
 
 
 def _blocks(lo, hi, block):
@@ -314,6 +357,36 @@ def qr_eig_blocked_plain(h: torch.Tensor, max_sweeps: int, tol: float, shifts=No
 # Kernel wrapper
 # --------------------------------------------------------------------------
 
+def _launch(name, code, h, max_sweeps, tol, shifts, qq, block, grid, parity):
+    """One call of ``csrc/qr_eig_blocked.cu`` on a copy of ``h`` (and on
+    ``qq`` in place): ``(T, eig, state, part, cooperative launches)``, state =
+    (hi, lo, sweeps, done, converged), part's last entry the parity mode's
+    maxsub."""
+    n = h.shape[0]
+    if int(grid) < 0 or int(grid) in (1, 2):
+        raise ValueError(f"{name}: grid {grid} is neither 0 nor at least 3")
+    lib = _build.load()
+    t = h.clone()
+    dev = dict(dtype=h.dtype, device=h.device)
+    ubuf = torch.empty(max(-(-(n - 1) // block), 1) * (block + 1) ** 2, **dev)
+    side = torch.empty(max(n, 1), **dev)
+    flags = torch.empty(n + -(-n // SLAB_COLS), dtype=torch.int32, device=h.device)
+    eig = torch.empty(n, **dev)
+    state = torch.zeros(5, dtype=torch.int32, device=h.device)
+    mu = torch.empty(1, **dev)
+    part = torch.zeros(2 * -(-n // RIGHT_ROWS) + 1, dtype=real_dtype(h.dtype),
+                       device=h.device) if parity else None
+    launches = ctypes.c_longlong(0)
+    rc = lib.qr_eig_blocked_sweeps(code, h.device.index, t.data_ptr(), ptr(qq), ubuf.data_ptr(),
+                                   side.data_ptr(), flags.data_ptr(), eig.data_ptr(),
+                                   state.data_ptr(), mu.data_ptr(), ptr(shifts),
+                                   0 if shifts is None else shifts.shape[0], n, max_sweeps,
+                                   float(tol), block, int(grid), int(parity), ptr(part),
+                                   ctypes.byref(launches), stream(h))
+    raise_on_error(name, lib, rc)
+    return t, eig, state, part, launches.value
+
+
 def _sweeps_kernel(h, max_sweeps, tol, shifts, accumulate_q, q, block, grid=0):
     """B13 on the card: ``(eig, sweeps, hi, T, Q or None)`` as device tensors.
     ``grid`` > 0 sets the cooperative launch's size in place of one block an
@@ -325,32 +398,29 @@ def _sweeps_kernel(h, max_sweeps, tol, shifts, accumulate_q, q, block, grid=0):
         raise ValueError("qr_eig_blocked_kernel: q must match h in shape, dtype and device")
     if shifts is not None and shifts.ndim != 1:
         raise ValueError("qr_eig_blocked_kernel: shifts must be a 1-D tensor")
-    if int(grid) < 0 or int(grid) in (1, 2):
-        raise ValueError(f"qr_eig_blocked_kernel: grid {grid} is neither 0 nor at least 3")
     shifts = _schedule(shifts)
     if shifts is not None:
         shifts = shifts.to(device=h.device, dtype=h.dtype).contiguous()
-    lib = _build.load()
-    t = h.clone()
     qq = (q.contiguous().clone() if q is not None else eye(n, h)) if accumulate_q else None
-    dev = dict(dtype=h.dtype, device=h.device)
-    ubuf = torch.empty(max(-(-(n - 1) // block), 1) * (block + 1) ** 2, **dev)
-    side = torch.empty(max(n, 1), **dev)
-    flags = torch.empty(n + -(-n // SLAB_COLS), dtype=torch.int32, device=h.device)
-    eig = torch.empty(n, **dev)
-    state = torch.zeros(4, dtype=torch.int32, device=h.device)  # hi, lo, sweeps, done
-    mu = torch.empty(1, **dev)
-    launches = ctypes.c_longlong(0)
-    rc = lib.qr_eig_blocked_sweeps(code, h.device.index, t.data_ptr(), ptr(qq), ubuf.data_ptr(),
-                                   side.data_ptr(), flags.data_ptr(), eig.data_ptr(),
-                                   state.data_ptr(), mu.data_ptr(), ptr(shifts),
-                                   0 if shifts is None else shifts.shape[0], n, max_sweeps,
-                                   float(tol), block, int(grid), ctypes.byref(launches),
-                                   stream(h))
-    raise_on_error("qr_eig_blocked_kernel", lib, rc)
+    t, eig, state, _, launches = _launch("qr_eig_blocked_kernel", code, h, max_sweeps, tol,
+                                         shifts, qq, block, grid, False)
     qr_eig_blocked_kernel.launches += 1
-    qr_eig_blocked_kernel.device_launches = launches.value
+    qr_eig_blocked_kernel.device_launches = launches
     return eig, state[2], state[0], t, qq
+
+
+def _parity_kernel(h, max_iterations, tol):
+    """B10 on the card, the kernel's sweeps in parity mode (blocks of
+    ``BLOCK`` rotations) on a float32, float64, complex64 or complex128
+    Hessenberg matrix: ``(H, it, converged, maxsub, cooperative launches)``,
+    the first four as device tensors."""
+    code = check_square("qr_parity_kernel", h, DTYPE_CODES)
+    if not 0 <= max_iterations < 2 ** 31:
+        raise ValueError(f"qr_parity_kernel: max_iterations {max_iterations} "
+                         f"out of int32 range")
+    t, _, state, part, launches = _launch("qr_parity_kernel", code, h, int(max_iterations), tol,
+                                          None, None, BLOCK, 0, True)
+    return t, state[2], state[4] != 0, part[-1], launches
 
 
 def qr_eig_blocked_kernel(h: torch.Tensor, max_sweeps: int, tol: float, shifts=None,
@@ -373,14 +443,14 @@ qr_eig_blocked_kernel.device_launches = 0
 
 
 def blocked_capacity(dtype: torch.dtype, device, block: int = BLOCK):
-    """``(blocks, SMs)``: the blocks one cooperative launch of B13 can hold
-    at once on the card, and its SMs."""
-    if dtype not in COMPLEX_CODES:
+    """``(blocks, SMs)``: the blocks one cooperative launch of B13 (of B10 on
+    real data) can hold at once on the card, and its SMs."""
+    if dtype not in DTYPE_CODES:
         raise TypeError(f"blocked_capacity: unsupported dtype {dtype}")
     device = torch.device(device)
     out = (ctypes.c_int * 2)()
     lib = _build.load()
-    rc = lib.qr_eig_blocked_capacity(COMPLEX_CODES[dtype], device.index or 0, int(block), out)
+    rc = lib.qr_eig_blocked_capacity(DTYPE_CODES[dtype], device.index or 0, int(block), out)
     raise_on_error("blocked_capacity", lib, rc)
     return out[0], out[1]
 

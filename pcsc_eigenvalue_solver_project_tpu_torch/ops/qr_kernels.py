@@ -1,22 +1,28 @@
 """Dense QR stack: CUDA kernels for the H100 and their plain versions.
 
 Counterpart of the JAX package's ``ops/pallas/qr_kernels.py``. Four kernels,
-in ``csrc/qr_kernels.cu`` and, for B7, ``csrc/hessenberg_cluster.cu`` (see
-their headers for the design):
+in ``csrc/qr_kernels.cu``, for B7 ``csrc/hessenberg_cluster.cu`` and for B10
+``csrc/qr_eig_blocked.cu`` (see their headers for the design):
 
 - ``hessenberg_kernel`` (B7): Householder Hessenberg reduction, optionally
   accumulating ``Q`` with ``A = Q H Q^H``, as one launch of one thread-block
   cluster (``csrc/hessenberg_cluster.cu``; ``hessenberg_route`` picks the
   cluster size and where H and Q live);
 - ``qr_eig_kernel`` (B8): the whole Wilkinson-shifted complex Givens QR
-  iteration with deflation on a Hessenberg matrix, in one launch;
+  iteration with deflation on a Hessenberg matrix, in one launch of one
+  block: B13's blocked sweep with the chain in one warp (``qr_eig_route``
+  picks the block size and whether H lives in shared memory);
 - ``qr_decompose_kernel`` (B9): square Householder QR with the full ``Q``,
   blocked: panels of ``nb`` columns factored in one block each, compact-WY
   trailing updates and a backward accumulation of ``Q`` as tiled GEMMs
-  (``qr_decompose_blocked_plain`` is its plain version);
-- ``qr_parity_kernel`` (B10): the reference's unshifted iteration (a full B9
-  QR of ``H`` each sweep, then ``H := R Q``) until
-  ``max|H[i,i-1]| <= tol * (1 + ||H||_F)``.
+  with deterministic split-K (``qr_decompose_blocked_plain`` is its plain
+  version);
+- ``qr_parity_kernel`` (B10): the reference's unshifted iteration until
+  ``max|H[i,i-1]| <= tol * (1 + ||H||_F)``, as the blocked Givens sweeps of
+  ``ops/qr_eig_blocked.py`` in parity mode: on a Hessenberg matrix the
+  iterate is the reference's (a Householder QR of ``H`` each sweep, then
+  ``H := R Q``) up to a diagonal unitary ``D``, ``D^H H D``
+  (``qr_parity_blocked_plain`` is its plain version).
 
 The blocked Hessenberg reduction B11 (``ops/hessenberg_blocked.py``), the
 triangular eigenvectors B14 (``ops/trisolve_vec.py``) and the blocked sweeps
@@ -36,13 +42,15 @@ tensor lies on the CPU and the kernel otherwise: a tensor on a CUDA device
 launches the kernel or raises. The plain versions port what the Pallas
 kernels compute (mask arithmetic, a 0 factor for skipped columns, ``rsqrt``
 normalisation, B8's ``[lo, hi)`` window), not the XLA solver loops of
-``solvers/``.
+``solvers/``; B9's and B10's CPU routes keep the Pallas kernels' order
+(``qr_decompose_plain``, ``qr_parity_plain``), and ``qr_decompose_blocked_plain``
+and ``qr_parity_blocked_plain`` follow the card's.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -52,12 +60,9 @@ from ._common import (COMPLEX_CODES, DTYPE_CODES, abs2, check_square, deflate_an
                       givens, ptr, raise_on_error, real_dtype, reflector, rotate_rows, stream,
                       wilkinson_shift)
 from .hessenberg_blocked import hessenberg_blocked, hessenberg_blocked_kernel
-from .qr_eig_blocked import blocked_sweeps, qr_eig_blocked_kernel
+from .qr_eig_blocked import BLOCK, _parity_kernel, _parity_plain, blocked_sweeps, \
+    qr_eig_blocked_kernel
 from .trisolve_vec import triangular_eigenvectors_device, triangular_eigenvectors_kernel
-
-# B10 enqueues sweeps in chunks of about this many launches and reads its
-# device-side ``done`` flag once per chunk.
-PARITY_LAUNCHES_PER_READ = 8192
 
 # B9's panel width (at most 64; csrc/qr_kernels.cu::kMaxQRPanel): 32 where
 # the first panel, n x 32 elements, fits in the panel kernel's shared memory
@@ -71,6 +76,100 @@ def qr_panel_width(n: int, dtype: torch.dtype) -> int:
     itemsize = torch.empty((), dtype=dtype).element_size()
     return 32 if n * 32 * itemsize <= QR_PANEL_SMEM else 16
 
+
+# B8 (csrc/qr_kernels.cu): one block of EIG_WARPS warps, U_i in a ring of
+# EIG_RING slots, tasks of EIG_TILE columns or rows, and the dynamic shared
+# memory a block may take (227 KB on the H100, less the static part). Its
+# block size is eig_block's, 8 or 16; the kernel holds no larger.
+EIG_WARPS = 16
+EIG_RING = 4
+EIG_TILE = 32
+EIG_SMEM_BUDGET = 227 * 1024 - 1024
+
+
+@dataclass(frozen=True)
+class EigLayout:
+    """Where B8's parts lie in its dynamic shared memory, as the kernel takes
+    it (``csrc/qr_kernels.cu::EigLayout``, in this order): H's row stride,
+    U_i's and a staged row tile's, the worker warps on slabs, on H's right
+    passes and on Q's, the first staged worker warp, then the byte offsets
+    of the ring of U_i and side rows, U_i's last row, the chain's window,
+    the staged row tiles and the counters, and the total."""
+    ld: int
+    us: int
+    sst: int
+    nslab: int
+    nright: int
+    nq: int
+    staged0: int
+    off_ring: int
+    off_lrow: int
+    off_win: int
+    off_stage: int
+    off_ints: int
+    bytes: int
+
+
+def eig_layout(n: int, block: int, h_smem: bool, accumulate_q: bool, itemsize: int) -> EigLayout:
+    """B8's layout: H (row stride n | 1, so that a warp reading 32 rows of a
+    column hits 32 banks) when on chip, the ring of U_i and their side rows,
+    U_i's last row, the chain's two windows and look-ahead when H is in
+    global memory, a row tile for each worker whose right passes are staged
+    (Q's, and H's when H is in global memory), and the counters (the chain,
+    one a warp, one a column tile)."""
+    us, sst = block + 1, (block + 1) | 1
+    nslab, nright, nq = (4, 4, 7) if accumulate_q else (7, 8, 0)
+    staged0 = 1 + nslab + (nright if h_smem else 0)
+    ld = n | 1 if h_smem else n
+    off_ring = (n * ld if h_smem else 0) * itemsize
+    off_lrow = off_ring + EIG_RING * (us * us + block) * itemsize
+    off_win = off_lrow + us * itemsize
+    off_stage = off_win + (0 if h_smem else us * (2 * (block + 2) + block)) * itemsize
+    off_ints = off_stage + (EIG_WARPS - staged0) * EIG_TILE * sst * itemsize
+    total = off_ints + 4 * (1 + EIG_WARPS + -(-n // EIG_TILE))
+    return EigLayout(ld, us, sst, nslab, nright, nq, staged0, off_ring, off_lrow, off_win,
+                     off_stage, off_ints, total)
+
+
+@dataclass(frozen=True)
+class EigPlan:
+    """How B8 runs: rotations in blocks of ``block``; ``h_smem`` says whether
+    H lives in the block's shared memory (else in the output, in global
+    memory); ``layout`` is its dynamic shared memory, ``smem`` bytes."""
+    h_smem: bool
+    block: int
+    layout: EigLayout
+
+    @property
+    def smem(self) -> int:
+        return self.layout.bytes
+
+
+def eig_block(n: int, dtype: torch.dtype) -> int:
+    """B8's block size: 8, and 16 in complex64 beyond n = 128. A worker's
+    product costs bs + 1 multiply-adds an entry, and the chain waits for the
+    slab right of its window; chip_smoke.py's sweep of bs (phase 6) on the
+    H100 had 8 ahead at 64 and 128 in complex64 and at 64-256 in
+    complex128, and 16 ahead at 256 in complex64 (PERF.md)."""
+    return 16 if dtype == torch.complex64 and n > 128 else 8
+
+
+def _eig_plan(n: int, dtype: torch.dtype, accumulate_q: bool, block: int) -> EigPlan:
+    if not 1 <= block <= 16:
+        raise ValueError(f"qr_eig_kernel: block {block} outside [1, 16]")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for h_smem in (True, False):
+        layout = eig_layout(n, block, h_smem, accumulate_q, itemsize)
+        if layout.bytes <= EIG_SMEM_BUDGET:
+            return EigPlan(h_smem, block, layout)
+    raise ValueError(f"qr_eig_kernel: n = {n} does not fit one block's shared memory")
+
+
+def qr_eig_route(n: int, dtype: torch.dtype, accumulate_q: bool) -> EigPlan:
+    """B8's plan: blocks of ``eig_block``, H in shared memory where it fits
+    in ``EIG_SMEM_BUDGET``, else in global memory. Raises where neither
+    fits."""
+    return _eig_plan(n, dtype, accumulate_q, eig_block(n, dtype))
 
 
 # B7's cluster sizes, in the order tried: 16 blocks (non-portable, where the
@@ -298,7 +397,7 @@ def qr_eig_plain(h: torch.Tensor, max_sweeps: int, tol: float,
 
 
 def qr_parity_plain(h: torch.Tensor, max_iterations: int, tol: float):
-    """B10's plain version: unshifted sweeps ``H := R Q`` with ``H = Q R``
+    """The Pallas B10's order: unshifted sweeps ``H := R Q`` with ``H = Q R``
     from n Householder steps, until ``max|H[i,i-1]| <= tol * (1 + ||H||_F)``
     or ``max_iterations`` sweeps. Returns ``(H, it, converged, maxsub)``;
     the caller applies the reference's iteration-count quirk."""
@@ -346,31 +445,55 @@ hessenberg_kernel.launches = 0
 hessenberg_kernel.last_plan = None
 
 
-def qr_eig_kernel(h: torch.Tensor, max_sweeps: int, tol: float,
-                  accumulate_q: bool = False):
+def qr_parity_blocked_plain(h: torch.Tensor, max_iterations: int, tol: float):
+    """B10's plain version in the card's order: blocked Givens sweeps with no
+    shift on the whole window (``ops/qr_eig_blocked.py``'s sweep), each
+    followed by the stop test ``max|H[i,i-1]| <= tol * (1 + ||H||_F)`` (the
+    norm over the upper-Hessenberg part), real data in real arithmetic.
+    Returns ``(H, it, converged, maxsub)``; ``H`` is ``qr_parity_plain``'s
+    iterate up to a diagonal unitary D (``D^H H D``). Blocks of ``BLOCK``
+    rotations, as the kernel's."""
+    return _parity_plain(h, max_iterations, tol, BLOCK)
+
+
+def qr_eig_kernel(h: torch.Tensor, max_sweeps: int, tol: float, accumulate_q: bool = False):
     """B8 on the card: the shifted Givens iteration on a complex64 or
-    complex128 Hessenberg matrix. Returns ``(eigenvalues, sweeps, hi)`` as
-    device tensors, plus ``(T, Q)`` when ``accumulate_q``."""
+    complex128 Hessenberg matrix, in one launch. Returns ``(eigenvalues,
+    sweeps, hi)`` as device tensors, plus ``(T, Q)`` when ``accumulate_q``.
+    The plan it ran (``qr_eig_route``) is in ``qr_eig_kernel.last_plan``."""
+    return _qr_eig_launch(h, max_sweeps, tol, accumulate_q, None)
+
+
+def _qr_eig_launch(h: torch.Tensor, max_sweeps: int, tol: float, accumulate_q: bool,
+                   block: int | None):
+    """``qr_eig_kernel`` with rotations in blocks of ``block`` (1-16; None:
+    ``eig_block``): the card tests' and chip_smoke.py's hook for the block
+    sizes ``eig_block`` was chosen from."""
     code = check_square("qr_eig_kernel", h, COMPLEX_CODES)
     n = h.shape[0]
     if not 0 <= max_sweeps < 2 ** 31:
         raise ValueError(f"qr_eig_kernel: max_sweeps {max_sweeps} out of int32 range")
+    plan = _eig_plan(n, h.dtype, accumulate_q,
+                     eig_block(n, h.dtype) if block is None else int(block))
+    layout = (ctypes.c_longlong * 13)(*(getattr(plan.layout, f.name)
+                                        for f in fields(EigLayout)))
     lib = _build.load()
     t = torch.empty_like(h)
     q = torch.empty_like(h) if accumulate_q else None
-    rot = torch.empty(2 * max(n - 1, 1), dtype=h.dtype, device=h.device)
     eig = torch.empty(n, dtype=h.dtype, device=h.device)
-    state = torch.empty(2, dtype=torch.int32, device=h.device)
+    state = torch.zeros(2, dtype=torch.int32, device=h.device)
     rc = lib.qr_eig_givens(code, h.device.index, h.data_ptr(), t.data_ptr(), ptr(q),
-                           rot.data_ptr(), eig.data_ptr(), state.data_ptr(), n,
-                           int(max_sweeps), float(tol), stream(h))
+                           eig.data_ptr(), state.data_ptr(), n, int(max_sweeps), float(tol),
+                           plan.block, int(plan.h_smem), ctypes.byref(layout), stream(h))
     raise_on_error("qr_eig_kernel", lib, rc)
     qr_eig_kernel.launches += 1
+    qr_eig_kernel.last_plan = plan
     out = (eig, state[0], state[1])
     return out + (t, q) if accumulate_q else out
 
 
 qr_eig_kernel.launches = 0
+qr_eig_kernel.last_plan = None
 
 
 def qr_decompose_kernel(a: torch.Tensor, kmax: int | None = None, nb: int | None = None):
@@ -389,8 +512,9 @@ def qr_decompose_kernel(a: torch.Tensor, kmax: int | None = None, nb: int | None
     lib = _build.load()
     r, q = torch.empty_like(a), torch.empty_like(a)
     panels = -(-kmax // nb)
-    scratch = torch.empty(3 * n * n + (panels + 2) * nb * n + nb * nb + nb, dtype=a.dtype,
-                          device=a.device)
+    # V, Y, Z; W, Wq, the panel; G, tau; the split-K partials (csrc/qr_kernels.cu)
+    scratch = torch.empty(3 * n * n + (panels + 2) * nb * n + nb * nb + nb + 32 * nb * n,
+                          dtype=a.dtype, device=a.device)
     count = ctypes.c_longlong(0)
     rc = lib.qr_householder(code, a.device.index, a.data_ptr(), r.data_ptr(), q.data_ptr(),
                             scratch.data_ptr(), n, kmax, nb, ctypes.byref(count), stream(a))
@@ -405,31 +529,22 @@ qr_decompose_kernel.device_launches = 0
 
 
 def qr_parity_kernel(h: torch.Tensor, max_iterations: int, tol: float):
-    """B10 on the card: the unshifted parity iteration. Returns
-    ``(H, it, converged, maxsub)`` as device tensors. The iteration counter
-    and the flags live on the device; the host reads ``done`` once per chunk
-    of about ``PARITY_LAUNCHES_PER_READ`` launches."""
-    code = check_square("qr_parity_kernel", h, DTYPE_CODES)
-    n = h.shape[0]
-    if not 0 <= max_iterations < 2 ** 31:
-        raise ValueError(f"qr_parity_kernel: max_iterations {max_iterations} "
-                         f"out of int32 range")
-    lib = _build.load()
-    out, r, q = torch.empty_like(h), torch.empty_like(h), torch.empty_like(h)
-    scratch = torch.empty(n + 1, dtype=h.dtype, device=h.device)
-    state = torch.empty(4, dtype=torch.float64, device=h.device)  # it, converged, done, maxsub
-    chunk = max(1, PARITY_LAUNCHES_PER_READ // (3 * n + 3))
-    rc = lib.qr_parity_sweeps(code, h.device.index, h.data_ptr(), out.data_ptr(),
-                              r.data_ptr(), q.data_ptr(), scratch.data_ptr(),
-                              state.data_ptr(), n, int(max_iterations), float(tol),
-                              chunk, stream(h))
-    raise_on_error("qr_parity_kernel", lib, rc)
+    """B10 on the card: the unshifted parity iteration on a Hessenberg
+    matrix, as cooperative launches of the blocked Givens sweeps
+    (``csrc/qr_eig_blocked.cu``) in parity mode, each of up to
+    ``SWEEPS_PER_LAUNCH`` sweeps with the stop test on the device; the host
+    reads the state once a launch, and ``.device_launches`` counts the last
+    call's launches. Returns ``(H, it, converged, maxsub)`` as device
+    tensors; ``H`` is the Pallas kernel's iterate up to a diagonal unitary
+    D."""
+    out, it, conv, maxsub, launches = _parity_kernel(h, max_iterations, tol)
     qr_parity_kernel.launches += 1
-    return (out, state[0].to(torch.int32), state[1] != 0,
-            state[3].to(real_dtype(h.dtype)))
+    qr_parity_kernel.device_launches = launches
+    return out, it, conv, maxsub
 
 
 qr_parity_kernel.launches = 0
+qr_parity_kernel.device_launches = 0
 
 KERNELS = (hessenberg_kernel, qr_eig_kernel, qr_decompose_kernel, qr_parity_kernel,
            hessenberg_blocked_kernel, triangular_eigenvectors_kernel, qr_eig_blocked_kernel)
@@ -474,7 +589,9 @@ def householder_qr(a: torch.Tensor, kmax: int | None = None):
 
 
 def parity_sweeps(h: torch.Tensor, max_iterations: int, tol: float):
-    """The reference's unshifted QR iteration (B10)."""
+    """The reference's unshifted QR iteration (B10): on a CPU tensor in the
+    Pallas kernel's order (``qr_parity_plain``), on the card B10, whose
+    iterate is that one's up to a diagonal unitary D."""
     if h.device.type == "cpu":
         return qr_parity_plain(h, max_iterations, tol)
     return qr_parity_kernel(h, max_iterations, tol)

@@ -334,12 +334,14 @@ def _qr_eigenvalues_accel_real(H0: torch.Tensor, max_sweeps: int, tol: float):
 
 # The largest n at which the accelerated sweeps run unblocked (B8); beyond it
 # they run blocked (B13). chip_smoke.py's boundary sweep (phase 13) on an
-# NVIDIA H100 80GB HBM3 at 700 W (complex64, PERF.md section 6), with B13 as
-# one cooperative launch: B13 ahead from 256 on in every measure (per
-# full-window sweep, whole solves of the bench and of a non-symmetric
-# operand; at 256 0.1761 against 0.2709 ms a sweep, 2.961 against 3.658 ms
-# and 34.738 against 66.046 ms a solve), B8 ahead in every measure at 128
-# (0.1026 against 0.1274 ms, 2.646 against 3.089 ms, 10.867 against 11.343 ms).
+# NVIDIA H100 80GB HBM3 at 700 W (complex64, PERF.md section 6), with B8 as
+# one block and B13 as one cooperative launch: B8 ahead in every measure at
+# 128 (per full-window sweep, whole solves of the bench and of a
+# non-symmetric operand: 0.0853 against 0.1266 ms a sweep, 1.990 against
+# 3.103 ms and 8.093 against 11.379 ms a solve); at 256 B13 ahead a sweep
+# (0.1518 against 0.1814 ms) and on the non-symmetric solve (35.334 against
+# 45.375 ms), level on the bench operand (3.113 against 3.090 ms); B13 ahead
+# in every measure from 512 on.
 UNBLOCKED_MAX_N: int | None = 128
 
 

@@ -15,7 +15,14 @@ The QR kernels (B7-B10) are held against their plain versions relative to
 max|A|, in units of ``QR_TOL`` per row (single and double precision). The
 residuals ``||A - Q H Q^H||``, ``||A - Q R||`` and ``||Q^H Q - I||``, and B8's
 and B10's iterates after a fixed budget, differ only in rounding and are
-held to one unit (ten for the iterates). B7 and B9 run on a well-conditioned
+held to one unit (ten for the iterates). B10's Givens iterate is the Pallas
+kernel's Householder iterate up to a diagonal unitary D: it is held entry by
+entry to its plain version in its own order, and to the Householder plain
+version with D divided out (or, once subdiagonals have decayed to the
+rounding level, through the diagonal and |H|, which D does not change). B8
+is held on both of its routes (H in shared memory and in global memory) at
+the route's edge, at every register width of its workers, and B8, B9 and
+B10 repeat bit for bit. B7 and B9 run on a well-conditioned
 operand (cond <= 2), whose H, R and Q are held entry by entry to one unit
 once the diagonal unitary D that they are unique up to is divided out: each
 entry of D is the phase of a pivot, which moves by about eps / |pivot|, so
@@ -323,20 +330,141 @@ def test_qr_eig_kernel_matches_plain(cuda, n, dtype):
     assert matched_err(e.cpu().numpy(), ev) <= limit * scale
 
 
+def assert_parity_matches(h, out, budget, phases=True):
+    """B10's (H, it, converged, maxsub) after a budget (tol 0) against the
+    plain version in its order (``qr_parity_blocked_plain``, entry by entry)
+    and against the Pallas order (``qr_parity_plain``, Householder sweeps):
+    with ``phases``, entry by entry with the diagonal unitary D divided out;
+    else the diagonal and |H|, which D does not change (a subdiagonal that
+    has decayed to the rounding level has a phase that rounding sets). Ten
+    units each."""
+    n, dtype = h.shape[0], h.dtype
+    H, it, c, m = out
+    scale, tol = float(h.abs().max()), 10 * qr_tol(dtype, n)
+    G, itg, cg, mg = qk.qr_parity_blocked_plain(h, budget, 0.0)
+    Hp, itp, cp, mp = qk.qr_parity_plain(h, budget, 0.0)
+    assert int(it) == int(itg) == int(itp) and bool(c) == bool(cg) == bool(cp)
+    assert H.dtype == dtype  # real data stays real
+    assert rel_to(H, G, scale) <= tol
+    if phases:
+        d = hessenberg_phases(H, Hp) if n > 1 else torch.ones(1, dtype=dtype, device=h.device)
+        assert rel_to(H, d.conj()[:, None] * Hp * d, scale) <= tol
+    else:
+        assert rel_to(H.diagonal(), Hp.diagonal(), scale) <= tol
+        assert rel_to(H.abs(), Hp.abs(), scale) <= tol
+    assert abs(float(m) - float(mp)) <= tol * scale
+
+
+def smem_route_edge(dtype, accumulate_q):
+    """The largest n whose B8 plan keeps H in shared memory."""
+    n = 1
+    while qk.qr_eig_route(n + 1, dtype, accumulate_q).h_smem:
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("accumulate_q", [False, True])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_qr_eig_kernel_routes(cuda, dtype, accumulate_q):
+    # H in shared memory at the route's edge, in global memory one past it,
+    # each against the plain version after a budget (deflation off), and one
+    # launch a call
+    edge = smem_route_edge(dtype, accumulate_q)
+    for n, on_chip in ((edge, True), (edge + 1, False)):
+        h = qk.hessenberg_plain(dense(n, dtype, seed=n, device=cuda))
+        scale, tol = float(h.abs().max()), qr_tol(dtype, n)
+        out = qk.qr_eig_kernel(h, 6, 0.0, accumulate_q=accumulate_q)
+        torch.cuda.synchronize()
+        assert qk.qr_eig_kernel.last_plan.h_smem == on_chip
+        ref = qk.qr_eig_plain(h, 6, 0.0, accumulate_q=accumulate_q)
+        assert (int(out[1]), int(out[2])) == (int(ref[1]), int(ref[2])) == (6, n)
+        assert rel_to(out[0], ref[0], scale) <= 10 * tol
+        if accumulate_q:
+            t, q = out[3], out[4]
+            assert rel_to(t, ref[3], scale) <= 10 * tol and rel_to(q, ref[4], 1.0) <= 10 * tol
+            assert rel_to(q @ t @ q.conj().T, h, scale) <= tol
+
+
+@pytest.mark.parametrize("block", [1, 2, 7, 8, 9, 16])
+def test_qr_eig_kernel_block_sizes(cuda, block):
+    # both register widths of the workers (9 and 17 entries), at block edges,
+    # through the private hook that sets the block size
+    for n, dtype in ((3 * block + 1, torch.complex64), (100, torch.complex128)):
+        h = qk.hessenberg_plain(dense(n, dtype, seed=block, device=cuda))
+        scale, tol = float(h.abs().max()), qr_tol(dtype, n)
+        e, s, hi = qk._qr_eig_launch(h, 5, 0.0, False, block)
+        ep, sp, hip = qk.qr_eig_plain(h, 5, 0.0)
+        assert (int(s), int(hi)) == (int(sp), int(hip)) and rel_to(e, ep, scale) <= 10 * tol
+        _, _, _, t, q = qk._qr_eig_launch(h, 5, 0.0, True, block)
+        assert rel_to(q @ t @ q.conj().T, h, scale) <= tol
+    with pytest.raises(ValueError, match="block 17 outside"):
+        qk._qr_eig_launch(h, 5, 0.0, False, 17)
+
+
+def test_qr_kernels_repeat_bitwise(cuda):
+    # every entry of B8, B9 and B10 is written by one thread in a fixed order
+    # (B9's split-K partials added in slice order): a second call gives the
+    # same bits
+    for n, dtype in ((128, torch.complex64), (300, torch.complex64), (100, torch.complex128)):
+        h = qk.hessenberg_plain(dense(n, dtype, seed=n, device=cuda))
+        for q in (False, True):
+            first = qk.qr_eig_kernel(h, 8, 0.0, accumulate_q=q)
+            again = qk.qr_eig_kernel(h, 8, 0.0, accumulate_q=q)
+            assert all(torch.equal(x, y) for x, y in zip(first, again))
+    for n, dtype in ((512, torch.float32), (512, torch.complex64), (2048, torch.float32)):
+        a = well_conditioned(n, dtype, seed=n, device=cuda)
+        assert all(torch.equal(x, y) for x, y in zip(qk.qr_decompose_kernel(a),
+                                                     qk.qr_decompose_kernel(a)))
+    for n, dtype in ((512, torch.float32), (300, torch.complex64), (64, torch.float64)):
+        h = qk.hessenberg_plain(dense(n, dtype, seed=n, device=cuda))
+        first = qk.qr_parity_kernel(h, 20, 0.0)
+        assert all(torch.equal(x, y) for x, y in zip(first, qk.qr_parity_kernel(h, 20, 0.0)))
+        conv = qk.qr_parity_kernel(h, 3000, 1e-5)
+        assert all(torch.equal(x, y) for x, y in zip(conv, qk.qr_parity_kernel(h, 3000, 1e-5)))
+
+
 @pytest.mark.parametrize("dtype", QR_DTYPES)
 @pytest.mark.parametrize("n", [1, 2, 5, 33, 64, 512])
 def test_qr_parity_kernel_matches_plain(cuda, n, dtype):
     h = qk.hessenberg_plain(dense(n, dtype, seed=200 + n, device=cuda))
-    scale = float(h.abs().max())
     before = qk.qr_parity_kernel.launches
-    # 7 sweeps: at n = 512 two chunks (5 and 2) between host reads of `done`
-    H, it, c, m = qk.parity_sweeps(h, 7, 0.0)
+    out = qk.parity_sweeps(h, 7, 0.0)
     torch.cuda.synchronize()
     assert qk.qr_parity_kernel.launches == before + 1
-    Hp, itp, cp, mp = qk.qr_parity_plain(h, 7, 0.0)
-    assert int(it) == int(itp) and bool(c) == bool(cp)
-    assert rel_to(H, Hp, scale) <= 10 * qr_tol(dtype, n)
-    assert abs(float(m) - float(mp)) <= 10 * qr_tol(dtype, n) * scale
+    assert qk.qr_parity_kernel.device_launches == 1  # 7 sweeps: one cooperative launch
+    assert_parity_matches(h, out, 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("budget", [qb.SWEEPS_PER_LAUNCH - 1, qb.SWEEPS_PER_LAUNCH,
+                                    qb.SWEEPS_PER_LAUNCH + 1])
+def test_qr_parity_kernel_at_the_launch_edge(cuda, budget, dtype):
+    # a budget one launch runs, fills, and overfills by one sweep: the count
+    # carries across launches, with the host's read of the state between; on
+    # the bench operand's construction with a spectrum 0.9^i, whose iterate
+    # settles towards its diagonal while its subdiagonals (0.9^256 of their
+    # start) stay far above the underflow of their squares (with 0.8^i they
+    # underflow in float32 within 256 sweeps, and maxsub <= 0 then holds). In
+    # double precision: over 256 sweeps single-precision rounding, amplified
+    # by the spectrum's small gaps, leaves the kernel and its plain version
+    # ~1e-3 apart (1.4e-3 on 0.97^i in float32), above ten units
+    rng = np.random.default_rng(41)
+    Qo, _ = np.linalg.qr(gaussian(rng, 40, dtype))
+    a = torch.from_numpy((Qo * 0.9 ** np.arange(40)) @ Qo.conj().T).to(cuda, dtype)
+    h = qk.hessenberg_plain(a)
+    out = qk.qr_parity_kernel(h, budget, 0.0)
+    torch.cuda.synchronize()
+    assert (int(out[1]), bool(out[2])) == (budget, False)
+    assert qk.qr_parity_kernel.device_launches == -(-budget // qb.SWEEPS_PER_LAUNCH)
+    assert_parity_matches(h, out, budget, phases=False)
+
+
+@pytest.mark.parametrize("dtype", QR_DTYPES)
+def test_qr_parity_kernel_without_a_budget(cuda, dtype):
+    h = qk.hessenberg_plain(dense(9, dtype, seed=9, device=cuda))
+    H, it, c, m = qk.qr_parity_kernel(h, 0, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(H, h) and int(it) == 0 and not bool(c) and float(m) == 0.0
 
 
 def test_qr_parity_kernel_converges_with_the_reference_count(cuda):
@@ -1281,10 +1409,10 @@ def test_blocked_qr_kernel_matches_plain(cuda, n, dtype):
     torch.cuda.synchronize()
     nb = qk.qr_panel_width(n, dtype)
     panels = -(-n // nb)
-    # eye; a panel kernel, its Gram product and its WY factors a panel; two
-    # products a panel for the trailing columns (none after the last) and
-    # two for Q
-    assert qk.qr_decompose_kernel.device_launches == 1 + 3 * panels + 2 * (panels - 1) + 2 * panels
+    # eye; a panel kernel, its Gram product (split-K: two launches) and its
+    # WY factors a panel; three launches a panel for the trailing columns
+    # (none after the last) and three for Q
+    assert qk.qr_decompose_kernel.device_launches == 1 + 4 * panels + 3 * (panels - 1) + 3 * panels
     rp, qp = qk.qr_decompose_plain(a)
     b9_checks(a, r, q, rp, qp, n, dtype)
     assert float(torch.tril(r, -1).abs().max()) == 0  # exact zeros below the diagonal

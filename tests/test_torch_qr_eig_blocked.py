@@ -35,6 +35,10 @@ Tolerances:
   fails here; and within 1e-14 of max|H| (Q: 1e-14) of today's block-by-block
   order, whose products have other shapes, which the CPU's BLAS sums in
   another order (measured up to 3.2e-16).
+- B10's parity sweeps (``_parity_plain``: no shift, the whole window, real
+  data in real arithmetic) as the same tasks, in float64 and complex128: 20
+  random orders bit for bit equal to the sequential order, with the same
+  count and maxsub, and within 1e-14 of max|H| of the block order.
 - ``blocked_eigenvalues`` against ``qr_eigenvalues_pallas_blocked``:
   eigenvalues as above, residual ``max|A V - V diag(lambda)|`` to 5e-3, the
   JAX test's bound (tests/test_qr_blocked.py:134-144), and unit columns to 1e-5.
@@ -266,6 +270,32 @@ def test_random_task_orders_equal_the_sequential_order(n, inner, block, schur):
         assert torch.equal(seq[3][:, 91:], h[:, 91:])
 
 
+@pytest.mark.parametrize("complex_values", [False, True])
+@pytest.mark.parametrize("block", [1, 3, 32])
+@pytest.mark.parametrize("n", [33, 65])
+def test_parity_random_task_orders_equal_the_sequential_order(n, block, complex_values):
+    # B10's sweeps (no shift, the window [0, n), real data in real
+    # arithmetic) as the kernel's tasks: any order their dependencies allow
+    # gives the same bits, and today's block order to rounding
+    h = order_operand(n, False)
+    if not complex_values:
+        h = tq.hessenberg_plain(h.real.contiguous())
+
+    def run(order):
+        return qb._parity_plain(h, ORDER_SWEEPS, 0.0, block, order=order, tiles=ORDER_TILES)
+
+    seq = run("sequential")
+    assert seq[0].dtype == h.dtype and (int(seq[1]), bool(seq[2])) == (ORDER_SWEEPS, False)
+    for seed in range(20):
+        out = run(seed)
+        assert torch.equal(out[0], seq[0]), seed
+        assert (int(out[1]), bool(out[2])) == (int(seq[1]), bool(seq[2]))
+        assert torch.equal(out[3], seq[3])
+    today = run(None)
+    assert (int(today[1]), bool(today[2])) == (int(seq[1]), bool(seq[2]))
+    assert float((seq[0] - today[0]).abs().max()) <= 1e-14 * float(h.abs().max())
+
+
 @pytest.mark.parametrize("compute_vectors", [False, True])
 def test_blocked_eigenvalues_matches_pallas(compute_vectors):
     n = 33
@@ -310,7 +340,8 @@ class TestDispatch:
 
     def test_default_boundary(self):
         # measured on the H100: B8 ahead of B13 on every measure at 128, B13
-        # ahead on every measure from 256 on
+        # ahead a sweep and on the non-symmetric solve at 256, on every
+        # measure from 512 on
         assert 128 <= qe.UNBLOCKED_MAX_N < 256
 
     def test_non_cpu_tensors_never_take_the_plain_path(self):

@@ -15,7 +15,12 @@ Tolerances, relative to max|A|:
   within 2: a deflation decision taken at the f32 rounding level may fall one
   sweep apart.
 - B10: sweep counts and flags equal; ``H`` and eigenvalues to 1e-4 and
-  ``maxsub`` to 1e-3 relative, after up to hundreds of f32 sweeps.
+  ``maxsub`` to 1e-3 relative, after up to hundreds of f32 sweeps. The plain
+  version of the card's B10 (Givens sweeps, ``qr_parity_blocked_plain``)
+  runs an iterate that is the Pallas one's up to a diagonal unitary D: its
+  diagonal and ``|H|`` are held to 1e-4, maxsub to 1e-3 relative; against
+  ``qr_parity_plain`` in float64 and complex128 the entries with D divided
+  out to 1e-12 of max|H| (its spectrum lies in (0, 1]).
 - Eigenpairs (B7 + B8 with Q, then B14): eigenvalues as B8; each column of
   V, paired with the Pallas column of the nearest eigenvalue and its phase
   aligned, to 1e-4 (single precision times the eigenvector conditioning of
@@ -205,6 +210,63 @@ class TestQRDecomposeB9:
         assert np.abs(np.tril(r.numpy()[:, 3:], -1)).max() > 1e-2   # the rest untouched
 
 
+class TestEigRoute:
+    """B8's plan on the card as a pure function of (n, dtype, Q, block),
+    decided before any build: the kernel takes the layout ``eig_layout``
+    reckons, and its entry point checks the layout's order and size."""
+
+    @pytest.mark.parametrize("dtype,q,edge", [
+        (torch.complex64, False, 165),    # H on chip to 165 rows (row stride n | 1)
+        (torch.complex64, True, 154),     # Q's staged row tiles take room
+        (torch.complex128, False, 118),
+        (torch.complex128, True, 109),
+    ])
+    def test_route_edge(self, dtype, q, edge):
+        on_chip, beyond = tq.qr_eig_route(edge, dtype, q), tq.qr_eig_route(edge + 1, dtype, q)
+        assert on_chip.h_smem and not beyond.h_smem
+        assert on_chip.smem <= tq.EIG_SMEM_BUDGET < tq.eig_layout(
+            edge + 1, beyond.block, True, q, torch.empty((), dtype=dtype).element_size()).bytes
+        assert beyond.smem < 70 * 1024  # in global memory the block keeps only its tiles
+
+    @pytest.mark.parametrize("n,block,h_smem,q,item", [
+        (128, 8, True, False, 8), (128, 8, True, True, 8), (300, 16, False, True, 8),
+        (64, 16, True, False, 16), (1, 1, True, False, 8)])
+    def test_layout_bytes(self, n, block, h_smem, q, item):
+        us = block + 1
+        staged = (7 if q else 0) if h_smem else (11 if q else 8)
+        h = n * (n | 1) if h_smem else us * (2 * (block + 2) + block)
+        elems = h + 4 * (us * us + block) + us + staged * 32 * (us | 1)
+        layout = tq.eig_layout(n, block, h_smem, q, item)
+        assert layout.bytes == elems * item + 4 * (1 + 16 + -(-n // 32))
+        assert layout.off_ints == elems * item and layout.us == us and layout.sst == us | 1
+        assert layout.staged0 == 16 - staged and layout.nslab + layout.nright + layout.nq == 15
+        assert layout.off_ring == (n * (n | 1) * item if h_smem else 0)
+
+    def test_default_block(self):
+        assert [tq.eig_block(n, torch.complex64) for n in (2, 64, 128, 129, 256)] == \
+            [8, 8, 8, 16, 16]
+        assert {tq.eig_block(n, torch.complex128) for n in (2, 128, 256, 4096)} == {8}
+        assert tq.qr_eig_route(256, torch.complex64, True).block == 16
+        assert tq._eig_plan(256, torch.complex64, True, 5).block == 5
+
+    def test_block_range_and_size(self):
+        for block in (0, 17):
+            with pytest.raises(ValueError, match="block"):
+                tq._eig_plan(64, torch.complex64, False, block)
+        # in global memory the counters (one a column tile) grow with n
+        assert not tq.qr_eig_route(1 << 20, torch.complex128, True).h_smem
+        with pytest.raises(ValueError, match="does not fit"):
+            tq.qr_eig_route(1 << 21, torch.complex128, True)
+
+    def test_plan_is_decided_before_any_build(self):
+        c = torch.empty((8, 8), dtype=torch.complex64, device="meta")
+        with pytest.raises(ValueError, match="^qr_eig_kernel: .*CUDA device"):
+            tq.qr_eig_kernel(c, 5, 1e-6)
+        with pytest.raises(ValueError, match="^qr_parity_kernel: .*CUDA device"):
+            tq.qr_parity_kernel(torch.empty((8, 8), device="meta"), 5, 1e-6)
+        assert _build._lib is None
+
+
 def hessenberg_of(a):
     return tq.hessenberg_plain(torch.from_numpy(a)).numpy()
 
@@ -257,6 +319,19 @@ class TestQREigB8:
         assert rel(q.numpy(), from_planes(qj), 1.0) <= 1e-5
         assert rel(q.numpy() @ t.numpy() @ q.numpy().conj().T, h, scale) <= 1e-5
 
+    @pytest.mark.parametrize("n", [64, 200])
+    def test_schur_vectors_match_pallas_at_window_sizes(self, n):
+        # AED's window sizes: T and Q after a budget of 4 sweeps, to one unit
+        # of 1e-6 n (max|h|; Q: 1)
+        h = hessenberg_of(random_matrix(n, True, seed=n))
+        (ej, sj, hij, tj, qj), (e, s, hi, t, q) = eig_both(h, 4, 1e-12, accumulate_q=True)
+        scale = np.abs(h).max()
+        assert int(s) == int(sj) == 4 and int(hi) == int(hij) == n
+        assert rel(t.numpy(), from_planes(tj), scale) <= 1e-6 * n
+        assert rel(q.numpy(), from_planes(qj), 1.0) <= 1e-6 * n
+        qn = q.numpy().astype(np.complex128)
+        assert rel(qn @ t.numpy() @ qn.conj().T, h, scale) <= 1e-6 * n
+
     def test_window_sweeps_from_lo(self):
         # a negligible subdiagonal in the middle splits the window: the kernel
         # sweeps only the trailing block [lo, hi), rows above stay untouched
@@ -293,6 +368,91 @@ class TestParityB10:
         H, it, c, m = tq.parity_sweeps(torch.from_numpy(h), 0, 1e-6)
         assert int(it) == 0 and not bool(c) and float(m) == 0.0
         np.testing.assert_array_equal(H.numpy(), h)
+
+
+def parity_both(h, max_iterations, tol):
+    """B10 on the Hessenberg h: the Pallas kernel (Householder sweeps, in
+    interpret mode) and the plain version of the card's B10 (Givens sweeps),
+    each as (H, it, converged, maxsub) in numpy and Python scalars."""
+    hj, itj, cj, mj = jq.qr_parity_planes(to_planes(h), h.shape[0], max_iterations, tol,
+                                          interpret=True)
+    H, it, c, m = tq.qr_parity_blocked_plain(torch.from_numpy(h), max_iterations, tol)
+    return ((from_planes(hj), int(itj), bool(cj), float(mj)),
+            (H.numpy(), int(it), bool(c), float(m)))
+
+
+def assert_same_up_to_phases(H, hj, scale, limit):
+    """The two iterates agree up to a diagonal unitary D (H = D^H hj D): the
+    diagonal and the moduli of the entries, which D does not change."""
+    assert rel(np.diagonal(H), np.diagonal(hj), scale) <= limit
+    assert rel(np.abs(H), np.abs(hj), scale) <= limit
+
+
+class TestParityB10Blocked:
+    """``qr_parity_blocked_plain``, the card's B10 in its order (unshifted
+    Givens sweeps on the whole window), against the Pallas kernel's
+    Householder sweeps: on a Hessenberg matrix the iterates agree up to a
+    diagonal unitary D, so the diagonal and ``|H|`` are held to 1e-4 of
+    max|h|, maxsub to 1e-3 relative, and the counts and flags exactly."""
+
+    @pytest.mark.parametrize("complex_values", KINDS)
+    @pytest.mark.parametrize("n", [1, 2, 5, 33, 64])
+    def test_budget_matches_pallas(self, n, complex_values):
+        h = hessenberg_of(random_matrix(n, complex_values, seed=400 + n))
+        (hj, itj, cj, mj), (H, it, c, m) = parity_both(h, 6, 0.0)
+        assert H.dtype == h.dtype  # real input stays real
+        assert (it, c) == (itj, cj) == ((1, True) if n == 1 else (6, False))
+        assert_same_up_to_phases(H, hj, np.abs(h).max(), 1e-4)
+        assert abs(m - mj) <= 1e-3 * mj
+
+    @pytest.mark.parametrize("complex_values", KINDS)
+    @pytest.mark.parametrize("n", [5, 8])
+    def test_converges_like_pallas(self, n, complex_values):
+        h = hessenberg_of(geometric_symmetric(n, 0.8, seed=n))
+        if complex_values:
+            h = h.astype(np.complex64)
+        (hj, itj, cj, mj), (H, it, c, m) = parity_both(h, 2000, 1e-5)
+        assert c and cj and it == itj
+        assert_same_up_to_phases(H, hj, 1.0, 1e-4)
+        assert abs(m - mj) <= 1e-3 * max(mj, 1e-30) + 1e-7
+
+    @pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+    def test_matches_householder_plain_in_double(self, dtype):
+        # the bench operand's construction at 40 (complex: a unitary Q), to
+        # tol 1e-10 in double: the same count, the entries equal once D is
+        # divided out
+        n = 40
+        rng = np.random.default_rng(3)
+        g = rng.standard_normal((n, n))
+        if dtype.is_complex:
+            g = g + 1j * rng.standard_normal((n, n))
+        Qo, _ = np.linalg.qr(g)
+        a = torch.from_numpy((Qo * 0.8 ** np.arange(n)) @ Qo.conj().T).to(dtype)
+        h = tq.hessenberg_plain(a)
+        H, it, c, m = tq.qr_parity_blocked_plain(h, 2000, 1e-10)
+        Hp, itp, cp, mp = tq.qr_parity_plain(h, 2000, 1e-10)
+        assert bool(c) and bool(cp) and int(it) == int(itp)
+        H, Hp = H.numpy(), Hp.numpy()
+        sub, subp = np.diagonal(H, -1), np.diagonal(Hp, -1)
+        d = np.concatenate([[1], np.cumprod(np.sign(subp) / np.sign(sub) if not dtype.is_complex
+                                            else (subp / abs(subp)) / (sub / abs(sub)))])
+        assert rel(H, d.conj()[:, None] * Hp * d, 1.0) <= 1e-12
+        assert abs(float(m) - float(mp)) <= 1e-6 * float(mp)
+
+    @pytest.mark.parametrize("complex_values", KINDS)
+    def test_exact_zero_subdiagonal_keeps_iterating(self, complex_values):
+        # an exact zero on the subdiagonal splits nothing: both blocks keep
+        # iterating as a whole, as the Pallas kernel does (its tail-zero skip
+        # and the identity rotation of a zero pair), and the zero stays
+        h = np.triu(hessenberg_of(random_matrix(8, complex_values, seed=21)), -1)
+        h[4, 3] = 0
+        (hj, itj, cj, mj), (H, it, c, m) = parity_both(h, 4, 0.0)
+        assert (it, c) == (itj, cj) == (4, False)
+        assert H[4, 3] == 0 and hj[4, 3] == 0
+        assert np.abs(H[:4, :4] - h[:4, :4]).max() > 1e-2
+        assert np.abs(H[4:, 4:] - h[4:, 4:]).max() > 1e-2
+        assert_same_up_to_phases(H, hj, np.abs(h).max(), 1e-4)
+        assert abs(m - mj) <= 1e-3 * mj
 
 
 class TestWholeStack:
