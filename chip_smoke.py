@@ -101,11 +101,30 @@ Phases, each of which raises on failure (the exit code is then non-zero):
     variant against scipy), on a planted shuffled band through the
     ``PermutedOperator`` (residual in the caller's indexing), on
     ``data/B.txt`` as complex128 ``to_gell()``, and on the complex operator
-    through the planes entry.
+    through the planes entry;
+19. aggressive early deflation (``ops/qr_aed.py``) on the card: eigenvalues
+    at 2048 and 4096 of the bench, c64 normal and non-symmetric operands and
+    of the uniform-[1, 2] full-rank operand at 2048, eigenpairs of the bench
+    operand (float32) and the c64 operand at 2048 and of the bench operand at
+    4096, by AED and at 2048 by plain B13 too, each with its sweeps, AED
+    rounds, seconds, B7/B8/B11/B13 launches and error or residual against
+    phase 14's limits (the JAX package's TPU records printed beside, for
+    comparison only); the sweep cut (fewer sweeps under AED than plain B13
+    on the non-symmetric matrix at 2048, fewer than n on the full-rank
+    operand); and ``qr_eigenvalues``' route at 2048 and 4096 against
+    ``AED_MIN_N``;
+20. the shifted solves on the card: the demo's sigma = 3.1 and 2.3 on
+    ``data/A.txt`` and ``data/B.txt``, dense-LU inverse power at 2048
+    float32, BiCGStab inverse power on the planted 1M x 33 band (row-major
+    and interleaved) with the shift 1% above its dominant eigenvalue, and
+    bench.py's n = 4096 ``SplitComplexDIA`` interior-shift GMRES case
+    against scipy's shift-invert ``eigs``, each with iterations, seconds,
+    error (and residual) and its SpMV kernel's launches.
 
 The banded kernels' launch counts are zeroed just before phases 4-5 and
 read just after, the QR kernels' just before and after phases 7, 10, 14 and
-each run of phase 11, the banded ones again around phase 16, and B6's and
+each run of phase 11, each solve of phase 19 and its public solves, the
+banded ones again around phase 16 and each solve of phase 20, and B6's and
 the banded ones around phase 18; each kernel must have run on its path. The script then
 prints one JSON line with each kernel's numbers (time, plain time, the
 least time the card could take for the same work, the library call's time
@@ -167,6 +186,23 @@ solves at 512 through ``qr_eigenvalues`` (twice each) with B10's cooperative
 launches where the port counts them, and B9 at 512, 2048 and 4096 float32
 with its device kernels a call and whether a second call repeats bit for bit.
 
+    python3 chip_smoke.py --aed-table
+
+prints the table that set ``AED_MIN_N``, ``SCHUR_AED_MIN_N`` and the AED
+window and sweeps a round (``ops/qr_eig_blocked.py``, ``ops/qr_aed.py``):
+AED against plain B13 at 1024, 2048 and 4096 on the bench, c64 normal,
+non-symmetric and uniform-[1, 2] operands, AED-Schur against the
+monolithic Schur driver at 2048 and 4096 on the bench and non-symmetric
+operands (each pair timed in turns, AED, plain, plain, AED, the lower of
+each kept), and at 2048 the windows 64, 128 and 256 against the sweeps a
+round 16, 32, 96 and 256 on the non-symmetric operand and two uniform-[1, 2]
+operands; then the constants the rules of ROADMAP A1 give, and the default
+window and sweeps a round: the pair of least time summed over the three
+operands among those whose AED solve takes fewer sweeps than plain B13 on
+the non-symmetric operand and at most ``SWEEP_CUT_MARGIN`` n on both
+uniform-[1, 2] operands, so that the sweep cut (fewer than n), which phase 19
+checks at the defaults on an operand of its own, holds on other draws.
+
     python3 chip_smoke.py --b8 ROOT
 
 times B8 with the port found under ROOT at 64, 128 and 256 in complex64,
@@ -215,6 +251,21 @@ GELL_PER_ROW = 33  # bench.py --general: 1M rows x 33 entries a row
 AUTO_N = 100_000   # bench.py's auto leg (BENCH_R05_SET.jsonl:8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}  # H100 SXM data sheet, outside the tensor cores
+AED_SIZES = (1024, 2048, 4096)  # --aed-table: AED against plain B13
+AED_WINDOWS = (64, 128, 256)    # --aed-table: the window at 2048
+AED_ROUND_SWEEPS = (16, 32, 96, 256)  # --aed-table: the sweeps between two rounds at 2048
+# --aed-table: the defaults' sweeps on the uniform-[1, 2] operands at most
+# this share of n. One setting's sweeps differ by up to 14% between two draws
+# of the operand (1862 in the table, 2132 in phase 19, at w = 128 and 32
+# sweeps a round on the H100), so a pair that only just meets the cut in
+# the table can miss it in phase 19.
+SWEEP_CUT_MARGIN = 0.85
+# The JAX package's errors on its TPU (BENCH_R05_SET.jsonl:11,13,16,18-20),
+# printed beside the port's for comparison only: f32 uniform-[1, 2] at 2048,
+# c64 at 2048 and 4096, eigenpair residuals.
+TPU_RECORDS = {"f32 2048": 1.1e-5, "c64 2048": 4.8e-5, "c64 4096": 7.1e-5,
+               "eigenpairs": (1.3e-6, 4.3e-6)}
+
 
 
 def check(cond, message: str) -> None:
@@ -2453,6 +2504,375 @@ def b8_compare(root: str) -> None:
                   f"[{card_name}, {card_limit}]")
 
 
+def aed_operand(rng, n, dev, kind):
+    """The four operands of ROADMAP A1 at n: ``"bench"`` (f32, spectrum
+    0.9^i), ``"c64"`` (the complex64 normal operand, 0.9^i e^(i theta)),
+    ``"nonsym"`` (f32 uniform[-1, 1] entries) and ``"uniform"`` (f32, full
+    rank, spectrum uniform[1, 2], BENCH_R05_SET.jsonl:11). Returns (matrix,
+    reference spectrum or None for the non-symmetric one, limit)."""
+    import torch
+    if kind == "bench":
+        a, d = device_operand(rng, n, torch.float32, dev, "geometric")
+        return a, d, 1e-4
+    if kind == "c64":
+        a, d = device_operand(rng, n, torch.complex64, dev, "geometric")
+        return a, d, 1e-4
+    if kind == "nonsym":
+        return torch.from_numpy(rng.uniform(-1, 1, (n, n))).to(dev, torch.float32), None, 5e-3
+    g = torch.from_numpy(rng.standard_normal((n, n))).to(dev)
+    u, _ = torch.linalg.qr(g)
+    d = np.sort(rng.uniform(1.0, 2.0, n))[::-1].copy()
+    return ((u * torch.from_numpy(d).to(dev)) @ u.T).to(torch.float32), d, 1e-4
+
+
+def aed_solve(a, driver, vectors, **kw):
+    """One solve by ``blocked_eigenvalues`` with ``schur_driver=driver``:
+    (eigenvalues, sweeps, converged, V, seconds, AED rounds, launches of B7,
+    B8, B11 and B13 by their wrappers)."""
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_aed
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_eig_blocked as qb
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+    n = a.shape[0]
+    qk.reset_launch_counts()
+    qr_aed.last_run.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if kw:  # the window and the round's sweeps of the table's sweep
+        eig, sweeps, conv = qr_aed.qr_eigenvalues_blocked_aed(a, 20 * n, QR_TOL, **kw)
+        out = (eig, sweeps, conv, None)
+    else:
+        out = qb.blocked_eigenvalues(a, 20 * n, QR_TOL, compute_vectors=vectors,
+                                     schur_driver=driver)
+        out = out if vectors else out + (None,)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"B7": qk.hessenberg_kernel.launches, "B8": qk.qr_eig_kernel.launches,
+                "B11": qk.hessenberg_blocked_kernel.launches,
+                "B13": qk.qr_eig_blocked_kernel.launches}
+    return out + (seconds, qr_aed.last_run.get("rounds", 0), launches)
+
+
+def eig_error(lam, want, ref_future=None):
+    """Nearest-neighbour error against the planted spectrum or numpy's."""
+    if want is None:
+        want = ref_future.result()
+    return nearest_err(lam.cpu().numpy(), want)
+
+
+def residual(a, lam, V):
+    """max_k |A v_k - lambda_k v_k| / |A|_2 on the card."""
+    import torch
+    ac = a.to(lam.dtype)
+    return float((ac @ V - V * lam[None, :]).abs().square().sum(0).sqrt().max()) / \
+        float(torch.linalg.matrix_norm(ac, 2))
+
+
+def aed_phase(eigsol, dev, card_name, card_limit):
+    """Phase 19: AED on the card. Eigenvalues at 2048 and 4096 of the bench,
+    c64 normal and non-symmetric operands and of the uniform-[1, 2]
+    full-rank operand at 2048; eigenpairs of the bench operand in float32 and
+    of the c64 operand at 2048, and of the bench operand at 4096; each by
+    AED (``schur_driver="aed"``) with its sweeps, rounds, seconds, kernel
+    launches and error or residual against phase 14's limits, and by plain
+    B13 (``"monolithic"``) at 2048 on the same operands; then one solve a
+    size through ``qr_eigenvalues``, whose route must follow ``AED_MIN_N``.
+    Raises on failure, including the sweep cut at the default window and
+    sweeps a round: fewer sweeps under AED than plain B13 on the
+    non-symmetric matrix at 2048, fewer than n on the full-rank operand.
+    Returns the launches of the public solves."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_aed
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_eig_blocked as qb
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+
+    rng = np.random.default_rng(190)
+    ops = {}
+    for n in (LARGE_N, FULL_N):
+        for kind in ("bench", "c64", "nonsym"):
+            ops[kind, n] = aed_operand(rng, n, dev, kind)
+    ops["uniform", LARGE_N] = aed_operand(rng, LARGE_N, dev, "uniform")
+    pool = ThreadPoolExecutor(2)  # numpy's float64 spectra, beside the card's work
+    refs = {n: pool.submit(np.linalg.eigvals, ops["nonsym", n][0].double().cpu().numpy())
+            for n in (LARGE_N, FULL_N)}
+    runs = [(kind, n, False) for (kind, n) in ops] + \
+        [("bench", LARGE_N, True), ("c64", LARGE_N, True), ("bench", FULL_N, True)]
+    records = {("uniform", LARGE_N): TPU_RECORDS["f32 2048"],
+               ("c64", LARGE_N): TPU_RECORDS["c64 2048"], ("c64", FULL_N): TPU_RECORDS["c64 4096"]}
+    sweeps_of = {}
+    for kind, n, vectors in runs:
+        a, want, limit = ops[kind, n]
+        drivers = ("aed", "monolithic") if n == LARGE_N else ("aed",)
+        for driver in drivers:
+            lam, sweeps, conv, V, seconds, rounds, launches = aed_solve(a, driver, vectors)
+            what = "eigenpairs" if vectors else "eigenvalues"
+            line = (f"phase 19 {what} {kind} {a.dtype} n={n} {driver}: {sweeps} sweeps, "
+                    f"{rounds} AED rounds, {seconds:.3f} s, launches {launches}")
+            check(lam.shape == (n,) and bool(torch.isfinite(lam).all()),
+                  f"{line}: bad eigenvalues")
+            check(conv, f"{line}: did not converge")
+            err = eig_error(lam, want, refs.get(n))
+            line += f", eigenvalue error {err:.3e} (limit {limit:.0e}"
+            if not vectors and (kind, n) in records:
+                line += f"; the JAX package's TPU record {records[kind, n]:.1e}"
+            line += ")"
+            check(err <= limit, f"{line}: eigenvalue error above the limit")
+            if vectors:
+                check(V is not None and bool(torch.isfinite(V).all()), f"{line}: bad vectors")
+                res = residual(a, lam, V)
+                line += (f", residual {res:.3e} (limit {1e-6 * n:.1e}; TPU records "
+                         f"{TPU_RECORDS['eigenpairs'][0]:.1e}-{TPU_RECORDS['eigenpairs'][1]:.1e})")
+                check(res <= 1e-6 * n, f"{line}: residual above the limit")
+            if driver == "aed":
+                # the spectra 0.9^i deflate within the warm-up and its
+                # remainder; on the others the rounds must run
+                check(rounds > 0 or kind in ("bench", "c64"), f"{line}: no AED round ran")
+                check(launches["B13"] > 0 and (rounds == 0 or launches["B7"] + launches["B8"] > 0),
+                      f"{line}: the AED path did not launch B7/B8 and B13")
+            sweeps_of[kind, n, vectors, driver] = sweeps
+            print(f"{line} [{card_name}, {card_limit}]")
+    pool.shutdown()
+    # the sweep cut of tests/test_qr_aed.py:30-45 at the drivers' defaults
+    cut = (sweeps_of["nonsym", LARGE_N, False, "aed"],
+           sweeps_of["nonsym", LARGE_N, False, "monolithic"])
+    uni = (sweeps_of["uniform", LARGE_N, False, "aed"],
+           sweeps_of["uniform", LARGE_N, False, "monolithic"])
+    print(f"phase 19 sweep cut at the defaults w = {qr_aed.WINDOW} and "
+          f"{qr_aed.SWEEPS_PER_ROUND} sweeps a round: non-symmetric f32 {LARGE_N}: AED "
+          f"{cut[0]} against plain B13 {cut[1]}; full-rank uniform-[1, 2] {LARGE_N}: AED "
+          f"{uni[0]} (fewer than n = {LARGE_N} wanted), plain B13 {uni[1]} (the JAX package's "
+          f"record on its TPU: 1887 at w = 256 and 96) [{card_name}, {card_limit}]")
+    check(cut[0] < cut[1], "AED did not cut the non-symmetric solve's sweeps")
+    check(uni[0] < LARGE_N, "AED took n sweeps or more on the full-rank operand")
+    # the public path: qr_eigenvalues' route follows AED_MIN_N
+    qk.reset_launch_counts()
+    for n in (LARGE_N, FULL_N):
+        a, want, limit = ops["bench", n]
+        qr_aed.last_run.clear()
+        r = eigsol.qr_eigenvalues(eigsol.DenseMatrix(a), eigsol.QROptions(
+            mode="accelerated", max_iterations=20 * n, tolerance=QR_TOL))
+        aed = qb.AED_MIN_N is not None and n >= qb.AED_MIN_N
+        print(f"phase 19 qr_eigenvalues bench n={n}: AED_MIN_N {qb.AED_MIN_N}, AED driver "
+              f"{qr_aed.last_run or 'not run'}, {int(r.iterations)} sweeps")
+        check(bool(r.converged) and eig_error(r.eigenvalues, want) <= limit,
+              f"qr_eigenvalues at {n}: wrong eigenvalues")
+        check(bool(qr_aed.last_run) == aed, f"qr_eigenvalues at {n}: the route does not "
+              f"follow AED_MIN_N")
+    return {kernel.__name__: kernel.launches for kernel in qk.KERNELS}
+
+
+def aed_table() -> None:
+    """``--aed-table`` (see the module docstring): the switch table that set
+    ``AED_MIN_N``, ``SCHUR_AED_MIN_N`` and the defaults of the window and of
+    the sweeps between two rounds. One line a solve, an error above phase
+    14's limits marked on it; raises if a solve does not converge."""
+    import torch
+
+    import pcsc_eigenvalue_solver_project_tpu_torch  # noqa: F401  (the port, not JAX)
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card_name, card_limit = card_line().split(", ")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(191)
+    warm, _, _ = aed_operand(rng, 512, dev, "nonsym")
+    for driver in ("aed", "monolithic"):  # builds and warms both routes
+        aed_solve(warm, driver, False)
+    table, grid_ops = {}, []
+
+    def run(kind, n, a, want, limit, driver, vectors, sweeps=False, **kw):
+        lam, sweeps_run, conv, V, seconds, rounds, launches = aed_solve(a, driver, vectors,
+                                                                         **kw)
+        err = eig_error(lam, want)
+        tag = f"w={kw['w']} S={kw['sweeps_per_round']}" if kw else driver
+        line = (f"aed-table {'eigenpairs' if vectors else 'eigenvalues'} {kind} n={n} {tag}: "
+                f"{seconds:.3f} s, {sweeps_run} sweeps, {rounds} rounds, error {err:.2e}")
+        if vectors:
+            line += f", residual {residual(a, lam, V):.2e}"
+        if err > limit:  # recorded, not raised: the table times; phase 19 checks
+            line += f" ABOVE phase 14's limit {limit:.0e}"
+        print(f"{line}, launches {launches} [{card_name}, {card_limit}]")
+        check(conv, f"{line}: did not converge")
+        return (seconds, sweeps_run) if sweeps else seconds
+
+    def pair(kind, n, a, want, limit, vectors):
+        """AED and plain B13 in turns (AED, plain, plain, AED); the lower
+        time of each."""
+        t = [run(kind, n, a, want, limit, d, vectors)
+             for d in ("aed", "monolithic", "monolithic", "aed")]
+        return min(t[0], t[3]), min(t[1], t[2])
+
+    for n in AED_SIZES:
+        for kind in ("bench", "c64", "nonsym", "uniform"):
+            a, want, limit = aed_operand(rng, n, dev, kind)
+            if want is None:
+                want = np.linalg.eigvals(a.double().cpu().numpy())
+            (table["eigenvalues", kind, n, "aed"],
+             table["eigenvalues", kind, n, "monolithic"]) = pair(kind, n, a, want, limit, False)
+            if n >= LARGE_N and kind in ("bench", "nonsym"):
+                (table["eigenpairs", kind, n, "aed"],
+                 table["eigenpairs", kind, n, "monolithic"]) = pair(kind, n, a, want, limit,
+                                                                    True)
+            if n == LARGE_N and kind in ("nonsym", "uniform"):
+                grid_ops.append((kind, a, want, limit))
+    # the window and the round's sweeps at 2048: the sweeps and seconds of
+    # each pair on the non-symmetric operand and two uniform-[1, 2] operands
+    a, want, limit = aed_operand(rng, LARGE_N, dev, "uniform")
+    grid_ops.append(("uniform", a, want, limit))
+    grid = {}
+    for i, (kind, a, want, limit) in enumerate(grid_ops):
+        for w in AED_WINDOWS:
+            for s in AED_ROUND_SWEEPS:
+                grid[i, w, s] = run(kind, LARGE_N, a, want, limit, "aed", False, w=w,
+                                    sweeps_per_round=s, sweeps=True)
+    plain = grid_ops[0][1]
+    plain_sweeps = aed_solve(plain, "monolithic", False)[1]
+    del a, plain, grid_ops
+    # the rules of the switch constants (ROADMAP A1)
+    aed_min = next((n for n in AED_SIZES if all(
+        table["eigenvalues", k, n, "aed"] <= table["eigenvalues", k, n, "monolithic"]
+        for k in ("bench", "c64", "nonsym", "uniform"))), None)
+    schur_min = next((n for n in (LARGE_N, FULL_N) if all(
+        table["eigenpairs", k, n, "aed"] <= table["eigenpairs", k, n, "monolithic"]
+        for k in ("bench", "nonsym"))), None)
+    for key in sorted(k for k in table if k[3] == "aed"):
+        print(f"aed-table {key[0]} {key[1]} n={key[2]}: AED {table[key]:.3f} s, plain B13 "
+              f"{table[key[:3] + ('monolithic',)]:.3f} s (the lower of two in turns)")
+    print(f"aed-table rule: AED_MIN_N = {aed_min}, SCHUR_AED_MIN_N = {schur_min} "
+          f"[{card_name}, {card_limit}]")
+    # the defaults: the least summed time among the pairs that meet the sweep cut
+    pairs = [(w, s) for w in AED_WINDOWS for s in AED_ROUND_SWEEPS]
+    meets = [(w, s) for (w, s) in pairs if grid[0, w, s][1] < plain_sweeps and
+             all(grid[i, w, s][1] <= SWEEP_CUT_MARGIN * LARGE_N for i in (1, 2))]
+    for w, s in pairs:
+        print(f"aed-table w={w} S={s} n={LARGE_N}: "
+              f"{sum(grid[i, w, s][0] for i in range(3)):.3f} s over the three operands, "
+              f"sweeps {[grid[i, w, s][1] for i in range(3)]} (plain B13 {plain_sweeps} on "
+              f"the non-symmetric one), sweep cut with the margin "
+              f"{'met' if (w, s) in meets else 'missed'}")
+    best = min(meets, key=lambda p: sum(grid[i, p[0], p[1]][0] for i in range(3)), default=None)
+    print(f"aed-table defaults: w, S = {best} [{card_name}, {card_limit}]")
+
+
+def shifted_phase(eigsol, ctx):
+    """Phase 20: the shifted solves on the card. The demo's sigma = 3.1 and
+    2.3 on data/A.txt and data/B.txt (complex128) against numpy's eigenvalue
+    nearest the shift; dense-LU inverse power at 2048 float32 on the bench
+    operand; BiCGStab inverse power on the 1M-row 33-diagonal planted band
+    (row-major B2 and interleaved B1) with the shift 1% above its dominant
+    eigenvalue, against scipy; and bench.py's n = 4096 ``SplitComplexDIA``
+    interior-shift GMRES case (B3's planes entry) against scipy's
+    shift-invert ``eigs``, with iterations, seconds, error and residual.
+    Every check raises; each case's SpMV kernel must have launched."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops.split_complex import from_planes
+    dev, card = ctx["dev"], f"[{ctx['card_name']}, {ctx['card_limit']}]"
+
+    def timed(M, opts, x0=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = eigsol.shifted_inverse_power_method(M, opts, x0=x0)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # (a) the demo's shifted section
+    for name, shift in (("A", 3.1), ("B", 2.3)):
+        M = eigsol.read_matrix_from_file(f"data/{name}.txt", torch.complex128, device=dev)
+        r, seconds = timed(M, eigsol.ShiftedSolverOptions(shift=shift, tolerance=1e-12))
+        ev = np.linalg.eigvals(M.to_dense().cpu().numpy())
+        want = complex(ev[np.argmin(np.abs(ev - shift))])
+        err = abs(complex(r.eigenvalue) - want) / abs(want)
+        print(f"phase 20 demo data/{name}.txt sigma={shift}: lambda {complex(r.eigenvalue):.10g} "
+              f"vs numpy {want:.10g} (rel {err:.2e}, limit 1e-8), {int(r.iterations)} "
+              f"iterations, converged={bool(r.converged)}, {seconds:.3f} s")
+        check(bool(r.converged) and err <= 1e-8, f"demo data/{name}.txt: wrong eigenvalue")
+    # (b) dense LU inverse power at 2048 float32 (factorised once)
+    rng = np.random.default_rng(200)
+    a, d = device_operand(rng, LARGE_N, torch.float32, dev, "geometric")
+    shift = 0.52  # nearest 0.9^6 = 0.531; the next, 0.9^7, is 3.7x as far
+    r, seconds = timed(eigsol.DenseMatrix(a), eigsol.ShiftedSolverOptions(
+        shift=shift, tolerance=1e-6, max_iterations=200))
+    want = d[np.argmin(np.abs(d - shift))]
+    err = abs(complex(r.eigenvalue) - want)
+    print(f"phase 20 dense LU f32 n={LARGE_N} sigma={shift}: lambda {complex(r.eigenvalue):.7g} "
+          f"vs planted {want:.7g} (err {err:.2e}, limit 1e-4), {int(r.iterations)} iterations, "
+          f"{seconds:.3f} s {card}")
+    check(bool(r.converged) and err <= 1e-4, "dense LU inverse power: wrong eigenvalue")
+    # (c) BiCGStab inverse power on the planted 1M x 33 band
+    offs, planted = ctx["offs"], ctx["planted"]
+    lam1 = ctx["oracle_f32"]
+    p32 = eigsol.SparseDIA(data=torch.from_numpy(planted).to(dev), offsets=offs, shape=(N, N))
+    opts = eigsol.ShiftedSolverOptions(shift=1.01 * lam1.real, tolerance=1e-6, max_iterations=50,
+                                       inner_method="bicgstab", inner_tolerance=1e-6,
+                                       inner_max_iterations=200)
+    x0 = np.random.default_rng(201).uniform(-1, 1, N)
+    for label, M, kernel in (("DIA (B2)", p32, ds.dia_kernel),
+                             ("interleaved (B1)", p32.interleaved(), ds.dia_il_kernel)):
+        ds.reset_launch_counts()
+        r, seconds = timed(M, opts, x0)
+        err = abs(complex(r.eigenvalue) - lam1) / abs(lam1)
+        print(f"phase 20 BiCGStab f32 {label} {N}x33 sigma={opts.shift:.6g}: lambda "
+              f"{complex(r.eigenvalue):.7g} vs scipy {lam1:.7g} (rel {err:.2e}, limit 1e-4), "
+              f"{int(r.iterations)} iterations, {seconds:.3f} s, {kernel.__name__} launches "
+              f"{kernel.launches} {card}")
+        check(kernel.launches > 0, f"{kernel.__name__} was not launched by BiCGStab")
+        check(bool(r.converged) and err <= 1e-4, f"BiCGStab {label}: wrong eigenvalue")
+        check(r.eigenvector.shape == (N,) and bool(torch.isfinite(r.eigenvector).all()),
+              f"BiCGStab {label}: bad eigenvector")
+    # (d) bench.py:579-670's interior-shift GMRES case at n = 4096
+    n = 4096
+    rng = np.random.default_rng(0)
+    goffs = (-3, -1, 0, 2)
+    planes = np.zeros((2, len(goffs), n), np.float32)
+    for k, off in enumerate(goffs):
+        amp = 1.0 if off == 0 else 0.3
+        planes[0, k] = amp * rng.standard_normal(n)
+        planes[1, k] = amp * rng.standard_normal(n)
+        if off > 0:
+            planes[:, k, n - off:] = 0
+        elif off < 0:
+            planes[:, k, :-off] = 0
+    planes[0, goffs.index(0)] += 4.0 + rng.uniform(-2, 2, n).astype(np.float32)
+    sc = eigsol.SplitComplexDIA(planes=torch.from_numpy(planes).to(dev), offsets=goffs,
+                                shape=(n, n))
+    rows, cols, vals = [], [], []
+    for k, off in enumerate(goffs):
+        i = np.arange(max(0, -off), min(n, n - off))
+        rows.append(i)
+        cols.append(i + off)
+        vals.append((planes[0, k] + 1j * planes[1, k])[i])
+    A_sp = sp.coo_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                         shape=(n, n)).tocsc()
+    t0 = time.perf_counter()
+    target = complex(spla.eigs(A_sp, k=1, sigma=4.0 + 0.3j, tol=1e-10)[0][0])
+    host_s = time.perf_counter() - t0
+    shift = complex(target + 0.01 * (1 + 1j))
+    target = complex(spla.eigs(A_sp, k=1, sigma=shift, tol=1e-10)[0][0])
+    opts = eigsol.ShiftedSolverOptions(shift=shift, max_iterations=60, tolerance=1e-5,
+                                       inner_method="gmres", inner_tolerance=1e-6)
+    ds.reset_launch_counts()
+    r, seconds = timed(sc, opts)
+    lam = complex(from_planes(r.eigenvalue))
+    err = abs(lam - target) / (1 + abs(target))
+    xc = from_planes(r.eigenvector).astype(np.complex128)
+    resid = float(np.abs(A_sp @ xc - lam * xc).max() / max(np.abs(xc).max(), 1e-30)
+                  / (1 + abs(lam)))
+    print(f"phase 20 GMRES SplitComplexDIA n={n} sigma={shift:.6g}: lambda {lam:.6f} vs scipy "
+          f"shift-invert {target:.6f} (err {err:.2e}, limit 1e-4; the JAX package's TPU record "
+          f"5.0e-06), residual {resid:.2e} (limit 1e-3), {int(r.iterations)} iterations, "
+          f"converged={bool(r.converged)}, {seconds:.3f} s (scipy shift-invert {host_s:.3f} s), "
+          f"dia_planes_kernel launches {ds.dia_planes_kernel.launches} {card}")
+    check(ds.dia_planes_kernel.launches > 0, "dia_planes_kernel was not launched by GMRES")
+    check(bool(r.converged) and err <= 1e-4 and resid <= 1e-3, "GMRES case: wrong eigenpair")
+
+
 def main() -> None:
     import torch
 
@@ -2779,6 +3199,18 @@ def main() -> None:
     gell_launches = general_sparse_path_phase(ctx, uniform_coo)
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 19. AED on the card ------------------------------------------------
+    t0 = time.perf_counter()
+    aed_launches = aed_phase(eigsol, dev, card_name, card_limit)
+    print(f"phase-19 public-path launches: {aed_launches}")
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 20. the shifted solves on the card ---------------------------------
+    t0 = time.perf_counter()
+    ctx["oracle_f32"] = oracles["f32"]
+    shifted_phase(eigsol, ctx)
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+
     # ---- report ------------------------------------------------------------
     rows = []
 
@@ -2894,6 +3326,8 @@ if __name__ == "__main__":
         b10_compare(sys.argv[2])
     elif sys.argv[1:2] == ["--b8"] and len(sys.argv) == 3:
         b8_compare(sys.argv[2])
+    elif sys.argv[1:] == ["--aed-table"]:
+        aed_table()
     else:
         main()
     sys.stdout.flush()

@@ -9,9 +9,11 @@ operators (``SplitComplexDIA``, ``InterleavedSplitComplexDIA``,
 (``SparseGELL``, ``SparseCSR.to_gell``) and the automatic layout
 (``from_coo(layout="auto")``, ``suggest_layout``, ``PermutedOperator``); the
 block top-k solvers ``subspace_iteration`` and
-``chebyshev_subspace_iteration``; and the dense QR stack (Hessenberg
-reduction, QR decomposition, QR eigenvalues in parity and accelerated modes,
-with eigenvectors). The banded and general sparse SpMV, the block SpMM and
+``chebyshev_subspace_iteration``; the shifted solves (``solve_shifted``,
+``shifted_inverse_power_method``, ``rayleigh_quotient_iteration``, with
+BiCGStab and GMRES inner solves on the SpMV kernels); and the dense QR
+stack (Hessenberg reduction, QR decomposition, QR eigenvalues in parity and
+accelerated modes with aggressive early deflation, with eigenvectors). The banded and general sparse SpMV, the block SpMM and
 the QR stack run as CUDA kernels written for Hopper (``csrc/``), built with
 nvcc at the first CUDA launch. Constructors put their data on the card
 unless given ``device`` (``device="cpu"`` for the CPU); on CPU tensors every
@@ -28,7 +30,7 @@ Typical usage::
     qr = eigsol.qr_eigenvalues(A, eigsol.QROptions(mode="accelerated"))
 """
 
-from .core.options import QROptions, SolverOptions
+from .core.options import QROptions, ShiftedSolverOptions, SolverOptions
 from .core.results import EigenResult, QRResult
 from .core.tolerance import is_close_relative
 from .matrix.auto import LayoutDecision, PermutedOperator, from_coo, suggest_layout
@@ -40,9 +42,11 @@ from .matrix.sparse import SparseCSR, SparseELL
 from .matrix.split_complex import InterleavedSplitComplexDIA, SplitComplexDIA
 from .io.reader import read_matrix_from_file, read_matrix_from_text
 from .solvers.hessenberg import to_hessenberg
+from .solvers.inverse_power import rayleigh_quotient_iteration, shifted_inverse_power_method
 from .solvers.power import power_method, power_method_split_complex
 from .solvers.qr import qr_decompose
 from .solvers.qr_eigenvalues import qr_eigenvalues
+from .solvers.solve_shifted import solve_shifted
 from .solvers.subspace import chebyshev_subspace_iteration, subspace_iteration
 
 __version__ = "0.1.0"
@@ -57,6 +61,7 @@ __all__ = [
     "PermutedOperator",
     "QROptions",
     "QRResult",
+    "ShiftedSolverOptions",
     "SolverOptions",
     "SparseCSR",
     "SparseDIA",
@@ -70,8 +75,11 @@ __all__ = [
     "power_method_split_complex",
     "qr_decompose",
     "qr_eigenvalues",
+    "rayleigh_quotient_iteration",
     "read_matrix_from_file",
     "read_matrix_from_text",
+    "shifted_inverse_power_method",
+    "solve_shifted",
     "suggest_layout",
     "subspace_iteration",
     "to_hessenberg",

@@ -2,7 +2,9 @@
 
 Reference parity: ``SolverOptions`` (maxIterations=1000, tolerance=1e-10;
 reference src/option/solver_option.hpp:14-20). ``QROptions`` adds the QR
-iteration's mode switch. The shifted option struct comes with its solver.
+iteration's mode switch; ``ShiftedSolverOptions`` adds a scalar shift
+defaulting to 0 (reference src/option/shifted_solver_option.hpp:30-69) and
+the inner linear solve's controls.
 """
 
 from __future__ import annotations
@@ -23,6 +25,23 @@ class SolverOptions:
             raise ValueError("max_iterations must be non-negative")
         if self.tolerance < 0:
             raise ValueError("tolerance must be non-negative")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftedSolverOptions(SolverOptions):
+    """Options for solvers operating on ``(A - shift*I)``.
+
+    ``shift`` may be real or complex. ``inner_*`` fields configure the inner
+    iterative linear solve used for sparse operators (the reference
+    refactorises a SparseLU every outer iteration, solve_shifted.hpp:104-115;
+    here the sparse path is a Krylov solve on the SpMV kernels instead).
+    """
+
+    shift: complex = 0.0
+    # Inner linear-solve controls (sparse/Krylov path only).
+    inner_tolerance: float = 1e-12
+    inner_max_iterations: Optional[int] = None  # default: 4*n
+    inner_method: str = "auto"  # "auto" | "dense_lu" | "bicgstab" | "gmres"
 
 
 @dataclasses.dataclass(frozen=True)

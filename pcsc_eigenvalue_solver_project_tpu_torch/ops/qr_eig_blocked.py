@@ -489,18 +489,52 @@ def qr_eig_blocked_step_q(h: torch.Tensor, q: torch.Tensor, max_sweeps: int, tol
     return t, qq, eig, sweeps, hi
 
 
+# The n from which the eigenvalues-only solve runs AED rounds
+# (``ops/qr_aed.py``) rather than plain B13 sweeps, and the n from which
+# eigenpairs run the Schur-mode AED driver rather than the monolithic one
+# (``schur_driver="auto"``); None: never by "auto". Set by the rules of
+# chip_smoke.py --aed-table on the H100 (PERF.md), not from the JAX
+# package's 768 (a VMEM cap) and 8192 (a TPU worker crash): the smallest n
+# of 1024, 2048 and 4096 from which AED is no slower than plain B13 on the
+# bench, c64 normal, non-symmetric and uniform-[1, 2] operands, and of 2048
+# and 4096 on the bench and non-symmetric operands with eigenpairs. None
+# qualified: AED was 24-42% faster on the non-symmetric matrix at 2048 and
+# 4096 (eigenvalues and eigenpairs), but 7-36% slower on the uniform-[1, 2]
+# operand at every size and 1-17% slower on the spectra 0.9^i, which
+# converge before a round pays for itself.
+AED_MIN_N: int | None = None
+SCHUR_AED_MIN_N: int | None = None
+SCHUR_DRIVERS = ("auto", "monolithic", "aed")
+
+
 def blocked_eigenvalues(a: torch.Tensor, max_sweeps: int, tol: float,
-                        compute_vectors: bool = False):
-    """Counterpart of JAX ``qr_eigenvalues_pallas_blocked`` (:726-788) with
-    its monolithic Schur solve: the Hessenberg reduction
-    (``hessenberg_reduce``: B11 from ``HESSENBERG_BLOCKED_MIN_N`` on, B7
-    below), then B13. A real matrix reduces in its real dtype and is widened
-    to the complex dtype of its precision. Returns ``(eigenvalues, sweeps,
-    converged)``, plus ``V`` with ``compute_vectors``: B13 in Schur mode,
-    ``Qh Qs`` (a plain product, as the JAX package leaves it to XLA) and the
-    eigenvectors from B14 (``finish_eigenvectors_device``); column k of ``V``
-    pairs with ``eigenvalues[k]``. The JAX option of Schur-mode AED rounds
-    comes with the port of ``qr_aed.py``."""
+                        compute_vectors: bool = False, schur_driver: str = "auto"):
+    """Counterpart of JAX ``qr_eigenvalues_pallas_blocked`` (:726-788): the
+    Hessenberg reduction (``hessenberg_reduce``: B11 from
+    ``HESSENBERG_BLOCKED_MIN_N`` on, B7 below), then the sweeps. A real
+    matrix reduces in its real dtype and is widened to the complex dtype of
+    its precision. Returns ``(eigenvalues, sweeps, converged)``, plus ``V``
+    with ``compute_vectors`` (column k pairs with ``eigenvalues[k]``).
+
+    ``schur_driver`` picks the sweeps that ``accelerated_eigenvalues`` /
+    ``accelerated_eigenpairs`` run after the reduction: ``"monolithic"``
+    B13 alone (``blocked_sweeps``), ``"aed"`` B13 between AED rounds
+    (``ops/qr_aed.py``), ``"auto"`` AED from ``AED_MIN_N`` on
+    (``SCHUR_AED_MIN_N`` with ``compute_vectors``); anything else raises
+    ``ValueError``. Eigenpairs run the sweeps in Schur mode, then ``Qh Qs``
+    (a plain product, as the JAX package leaves it to XLA) and the
+    eigenvectors from B14. Unlike the JAX function, ``schur_driver`` also
+    applies to eigenvalues only, where JAX picks by its own constant."""
+    from . import qr_aed
     from .qr_kernels import accelerated_eigenpairs, accelerated_eigenvalues
-    solve = accelerated_eigenpairs if compute_vectors else accelerated_eigenvalues
-    return solve(a, max_sweeps, tol, blocked=True)
+    if schur_driver not in SCHUR_DRIVERS:
+        raise ValueError(f"unknown schur_driver {schur_driver!r}")
+    if schur_driver == "auto":
+        edge = SCHUR_AED_MIN_N if compute_vectors else AED_MIN_N
+        schur_driver = "aed" if edge is not None and a.shape[0] >= edge else "monolithic"
+    if compute_vectors:
+        sweeps = (qr_aed.qr_eig_blocked_aed_schur if schur_driver == "aed"
+                  else functools.partial(blocked_sweeps, accumulate_q=True))
+        return accelerated_eigenpairs(a, max_sweeps, tol, sweeps)
+    sweeps = qr_aed.qr_eig_blocked_aed if schur_driver == "aed" else blocked_sweeps
+    return accelerated_eigenvalues(a, max_sweeps, tol, sweeps)

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, fields
+from functools import partial
 
 import numpy as np
 import torch
@@ -597,19 +598,20 @@ def parity_sweeps(h: torch.Tensor, max_iterations: int, tol: float):
     return qr_parity_kernel(h, max_iterations, tol)
 
 
-def accelerated_eigenvalues(a: torch.Tensor, max_sweeps: int, tol: float,
-                            blocked: bool = False):
+def accelerated_eigenvalues(a: torch.Tensor, max_sweeps: int, tol: float, sweeps=None):
     """Counterpart of ``qr_eigenvalues_pallas`` (eigenvalues only): B7 (or
-    B11) then B8, or with ``blocked`` then B13 (``qr_eigenvalues_pallas_blocked``;
-    ``qr_eigenvalues`` sets it where ``qr_dispatch`` says
-    ``"cuda_blocked"``). A real matrix reduces in its real dtype and is
-    widened to the complex dtype of its precision for the sweeps. Returns
-    ``(eigenvalues, sweeps, converged)`` with ``converged = hi <= 1``."""
+    B11), then ``sweeps(h, max_sweeps, tol)`` on the complex Hessenberg
+    matrix, which returns ``(eigenvalues, sweeps, hi, ...)``: B8's
+    ``qr_eig_sweeps`` by default; ``blocked_eigenvalues`` passes B13's
+    ``blocked_sweeps`` or the AED driver. A real matrix reduces in its real
+    dtype and is widened to the complex dtype of its precision for the
+    sweeps. Returns ``(eigenvalues, sweeps, converged)`` with
+    ``converged = hi <= 1``."""
     h = hessenberg_reduce(a)
     if not h.is_complex():
         h = h.to(h.dtype.to_complex())
-    eig, sweeps, hi = (blocked_sweeps if blocked else qr_eig_sweeps)(h, max_sweeps, tol)[:3]
-    return eig, int(sweeps), int(hi) <= 1
+    eig, count, hi = (sweeps or qr_eig_sweeps)(h, max_sweeps, tol)[:3]
+    return eig, int(count), int(hi) <= 1
 
 
 def parity_eigenvalues(a: torch.Tensor, max_iterations: int, tol: float):
@@ -663,18 +665,19 @@ def finish_eigenvectors_device(T: torch.Tensor, Q: torch.Tensor) -> torch.Tensor
     return V / abs2(V).sum(dim=0).sqrt().clamp_min(1e-30)
 
 
-def accelerated_eigenpairs(a: torch.Tensor, max_sweeps: int, tol: float,
-                           blocked: bool = False):
+def accelerated_eigenpairs(a: torch.Tensor, max_sweeps: int, tol: float, sweeps=None):
     """Counterpart of ``qr_eigenvalues_pallas(compute_vectors=True)``
     (JAX ``qr_kernels.py:604-618``): the Hessenberg reduction with Q (B7 or
-    B11), the shifted sweeps with Schur Q (B8, or with ``blocked`` B13),
-    ``Qh Qs`` and the eigenvectors (B14). A real matrix reduces in its real
-    dtype and is widened to the complex dtype of its precision for the
-    sweeps. Returns ``(eigenvalues, sweeps, converged, V)``; column k of
-    ``V`` pairs with ``eigenvalues[k]``."""
+    B11), ``sweeps(h, max_sweeps, tol)`` in Schur mode, which returns
+    ``(eigenvalues, sweeps, hi, T, Qs)`` (B8 by default; B13 or the
+    Schur-mode AED driver from ``blocked_eigenvalues``), ``Qh Qs`` and the
+    eigenvectors (B14). A real matrix reduces in its real dtype and is
+    widened to the complex dtype of its precision for the sweeps. Returns
+    ``(eigenvalues, sweeps, converged, V)``; column k of ``V`` pairs with
+    ``eigenvalues[k]``."""
     h, qh = hessenberg_reduce(a, accumulate_q=True)
     if not h.is_complex():
         h, qh = h.to(h.dtype.to_complex()), qh.to(qh.dtype.to_complex())
-    sweep = blocked_sweeps if blocked else qr_eig_sweeps
-    eig, sweeps, hi, t, qs = sweep(h, max_sweeps, tol, accumulate_q=True)
-    return eig, int(sweeps), int(hi) <= 1, finish_eigenvectors_device(t, qh @ qs)
+    sweeps = sweeps or partial(qr_eig_sweeps, accumulate_q=True)
+    eig, count, hi, t, qs = sweeps(h, max_sweeps, tol)
+    return eig, int(count), int(hi) <= 1, finish_eigenvectors_device(t, qh @ qs)

@@ -14,11 +14,11 @@ iteration's ``y``: one matvec per iteration.
 
 Loop structure: the JAX package runs the loop as one ``lax.while_loop``
 with the ``done`` flag on the device. Here the loop body runs eagerly on
-tensors, in blocks of ``BLOCK_ITERATIONS`` iterations. Every carry update is
-masked by ``done`` with ``torch.where``, so the iterations after ``done``
-inside a block change nothing, and the host reads the flag once per block,
-not once per matvec. The result and iteration count are exactly the
-while-loop's.
+tensors, in blocks of ``BLOCK_ITERATIONS`` iterations (``utils/loops.py``).
+Every carry update is masked by ``done`` with ``torch.where``, so the
+iterations after ``done`` inside a block change nothing, and the host reads
+the flag once per block, not once per matvec. The result and iteration
+count are exactly the while-loop's.
 
 Split-plane complex operators (``matrix/split_complex.py``) run the same
 loop on (2, n) real planes with a (2,) plane eigenvalue
@@ -37,10 +37,8 @@ from ..matrix.protocol import (AbstractMatrix, decode_result,
                                require_nonempty, require_square)
 from ..matrix.split_complex import InterleavedSplitComplexDIA, SplitComplexDIA
 from ..ops.split_complex import splitc_is_close_relative, splitc_norm, splitc_vdot
+from ..utils.loops import BLOCK_ITERATIONS, count, flag, run_masked
 from ..utils.prng import default_generator, random_unit_vector
-
-# Iterations between two host reads of the convergence flag.
-BLOCK_ITERATIONS = 32
 
 
 def vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -54,17 +52,12 @@ def norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def power_init_carry(matvec, x0: torch.Tensor):
-    """Initial loop carry: (k, x, z=A@x, lambda, initialized, converged,
-    used_iterations, done), all tensors on x0's device."""
-    def flag():
-        return torch.zeros((), dtype=torch.bool, device=x0.device)
-
-    def count():
-        return torch.zeros((), dtype=torch.int32, device=x0.device)
-
-    return (count(), x0, matvec(x0),
-            torch.zeros((), dtype=x0.dtype, device=x0.device),
-            flag(), flag(), count(), flag())
+    """Initial loop carry: (k, done, x, z=A@x, lambda, initialized,
+    converged, used_iterations), all tensors on x0's device."""
+    dev = x0.device
+    return (count(dev), flag(False, dev), x0, matvec(x0),
+            torch.zeros((), dtype=x0.dtype, device=dev),
+            flag(False, dev), flag(False, dev), count(dev))
 
 
 def power_carry_loop(matvec, vdot, norm, carry, max_iterations: int, tol,
@@ -74,15 +67,15 @@ def power_carry_loop(matvec, vdot, norm, carry, max_iterations: int, tol,
     stopping rule ``is_close(lam_new, lam, tol)``, like the JAX package's.
     ``tol`` is a float, decided in float64, or a 0-d tensor, decided in its
     dtype (the split loop's, as JAX decides it in the planes' dtype)."""
-    dtype = carry[1].dtype
+    dtype = carry[2].dtype
     rdt = real_dtype_of(dtype)
-    device = carry[1].device
+    device = carry[2].device
     if not isinstance(tol, torch.Tensor):
         tol = torch.tensor(tol, dtype=torch.float64, device=device)
     one = torch.ones((), dtype=rdt, device=device)
 
     def body(c):
-        k, x, z, lam, initialized, converged, used, done = c
+        k, done, x, z, lam, initialized, converged, used = c
         y = z  # == A @ x, computed at the end of the previous iteration
         norm_y = norm(y).to(rdt)
         breakdown = norm_y == 0
@@ -98,26 +91,20 @@ def power_carry_loop(matvec, vdot, norm, carry, max_iterations: int, tol,
         k_next = torch.where(live, k + 1, k)
         return (
             k_next,
+            done | breakdown | conv_now,
             torch.where(keep, x_new, x),
             torch.where(keep, z_new, z),
             torch.where(keep, lam_new, lam),
             initialized | keep,
             converged | (live & conv_now),
             torch.where(live, k + 1, used),  # usedIters = k+1 (power_method.hpp:87,95)
-            done | breakdown | conv_now,
         )
 
-    while True:
-        k, done = carry[0], carry[7]
-        k_host, done_host = (int(v) for v in torch.stack([k, done.to(k.dtype)]).tolist())
-        if done_host or k_host >= max_iterations:
-            return carry
-        for _ in range(min(BLOCK_ITERATIONS, max_iterations - k_host)):
-            carry = body(carry)
+    return run_masked(body, carry, max_iterations, BLOCK_ITERATIONS)
 
 
 def carry_to_result(carry) -> EigenResult:
-    k, x, z, lam, initialized, converged, used, done = carry
+    k, done, x, z, lam, initialized, converged, used = carry
     return EigenResult(eigenvalue=lam, eigenvector=x, iterations=used,
                        converged=converged)
 
@@ -163,7 +150,7 @@ def power_method_split_complex(M, opts: SolverOptions = SolverOptions(), *,
         x0 = torch.where(nrm == 0, x0, x0 / torch.where(nrm == 0, 1, nrm))
     x0 = M.encode_vec(x0)  # identity for SplitComplexDIA; interleave otherwise
     carry = power_init_carry(M.matvec, x0)
-    carry = carry[:3] + (torch.zeros(2, dtype=rdt, device=x0.device),) + carry[4:]
+    carry = carry[:4] + (torch.zeros(2, dtype=rdt, device=x0.device),) + carry[5:]
     tol = torch.tensor(opts.tolerance, dtype=rdt, device=x0.device)
     carry = power_carry_loop(M.matvec, splitc_vdot, splitc_norm, carry,
                              opts.max_iterations, tol, splitc_is_close_relative)

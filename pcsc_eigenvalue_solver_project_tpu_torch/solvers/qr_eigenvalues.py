@@ -21,9 +21,11 @@ input, eigenpairs through ``_qr_eigenvectors_xla`` — so the CPU tests
 compare like with like. A CUDA tensor takes the kernels for every dtype:
 parity runs the Hessenberg reduction (B7, or B11 from
 ``HESSENBERG_BLOCKED_MIN_N`` on) then B10 at every n; accelerated mode runs
-the reduction then the unblocked sweeps B8 up to ``UNBLOCKED_MAX_N`` and the
-blocked sweeps B13 beyond it; eigenpairs run the reduction with Q, the same
-sweeps with Schur Q, then B14 (``ops/qr_kernels.py``,
+the reduction then the unblocked sweeps B8 up to ``UNBLOCKED_MAX_N`` and
+beyond it ``blocked_eigenvalues``: the blocked sweeps B13, between rounds of
+aggressive early deflation from ``AED_MIN_N`` on (``ops/qr_aed.py``);
+eigenpairs run the reduction with Q, the same sweeps with Schur Q (AED's
+from ``SCHUR_AED_MIN_N`` on), then B14 (``ops/qr_kernels.py``,
 ``ops/qr_eig_blocked.py``).
 """
 
@@ -375,6 +377,7 @@ def qr_eigenvalues(M: AbstractMatrix, opts: SolverOptions = QROptions(), *,
     with ``eigenvalues[k]``): on a CUDA tensor from B7 or B11, B8 or B13 and
     B14 at every n and dtype, on a CPU tensor from the JAX package's CPU route.
     """
+    from ..ops.qr_eig_blocked import blocked_eigenvalues
     from ..ops.qr_kernels import (accelerated_eigenpairs, accelerated_eigenvalues,
                                   parity_eigenvalues)
     if not M.is_dense:
@@ -395,8 +398,10 @@ def qr_eigenvalues(M: AbstractMatrix, opts: SolverOptions = QROptions(), *,
     if mode == "accelerated" and opts.compute_vectors and n > 0:
         if engine == "torch":
             return _qr_eigenvectors_xla(a, max_it, dtol)
-        eigs, sweeps, conv, V = accelerated_eigenpairs(a, max_it, dtol,
-                                                       engine == "cuda_blocked")
+        if engine == "cuda_blocked":
+            eigs, sweeps, conv, V = blocked_eigenvalues(a, max_it, dtol, compute_vectors=True)
+        else:
+            eigs, sweeps, conv, V = accelerated_eigenpairs(a, max_it, dtol)
         res = _result(eigs, sweeps, conv)
         res.eigenvectors = V
         return res
@@ -408,7 +413,10 @@ def qr_eigenvalues(M: AbstractMatrix, opts: SolverOptions = QROptions(), *,
         if mode == "parity":
             eigs, iterations, conv, _ = parity_eigenvalues(a, max_it, opts.tolerance)
             return _result(eigs, iterations, conv)
-        eigs, sweeps, conv = accelerated_eigenvalues(a, max_it, dtol, engine == "cuda_blocked")
+        if engine == "cuda_blocked":
+            eigs, sweeps, conv = blocked_eigenvalues(a, max_it, dtol)
+        else:
+            eigs, sweeps, conv = accelerated_eigenvalues(a, max_it, dtol)
         return _result(eigs, sweeps, conv)
 
     if mode == "parity":

@@ -359,13 +359,15 @@ class TestDispatch:
 
     def test_beyond_the_boundary_the_sweeps_are_blocked(self, monkeypatch):
         # qr_eigenvalues asks qr_dispatch once: beyond UNBLOCKED_MAX_N on a
-        # non-CPU tensor it hands the accelerated solves blocked=True (B13),
-        # at or below it blocked=False (B8)
+        # non-CPU tensor the accelerated solves get B13's sweeps, at or below
+        # it their default, B8's
         monkeypatch.setattr(qe, "UNBLOCKED_MAX_N", 4)
         calls = []
 
         def recorder(vectors):
-            def solve(a, max_sweeps, tol, blocked=False):
+            def solve(a, max_sweeps, tol, sweeps=None):
+                blocked = getattr(sweeps, "func", sweeps) is qb.blocked_sweeps
+                assert blocked or sweeps is None
                 calls.append((a.shape[0], vectors, blocked))
                 eig = torch.zeros(a.shape[0], dtype=torch.complex64, device=a.device)
                 return (eig, 1, True) + ((torch.diag(eig),) if vectors else ())
@@ -382,9 +384,10 @@ class TestDispatch:
     def test_blocked_eigenvalues_is_the_accelerated_solve_with_b13(self):
         # on a CPU tensor both run the plain versions of B7 and B13
         a = torch.from_numpy(random_matrix(6, True, seed=1))
-        e, s, c = tq.accelerated_eigenvalues(a, 60 * 6, TOL, blocked=True)
+        e, s, c = tq.accelerated_eigenvalues(a, 60 * 6, TOL, qb.blocked_sweeps)
         e2, s2, c2 = qb.blocked_eigenvalues(a, 60 * 6, TOL)
         assert c and (s, c) == (s2, c2) and torch.equal(e, e2)
         assert nn_err(np.linalg.eigvals(a.numpy().astype(np.complex128)), e.numpy()) <= EIG_LIMIT
         with pytest.raises(ValueError, match="^hessenberg_kernel: "):
-            tq.accelerated_eigenvalues(torch.empty((4, 4), device="meta"), 5, TOL, blocked=True)
+            tq.accelerated_eigenvalues(torch.empty((4, 4), device="meta"), 5, TOL,
+                                       qb.blocked_sweeps)
