@@ -111,21 +111,38 @@ Phases, each of which raises on failure (the exit code is then non-zero):
     phase 14's limits (the JAX package's TPU records printed beside, for
     comparison only); the sweep cut (fewer sweeps under AED than plain B13
     on the non-symmetric matrix at 2048, fewer than n on the full-rank
-    operand); and ``qr_eigenvalues``' route at 2048 and 4096 against
-    ``AED_MIN_N``;
+    operand); ``qr_eigenvalues``' route at 2048 and 4096 against
+    ``AED_MIN_N``; and ``qr_eigenvalues`` (accelerated) on ``--aed-table``'s
+    4096 uniform-[1, 2] draw, held to 1e-4 (C4);
 20. the shifted solves on the card: the demo's sigma = 3.1 and 2.3 on
     ``data/A.txt`` and ``data/B.txt``, dense-LU inverse power at 2048
     float32, BiCGStab inverse power on the planted 1M x 33 band (row-major
     and interleaved) with the shift 1% above its dominant eigenvalue, and
     bench.py's n = 4096 ``SplitComplexDIA`` interior-shift GMRES case
     against scipy's shift-invert ``eigs``, each with iterations, seconds,
-    error (and residual) and its SpMV kernel's launches.
+    error (and residual) and its SpMV kernel's launches;
+21. the Krylov and block eigensolvers at 1M x 33: ``arnoldi_eigenvalues``
+    (k = 3, m = 30) on the planted band as ``SparseDIA`` (B2) and
+    ``InterleavedDIA`` (B1) with the projection on B8,
+    ``krylov_schur_eigenvalues`` (k = 3) on it and as ``SparseGELL`` (B6),
+    against scipy's ``eigs``; ``lanczos_eigenvalues`` (LM, LA),
+    ``lanczos_eigenpairs`` (residuals within their Ritz bounds plus 1e-5
+    ||A||_1) and ``lanczos_thick_restart`` (k = 4) on phase 16's symmetric
+    band, and ``lobpcg_eigenvalues`` (k = 4, LA, float64, B5 row-major and
+    interleaved) on it, against scipy's ``eigsh``; ``power_method_ds64`` on
+    bench.py's ds64 operator at 100,000 and 1M rows against a host float64
+    loop to 1e-12 with equal counts; ``write_matrix_to_file`` of a
+    100,000-row sparse complex128 and a 512 dense matrix read back exactly;
+    the demo's reference flow on the card and its five Krylov/block solvers
+    on a 2000-row file the writer produced, within 1e-4 of numpy. Each solve
+    prints its seconds, launches and error beside its limit.
 
 The banded kernels' launch counts are zeroed just before phases 4-5 and
 read just after, the QR kernels' just before and after phases 7, 10, 14 and
 each run of phase 11, each solve of phase 19 and its public solves, the
-banded ones again around phase 16 and each solve of phase 20, and B6's and
-the banded ones around phase 18; each kernel must have run on its path. The script then
+banded ones again around phase 16 and each solve of phase 20, B6's and
+the banded ones around phase 18, and all of them around each solve of phase
+21; each kernel must have run on its path. The script then
 prints one JSON line with each kernel's numbers (time, plain time, the
 least time the card could take for the same work, the library call's time
 where one PyTorch call computes the same function), the card's name and
@@ -196,12 +213,28 @@ monolithic Schur driver at 2048 and 4096 on the bench and non-symmetric
 operands (each pair timed in turns, AED, plain, plain, AED, the lower of
 each kept), and at 2048 the windows 64, 128 and 256 against the sweeps a
 round 16, 32, 96 and 256 on the non-symmetric operand and two uniform-[1, 2]
-operands; then the constants the rules of ROADMAP A1 give, and the default
+operands; C4's backward-error rows (as ``--c4`` prints them: plain B13 at
+each size on the uniform-[1, 2] operand, AED at 4096); then the constants
+the rule gives (the smallest size from which plain B13 misses phase 14's
+limit on any operand, or AED is no slower on every one), and the default
 window and sweeps a round: the pair of least time summed over the three
 operands among those whose AED solve takes fewer sweeps than plain B13 on
 the non-symmetric operand and at most ``SWEEP_CUT_MARGIN`` n on both
 uniform-[1, 2] operands, so that the sweep cut (fewer than n), which phase 19
 checks at the defaults on an operand of its own, holds on other draws.
+
+    python3 chip_smoke.py --c4
+
+prints C4's rows on the uniform-[1, 2] operands of ``--aed-table`` (the
+same draws): at 4096 the eigenvalues-only error by plain B13 and by AED,
+the backward error ``||A - Q T Q^H||_F / ||A||_F`` of the Schur form by
+plain B13, by AED and by plain B13 on the same matrix in complex128, and
+its growth over the sweeps of one solve; at 1024 and 2048 the backward
+error by plain B13 (``--aed-table`` prints the same rows at its end).
+
+    python3 chip_smoke.py --krylov
+
+runs phase 21 alone, with its own scipy references.
 
     python3 chip_smoke.py --b8 ROOT
 
@@ -1665,6 +1698,7 @@ def banded_block_path_phase(ctx):
     # (b) and (c) the block solvers
     oracles = {"subspace": scipy_top(planted, offs, 3),
                "chebyshev": scipy_top(sym, offs, 4, which="LA", symmetric=True)}
+    ctx["oracles16"] = oracles  # phase 21 holds its Krylov solves to the same references
     for name, (M, kind) in blocks.items():
         r = results[name]
         want = oracles[kind]
@@ -2662,6 +2696,22 @@ def aed_phase(eigsol, dev, card_name, card_limit):
               f"qr_eigenvalues at {n}: wrong eigenvalues")
         check(bool(qr_aed.last_run) == aed, f"qr_eigenvalues at {n}: the route does not "
               f"follow AED_MIN_N")
+    # C4: the public eigenvalues-only solve of --aed-table's 4096
+    # uniform-[1, 2] draw, held to phase 14's limit
+    a, want = aed_table_uniform(dev, (FULL_N,))[FULL_N]
+    qr_aed.last_run.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = eigsol.qr_eigenvalues(eigsol.DenseMatrix(a), eigsol.QROptions(
+        mode="accelerated", max_iterations=20 * FULL_N, tolerance=QR_TOL))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    err = eig_error(r.eigenvalues, want)
+    print(f"phase 19 C4 qr_eigenvalues uniform-[1, 2] n={FULL_N} (--aed-table's draw): "
+          f"{int(r.iterations)} sweeps, AED driver {qr_aed.last_run or 'not run'}, "
+          f"{seconds:.3f} s, eigenvalue error {err:.3e} (limit 1e-4) [{card_name}, {card_limit}]")
+    check(bool(r.converged) and err <= 1e-4, f"C4: the public solve's error {err:.3e} is "
+          f"above 1e-4")
     return {kernel.__name__: kernel.launches for kernel in qk.KERNELS}
 
 
@@ -2681,7 +2731,7 @@ def aed_table() -> None:
     warm, _, _ = aed_operand(rng, 512, dev, "nonsym")
     for driver in ("aed", "monolithic"):  # builds and warms both routes
         aed_solve(warm, driver, False)
-    table, grid_ops = {}, []
+    table, grid_ops, missed, c4_ops = {}, [], {}, {}
 
     def run(kind, n, a, want, limit, driver, vectors, sweeps=False, **kw):
         lam, sweeps_run, conv, V, seconds, rounds, launches = aed_solve(a, driver, vectors,
@@ -2694,6 +2744,10 @@ def aed_table() -> None:
             line += f", residual {residual(a, lam, V):.2e}"
         if err > limit:  # recorded, not raised: the table times; phase 19 checks
             line += f" ABOVE phase 14's limit {limit:.0e}"
+        if not kw:
+            what = "eigenpairs" if vectors else "eigenvalues"
+            missed[what, kind, n, driver] = missed.get((what, kind, n, driver), False) or \
+                err > limit
         print(f"{line}, launches {launches} [{card_name}, {card_limit}]")
         check(conv, f"{line}: did not converge")
         return (seconds, sweeps_run) if sweeps else seconds
@@ -2718,6 +2772,8 @@ def aed_table() -> None:
                                                                     True)
             if n == LARGE_N and kind in ("nonsym", "uniform"):
                 grid_ops.append((kind, a, want, limit))
+            if kind == "uniform":
+                c4_ops[n] = (a, want)
     # the window and the round's sweeps at 2048: the sweeps and seconds of
     # each pair on the non-symmetric operand and two uniform-[1, 2] operands
     a, want, limit = aed_operand(rng, LARGE_N, dev, "uniform")
@@ -2731,13 +2787,24 @@ def aed_table() -> None:
     plain = grid_ops[0][1]
     plain_sweeps = aed_solve(plain, "monolithic", False)[1]
     del a, plain, grid_ops
-    # the rules of the switch constants (ROADMAP A1)
-    aed_min = next((n for n in AED_SIZES if all(
-        table["eigenvalues", k, n, "aed"] <= table["eigenvalues", k, n, "monolithic"]
-        for k in ("bench", "c64", "nonsym", "uniform"))), None)
-    schur_min = next((n for n in (LARGE_N, FULL_N) if all(
-        table["eigenpairs", k, n, "aed"] <= table["eigenpairs", k, n, "monolithic"]
-        for k in ("bench", "nonsym"))), None)
+    # C4's backward-error rows on the uniform-[1, 2] operands: plain B13 at
+    # each size, AED at the largest (Schur mode)
+    c4_rows([("uniform", c4_ops[n][0], c4_ops[n][1], "monolithic", None) for n in AED_SIZES] +
+            [("uniform", c4_ops[FULL_N][0], c4_ops[FULL_N][1], "aed", None)],
+            card_name, card_limit)
+    del c4_ops
+    # the rules of the switch constants (ROADMAP A1, C4): the smallest n from
+    # which plain B13 misses phase 14's limit on any operand, or AED is no
+    # slower on every operand
+    def first(what, sizes, kinds):
+        return next((n for n in sizes if any(missed[what, k, n, "monolithic"] for k in kinds)
+                     or all(table[what, k, n, "aed"] <= table[what, k, n, "monolithic"]
+                            for k in kinds)), None)
+
+    aed_min = first("eigenvalues", AED_SIZES, ("bench", "c64", "nonsym", "uniform"))
+    schur_min = first("eigenpairs", (LARGE_N, FULL_N), ("bench", "nonsym"))
+    for key in sorted(k for k in missed if missed[k]):
+        print(f"aed-table {key[0]} {key[1]} n={key[2]} {key[3]}: above phase 14's limit")
     for key in sorted(k for k in table if k[3] == "aed"):
         print(f"aed-table {key[0]} {key[1]} n={key[2]}: AED {table[key]:.3f} s, plain B13 "
               f"{table[key[:3] + ('monolithic',)]:.3f} s (the lower of two in turns)")
@@ -2755,6 +2822,124 @@ def aed_table() -> None:
               f"{'met' if (w, s) in meets else 'missed'}")
     best = min(meets, key=lambda p: sum(grid[i, p[0], p[1]][0] for i in range(3)), default=None)
     print(f"aed-table defaults: w, S = {best} [{card_name}, {card_limit}]")
+
+
+def schur_backward(a, want, driver, chunk=None):
+    """C4's measure: the Schur form of ``a`` by plain B13 (``"monolithic"``)
+    or the Schur-mode AED driver (``"aed"``) after the Hessenberg reduction
+    with Q, at ``QR_TOL`` and at most 20 n sweeps. Returns a dict: sweeps,
+    the backward errors ``||X - Q T Q^H||_F / ||X||_F`` in float64 of the
+    whole (X = A, Q = Qh Qs), of the reduction alone (A = Qh H Qh^H) and of
+    the sweeps alone (H = Qs T Qs^H), the whole with T's deflated
+    subdiagonal entries dropped (the eigenvalues the solve reports are
+    triu(T)'s), and the eigenvalue error of diag(T) against ``want``. With
+    ``chunk``, plain B13 runs ``chunk`` sweeps a call (resumed from the last
+    call's T and Q) and the dict also holds ``curve``: (sweeps so far, hi,
+    sweeps' backward error) after each call."""
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_aed
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_eig_blocked as qb
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+    n = a.shape[0]
+    h, qh = qk.hessenberg_reduce(a, accumulate_q=True)
+    if not h.is_complex():
+        h, qh = h.to(h.dtype.to_complex()), qh.to(qh.dtype.to_complex())
+    wide = torch.complex128
+
+    def rel(x, q, t):
+        q, t = q.to(wide), t.to(wide)
+        return float(torch.linalg.matrix_norm(x - q @ t @ q.conj().T) /
+                     torch.linalg.matrix_norm(x))
+
+    out = {"curve": []}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if driver == "aed":
+        _, sweeps, hi, t, qs = qr_aed.qr_eig_blocked_aed_schur(h, 20 * n, QR_TOL)
+        sweeps, hi = int(sweeps), int(hi)
+    elif chunk is None:
+        _, sweeps, hi, t, qs = qb.blocked_sweeps(h, 20 * n, QR_TOL, accumulate_q=True)
+        sweeps, hi = int(sweeps), int(hi)
+    else:
+        t, qs, sweeps, hi = h, None, 0, n
+        qs = torch.eye(n, dtype=h.dtype, device=h.device)
+        while hi > 1 and sweeps < 20 * n:
+            t, qs, _, s, hi = qb.qr_eig_blocked_step_q(t, qs, min(chunk, 20 * n - sweeps),
+                                                       QR_TOL)
+            sweeps, hi = sweeps + int(s), int(hi)
+            out["curve"].append((sweeps, hi, rel(h.to(wide), qs, t)))
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    a64, h64 = a.to(wide), h.to(wide)
+    out.update(sweeps=sweeps, converged=hi <= 1, whole=rel(a64, qh @ qs, t),
+               reduction=rel(a64, qh, h), sweeps_only=rel(h64, qs, t),
+               triu=rel(a64, qh @ qs, torch.triu(t)),
+               eig_err=nearest_err(t.diagonal().cpu().numpy(), want))
+    return out
+
+
+def c4_rows(rows, card_name, card_limit) -> None:
+    """Print C4's backward-error rows (``schur_backward``) for ``rows``, a
+    list of (label, matrix, planted spectrum, driver, chunk)."""
+    for label, a, want, driver, chunk in rows:
+        r = schur_backward(a, want, driver, chunk)
+        print(f"c4 {label} {a.dtype} n={a.shape[0]} {driver}: {r['sweeps']} sweeps, "
+              f"converged={r['converged']}, {r['seconds']:.3f} s, backward error "
+              f"||A - Q T Q^H||/||A|| {r['whole']:.3e} (reduction {r['reduction']:.3e}, "
+              f"sweeps {r['sweeps_only']:.3e}, with the deflated entries dropped "
+              f"{r['triu']:.3e}), eigenvalue error of diag(T) {r['eig_err']:.3e} "
+              f"(phase 14's limit 1e-4) [{card_name}, {card_limit}]")
+        for sweeps, hi, err in r["curve"]:
+            print(f"c4 {label} n={a.shape[0]} curve: after {sweeps} sweeps hi={hi}, "
+                  f"sweeps' backward error {err:.3e}")
+
+
+def aed_table_uniform(dev, sizes=AED_SIZES):
+    """The uniform-[1, 2] operands that ``--aed-table`` draws from
+    ``default_rng(191)`` at ``sizes``, the same draws replayed in the
+    table's order: {n: (matrix, planted spectrum)}."""
+    rng = np.random.default_rng(191)
+    aed_operand(rng, 512, dev, "nonsym")  # the table's warm-up operand
+    uniform = {}
+    for n in AED_SIZES[:max(AED_SIZES.index(m) for m in sizes) + 1]:
+        for kind in ("bench", "c64", "nonsym", "uniform"):
+            a, want, _ = aed_operand(rng, n, dev, kind)
+            if kind == "uniform" and n in sizes:
+                uniform[n] = (a, want)
+            del a
+    return uniform
+
+
+def c4_table() -> None:
+    """``--c4``: C4's rows on the uniform-[1, 2] operands that
+    ``--aed-table`` draws from ``default_rng(191)`` (the same draws, replayed
+    in the table's order): at 4096, the eigenvalues-only error by plain B13
+    and by AED (the numbers C4 records), then ``schur_backward`` by plain
+    B13 and by AED, by plain B13 on the same matrix in complex128, and by
+    plain B13 in chunks of 500 sweeps (the growth of the backward error
+    within one solve); at 1024 and 2048, ``schur_backward`` by plain B13."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card_name, card_limit = card_line().split(", ")
+    dev = torch.device("cuda")
+    uniform = aed_table_uniform(dev)
+    warm = uniform[AED_SIZES[0]][0][:512, :512].contiguous()
+    for driver in ("aed", "monolithic"):  # builds and warms both routes
+        aed_solve(warm, driver, False)
+    a, want = uniform[FULL_N]
+    for driver in ("monolithic", "aed"):
+        lam, sweeps, conv, _, seconds, rounds, _ = aed_solve(a, driver, False)
+        print(f"c4 eigenvalues uniform n={FULL_N} {driver}: {sweeps} sweeps, {rounds} rounds, "
+              f"{seconds:.3f} s, converged={conv}, eigenvalue error "
+              f"{eig_error(lam, want):.3e} (phase 14's limit 1e-4) [{card_name}, {card_limit}]")
+    rows = [("uniform", a, want, "monolithic", None), ("uniform", a, want, "aed", None),
+            ("uniform", a.to(torch.float64), want, "monolithic", None),
+            ("uniform", a, want, "monolithic", 500)]
+    rows += [("uniform", uniform[n][0], uniform[n][1], "monolithic", None)
+             for n in AED_SIZES if n != FULL_N]
+    c4_rows(rows, card_name, card_limit)
 
 
 def shifted_phase(eigsol, ctx):
@@ -2873,6 +3058,309 @@ def shifted_phase(eigsol, ctx):
     check(bool(r.converged) and err <= 1e-4 and resid <= 1e-3, "GMRES case: wrong eigenpair")
 
 
+def band_scipy(data: np.ndarray, offsets):
+    """The row-indexed DIA band as a scipy CSR matrix in float64."""
+    import scipy.sparse as sp
+    n = data.shape[1]
+    diags = [data[d, :n - off] if off >= 0 else data[d, -off:]
+             for d, off in enumerate(offsets)]
+    return sp.diags([np.asarray(v, np.float64) for v in diags], list(offsets), shape=(n, n),
+                    format="csr")
+
+
+def host_power_f64(A, x0, max_iterations, tol):
+    """The power loop of ``power_method_ds64`` on the host in float64 (scipy
+    CSR): no test on the first iterate, then ``|l_k - l_{k-1}| <= tol (1 +
+    |l_k|)`` with ``tol`` at float32; (eigenvalue, eigenvector, iterations,
+    converged)."""
+    x, z, lam, init, conv, used = x0, A @ x0, 0.0, False, False, 0
+    tol = float(np.float32(tol))
+    for k in range(max_iterations):
+        nz = np.sqrt(z @ z)
+        used = k + 1
+        if nz == 0:
+            break
+        xn = z / nz
+        zn = A @ xn
+        ln = xn @ zn
+        done = init and abs(ln - lam) <= tol * (1 + abs(ln))
+        x, z, lam, init = xn, zn, ln, True
+        if done:
+            conv = True
+            break
+    return lam, x, used, conv
+
+
+def krylov_phase(eigsol, ctx):
+    """Phase 21: the Krylov and block eigensolvers, ``power_method_ds64``,
+    the writer and the demo through the public API on the card, at the
+    operand sizes of the earlier phases (1M rows x 33 diagonals):
+    (a) ``arnoldi_eigenvalues(k=3, m=30)`` on the planted band of phases 4-5
+    as ``SparseDIA`` (B2) and ``InterleavedDIA`` (B1), the projection on B8;
+    ``krylov_schur_eigenvalues(k=3)`` on it and as ``SparseGELL`` (B6);
+    against scipy's ``eigs`` (phase 16's reference); (b)
+    ``lanczos_eigenvalues`` (LM and LA), ``lanczos_eigenpairs`` (residuals
+    against their Ritz bounds) and ``lanczos_thick_restart`` (LA), k = 4,
+    on phase 16's symmetric band, against scipy's ``eigsh``; (c)
+    ``lobpcg_eigenvalues(k=4, "LA")`` on it in float64, row-major and
+    interleaved (B5);
+    (d) ``power_method_ds64`` on bench.py's ds64 operator at 100,000 and 1M
+    rows against a host float64 loop from the same ``x0``; (e)
+    ``write_matrix_to_file`` of a 100,000-row sparse complex128 matrix and a
+    512 dense one, read back; (f) the demo's reference flow on the card, then
+    its solvers on a 2000-row file the writer produced. Each solve prints its
+    seconds, the launches of the kernels its path names (each must be more
+    than 0) and its error beside its limit; any limit missed raises."""
+    import contextlib
+    import io
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch import demo
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers.lanczos import lanczos_decomposition
+    from pcsc_eigenvalue_solver_project_tpu_torch.models.generators import banded_full
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import gell_spmv as gs
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+
+    dev, offs = ctx["dev"], ctx["offs"]
+    card = f"[{ctx['card_name']}, {ctx['card_limit']}]"
+    planted = ctx["planted"]
+    oracles = ctx.get("oracles16")
+    if oracles is None:  # run alone (--krylov)
+        oracles = {"subspace": scipy_top(planted, offs, 3),
+                   "chebyshev": scipy_top(symmetric_band(N, (8.0, 7.0, 6.5, 6.0), seed=5),
+                                          offs, 4, which="LA", symmetric=True)}
+    want3 = np.asarray(oracles["subspace"])
+    want3 = want3[np.argsort(-np.abs(want3))]
+    want4 = np.sort(np.asarray(oracles["chebyshev"]).real)[::-1]
+    print(f"phase 21 wanted eigenvalues: planted band {np.round(want3, 6)} (gaps "
+          f"{np.abs(np.diff(want3)).round(4)} against the 1e-4 relative limit), symmetric "
+          f"band {want4.round(6)} (gaps {np.abs(np.diff(want4)).round(4)}) {card}")
+    kernels = {"B1": ds.dia_il_kernel, "B2": ds.dia_kernel, "B5": ds.dia_block_kernel,
+               "B5 interleaved": ds.dia_il_block_kernel, "B6": gs.gell_kernel,
+               "B8": qk.qr_eig_kernel}
+    launch_log = {}
+
+    def run(label, fn, names):
+        """One solve between zeroed counts, after an untimed warm-up solve
+        (the first launches of a kernel, the library handles): (result,
+        seconds, launches)."""
+        fn()
+        ds.reset_launch_counts()
+        gs.reset_launch_counts()
+        qk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: kernels[name].launches for name in names}
+        for name, count in launches.items():
+            check(count > 0, f"phase 21 {label}: {name} was not launched")
+        launch_log[label] = launches
+        return out, seconds, launches
+
+    def rel_set_err(got, want):
+        return nearest_err(np.asarray(got), np.asarray(want)) / np.abs(want).max()
+
+    x0 = np.random.default_rng(21).uniform(-1, 1, N)
+    p32 = eigsol.SparseDIA(data=torch.from_numpy(planted).to(dev), offsets=offs, shape=(N, N))
+    rows = np.arange(N)[:, None] + np.asarray(offs)[None, :]
+    keep = (rows >= 0) & (rows < N)
+    t0 = time.perf_counter()
+    gell = eigsol.SparseGELL.from_coo(np.broadcast_to(np.arange(N)[:, None], rows.shape)[keep],
+                                      rows[keep], planted.T[keep], (N, N), device=dev)
+    print(f"phase 21 SparseGELL.from_coo of the planted band: {time.perf_counter() - t0:.1f} s")
+    sym = symmetric_band(N, (8.0, 7.0, 6.5, 6.0), seed=5)
+    s32 = eigsol.SparseDIA(data=torch.from_numpy(sym).to(dev), offsets=offs, shape=(N, N))
+
+    # (a) Arnoldi and Krylov-Schur on the planted band
+    ks_opts = eigsol.SolverOptions(tolerance=1e-6)
+    solves = [("arnoldi DIA f32", lambda: eigsol.arnoldi_eigenvalues(p32, k=3, m=30, x0=x0),
+               ("B2", "B8")),
+              ("arnoldi IL f32", lambda: eigsol.arnoldi_eigenvalues(p32.interleaved(), k=3,
+                                                                     m=30, x0=x0), ("B1", "B8")),
+              ("krylov-schur DIA f32", lambda: eigsol.krylov_schur_eigenvalues(
+                  p32, k=3, opts=ks_opts, x0=x0), ("B2",)),
+              ("krylov-schur GELL f32", lambda: eigsol.krylov_schur_eigenvalues(
+                  gell, k=3, opts=ks_opts, x0=x0), ("B6",))]
+    for label, fn, names in solves:
+        r, seconds, launches = run(label, fn, names)
+        err = rel_set_err(r.eigenvalues.cpu().numpy(), want3)
+        print(f"phase 21 {label} {N}x33 k=3: {seconds:.3f} s, launches {launches}, "
+              f"{int(r.iterations)} {'QR sweeps' if 'arnoldi' in label else 'matvecs'}, "
+              f"converged={bool(r.converged)}, Ritz values {np.round(r.eigenvalues.cpu().numpy(), 6)}"
+              f" vs scipy eigs: rel err {err:.2e} (limit 1e-4) {card}")
+        check(err <= 1e-4, f"phase 21 {label}: Ritz values off scipy by {err:.2e}")
+        check(bool(r.converged), f"phase 21 {label}: did not converge")
+    del gell
+    # (b) Lanczos on the symmetric band
+    lz_opts = eigsol.SolverOptions(tolerance=1e-5)
+    for which in ("LM", "LA"):
+        label = f"lanczos {which} DIA f32"
+        r, seconds, launches = run(label, lambda: eigsol.lanczos_eigenvalues(
+            s32, k=4, which=which, opts=lz_opts, x0=x0), ("B2",))
+        err = rel_set_err(r.eigenvalues.cpu().numpy(), want4)
+        print(f"phase 21 {label} {N}x33 k=4: {seconds:.3f} s, launches {launches}, "
+              f"{int(r.iterations)} steps, converged={bool(r.converged)}, rel err {err:.2e} "
+              f"(limit 1e-4) {card}")
+        check(err <= 1e-4, f"phase 21 {label}: Ritz values off scipy by {err:.2e}")
+    label = "lanczos eigenpairs LA DIA f32"
+    (r, Y), seconds, launches = run(label, lambda: eigsol.lanczos_eigenpairs(
+        s32, k=4, which="LA", opts=lz_opts, x0=x0), ("B2",))
+    norm1 = float(np.abs(sym).sum(axis=0).max())  # ||A||_1 of the symmetric band
+    steps = int(r.iterations)
+    # the Ritz bounds |beta_m s_{m,i}| of the same (deterministic) basis
+    _, alpha, beta, _ = lanczos_decomposition(s32.matvec, torch.from_numpy(x0).to(
+        dev, torch.float32), steps)
+    T_m = np.diag(alpha.cpu().numpy().astype(np.float64))
+    b = beta.cpu().numpy().astype(np.float64)
+    T_m += np.diag(b[:steps - 1], 1) + np.diag(b[:steps - 1], -1)
+    theta, S = np.linalg.eigh(T_m)
+    for i in range(4):
+        th = float(r.eigenvalues[i])
+        bound = abs(b[steps - 1] * S[-1, np.argmin(np.abs(theta - th))])
+        y = Y[:, i].contiguous()
+        res_i = float(torch.linalg.vector_norm(s32.matvec(y) - th * y))
+        print(f"phase 21 {label}: theta {th:.6f}, residual {res_i:.3e} (limit Ritz bound "
+              f"{bound:.3e} + 1e-5 ||A||_1 = {bound + 1e-5 * norm1:.3e})")
+        check(res_i <= bound + 1e-5 * norm1, f"phase 21 {label}: residual {res_i:.3e} above "
+              f"its limit")
+    print(f"phase 21 {label} {N}x33 k=4: {seconds:.3f} s, launches {launches} {card}")
+    label = "lanczos thick restart LA DIA f32"
+    r, seconds, launches = run(label, lambda: eigsol.lanczos_thick_restart(
+        s32, k=4, opts=lz_opts, x0=x0), ("B2",))
+    err = rel_set_err(r.eigenvalues.cpu().numpy(), want4)
+    print(f"phase 21 {label} {N}x33 k=4: {seconds:.3f} s, launches {launches}, "
+          f"{int(r.iterations)} matvecs, converged={bool(r.converged)}, rel err {err:.2e} "
+          f"(limit 1e-4) {card}")
+    check(bool(r.converged) and err <= 1e-4, f"phase 21 {label}: not converged or off scipy")
+    # (c) LOBPCG on the symmetric band, B5 row-major and interleaved, in
+    # float64: the upstream routine stops when every residual is below
+    # eps 10 n (theta + |A u|), which at n = 1M in float32 (~19 here) holds
+    # at the first iteration; in float64 it is ~4e-8
+    X0 = np.random.default_rng(22).standard_normal((N, 4))
+    lob_opts = eigsol.SolverOptions(max_iterations=100, tolerance=1e-6)
+    s64 = eigsol.SparseDIA(data=s32.data.double(), offsets=offs, shape=(N, N))
+    for label, M, name in (("lobpcg LA DIA f64", s64, "B5"),
+                           ("lobpcg LA IL f64", s64.interleaved(), "B5 interleaved")):
+        r, seconds, launches = run(label, lambda: eigsol.lobpcg_eigenvalues(
+            M, k=4, which="LA", opts=lob_opts, X0=X0), (name,))
+        err = rel_set_err(r.eigenvalues.cpu().numpy(), want4)
+        print(f"phase 21 {label} {N}x33 k=4: {seconds:.3f} s, launches {launches}, "
+              f"{int(r.iterations)} iterations, converged={bool(r.converged)}, rel err "
+              f"{err:.2e} (limit 1e-4) {card}")
+        check(err <= 1e-4, f"phase 21 {label}: values off scipy by {err:.2e}")
+    del s32, s64
+    # (d) power_method_ds64 on bench.py's ds64 operator, against a host float64 loop
+    for n, budget in ((100_000, 200), (N, 100)):
+        dia = banded_full(n, bandwidth=BANDWIDTH, dtype=np.float64, seed=0, device=dev)
+        xs = np.full(n, n ** -0.5)
+        opts = eigsol.SolverOptions(max_iterations=budget)
+        label = f"power_method_ds64 n={n}"
+        r, seconds, launches = run(label, lambda: eigsol.power_method_ds64(dia, opts, x0=xs),
+                                   ("B2",))
+        t0 = time.perf_counter()
+        lam, x, used, conv = host_power_f64(band_scipy(dia.data.cpu().numpy(), dia.offsets),
+                                            xs, budget, opts.tolerance)
+        host_s = time.perf_counter() - t0
+        err = abs(r.eigenvalue - lam) / abs(lam)
+        verr = float(np.abs(r.eigenvector - x).max())
+        print(f"phase 21 {label}: {seconds:.3f} s ({seconds / int(r.iterations) * 1e6:.1f} us "
+              f"an iteration; host float64 loop {host_s:.2f} s), launches {launches}, lambda "
+              f"{r.eigenvalue:.15g} vs host {lam:.15g} (rel {err:.2e}, limit 1e-12), eigenvector "
+              f"max diff {verr:.1e}, iterations {int(r.iterations)} vs {used}, converged "
+              f"{bool(r.converged)} vs {conv} {card}")
+        check(err <= 1e-12 and int(r.iterations) == used and bool(r.converged) == conv,
+              f"phase 21 {label}: off the host float64 loop")
+        del dia
+    # (e) the writer: a 100k-row sparse complex128 matrix and a 512 dense one
+    tmp = tempfile.mkdtemp(prefix="eigsol-smoke-")
+    try:
+        rng = np.random.default_rng(23)
+        n = 100_000
+        r_ = np.concatenate([np.arange(max(0, -o), min(n, n - o)) for o in (-2, -1, 0, 1, 2)])
+        c_ = np.concatenate([np.arange(max(0, -o), min(n, n - o)) + o for o in (-2, -1, 0, 1, 2)])
+        v_ = rng.standard_normal(len(r_)) + 1j * rng.standard_normal(len(r_))
+        sparse = eigsol.SparseCSR.from_coo(r_, c_, v_, (n, n), dtype=np.complex128, device=dev)
+        dense = eigsol.DenseMatrix.from_array(rng.standard_normal((512, 512)), device=dev)
+        for label, m, dt in (("sparse c128 100k", sparse, np.complex128),
+                             ("dense f64 512", dense, np.float64)):
+            path = os.path.join(tmp, "m.txt")
+            t0 = time.perf_counter()
+            eigsol.write_matrix_to_file(path, m)
+            t1 = time.perf_counter()
+            back = eigsol.read_matrix_from_file(path, dt, device=dev)
+            t2 = time.perf_counter()
+            if m.is_dense:
+                exact = torch.equal(back.as_dense(), m.as_dense())
+            else:
+                exact = all(torch.equal(getattr(back, f), getattr(m, f))
+                            for f in ("data", "indices", "rows", "indptr"))
+            print(f"phase 21 write_matrix_to_file {label}: write {t1 - t0:.2f} s, read back "
+                  f"{t2 - t1:.2f} s, {os.path.getsize(path) / 1e6:.1f} MB, exact {exact}")
+            check(exact, f"phase 21 writer {label}: not read back exactly")
+        # (f) the demo on the card: the reference flow, then the solvers on a file
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = demo.main(["--data-dir", "data"])
+        text = out.getvalue()
+        print(f"phase 21 demo reference flow on the card: exit {rc}, "
+              f"{time.perf_counter() - t0:.2f} s; "
+              f"{[ln.strip() for ln in text.splitlines() if 'qr_eigenvalues(A)' in ln]}")
+        check(rc == 0 and "[(1+3i), (2+4i), (5-1i)]" in text and "raised as expected" in text,
+              "phase 21: the demo's reference flow")
+        small = symmetric_band(2000, (8.0, 7.0, 6.5, 6.0), seed=5)
+        path = os.path.join(tmp, "band2000.txt")
+        a = band_scipy(small, offs)
+        coo = a.tocoo()
+        eigsol.write_matrix_to_file(path, eigsol.SparseCSR.from_coo(
+            coo.row, coo.col, coo.data, a.shape, dtype=np.float64, device=dev))
+        want = np.sort(np.linalg.eigvalsh(a.toarray()))[::-1][:4]
+        for solver in ("arnoldi", "lanczos", "trlanczos", "lobpcg", "subspace"):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = demo.main([path, "--solver", solver, "--k", "4"])
+            got = [complex(v.replace("i", "j").strip("()"))
+                   for v in re.findall(r"ritz\[\d+\] = (\S+)", out.getvalue())]
+            err = (float(np.abs(np.sort(np.real(got))[::-1] - want).max())
+                   if len(got) == 4 else float("inf"))
+            print(f"phase 21 demo --solver {solver} --k 4 (2000 rows, the writer's file): exit "
+                  f"{rc}, {time.perf_counter() - t0:.2f} s, max error {err:.2e} against numpy "
+                  f"(limit 1e-4)")
+            check(rc == 0 and err <= 1e-4, f"phase 21 demo --solver {solver}: wrong values")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launch_log
+
+
+def krylov_alone() -> None:
+    """``--krylov``: phase 21 alone, with its own scipy references."""
+    import torch
+
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import _build
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card_name, card_limit = card_line().split(", ")
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    ctx = {"dev": torch.device("cuda"), "offs": tuple(range(-BANDWIDTH, BANDWIDTH + 1)),
+           "planted": planted_band(N, np.float32, seed=2), "card_name": card_name,
+           "card_limit": card_limit}
+    t0 = time.perf_counter()
+    krylov_phase(eigsol, ctx)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s (with its scipy references)")
+
+
 def main() -> None:
     import torch
 
@@ -2889,6 +3377,7 @@ def main() -> None:
     from pcsc_eigenvalue_solver_project_tpu_torch.solvers.qr_eigenvalues import qr_dispatch
 
     # ---- 1. the card -------------------------------------------------------
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     card = card_line()
@@ -3211,6 +3700,12 @@ def main() -> None:
     shifted_phase(eigsol, ctx)
     print(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 21. the Krylov and block solvers, ds64, the writer, the demo --------
+    t0 = time.perf_counter()
+    krylov_phase(eigsol, ctx)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    print(f"smoke total: {time.perf_counter() - t_start:.1f} s")
+
     # ---- report ------------------------------------------------------------
     rows = []
 
@@ -3328,6 +3823,10 @@ if __name__ == "__main__":
         b8_compare(sys.argv[2])
     elif sys.argv[1:] == ["--aed-table"]:
         aed_table()
+    elif sys.argv[1:] == ["--c4"]:
+        c4_table()
+    elif sys.argv[1:] == ["--krylov"]:
+        krylov_alone()
     else:
         main()
     sys.stdout.flush()

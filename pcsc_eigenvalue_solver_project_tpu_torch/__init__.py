@@ -2,18 +2,25 @@
 
 The port of ``pcsc_eigenvalue_solver_project_tpu`` (JAX on a TPU) to
 PyTorch on an NVIDIA H100, under the same module tree and public names.
-This package holds the power-method path on dense, CSR/ELL and banded
-(DIA and interleaved DIA) operators and on the split-plane complex banded
-operators (``SplitComplexDIA``, ``InterleavedSplitComplexDIA``,
-``power_method_split_complex``); general unstructured sparse operators
-(``SparseGELL``, ``SparseCSR.to_gell``) and the automatic layout
+Its ``__all__`` equals the JAX package's as a set: the text reader and
+writer (``write_matrix_to_file``); the power-method path on dense, CSR/ELL
+and banded (DIA and interleaved DIA) operators, on the split-plane complex
+banded operators (``SplitComplexDIA``, ``InterleavedSplitComplexDIA``,
+``power_method_split_complex``) and in float64 (``power_method_ds64``);
+general unstructured sparse operators (``SparseGELL``,
+``SparseCSR.to_gell``) and the automatic layout
 (``from_coo(layout="auto")``, ``suggest_layout``, ``PermutedOperator``); the
-block top-k solvers ``subspace_iteration`` and
-``chebyshev_subspace_iteration``; the shifted solves (``solve_shifted``,
+block top-k solvers ``subspace_iteration``,
+``chebyshev_subspace_iteration`` and ``lobpcg_eigenvalues``; the Krylov
+solvers ``arnoldi_eigenvalues``, ``krylov_schur_eigenvalues``,
+``lanczos_eigenvalues``, ``lanczos_eigenpairs`` and
+``lanczos_thick_restart``; the shifted solves (``solve_shifted``,
 ``shifted_inverse_power_method``, ``rayleigh_quotient_iteration``, with
 BiCGStab and GMRES inner solves on the SpMV kernels); and the dense QR
 stack (Hessenberg reduction, QR decomposition, QR eigenvalues in parity and
-accelerated modes with aggressive early deflation, with eigenvectors). The banded and general sparse SpMV, the block SpMM and
+accelerated modes with aggressive early deflation, with eigenvectors). The
+demo CLI is ``python -m pcsc_eigenvalue_solver_project_tpu_torch.demo``.
+Only the distributed layer is not ported yet. The banded and general sparse SpMV, the block SpMM and
 the QR stack run as CUDA kernels written for Hopper (``csrc/``), built with
 nvcc at the first CUDA launch. Constructors put their data on the card
 unless given ``device`` (``device="cpu"`` for the CPU); on CPU tensors every
@@ -41,9 +48,13 @@ from .matrix.protocol import AbstractMatrix
 from .matrix.sparse import SparseCSR, SparseELL
 from .matrix.split_complex import InterleavedSplitComplexDIA, SplitComplexDIA
 from .io.reader import read_matrix_from_file, read_matrix_from_text
+from .io.writer import write_matrix_to_file
+from .solvers.arnoldi import arnoldi_eigenvalues, krylov_schur_eigenvalues
 from .solvers.hessenberg import to_hessenberg
 from .solvers.inverse_power import rayleigh_quotient_iteration, shifted_inverse_power_method
-from .solvers.power import power_method, power_method_split_complex
+from .solvers.lanczos import lanczos_eigenpairs, lanczos_eigenvalues, lanczos_thick_restart
+from .solvers.lobpcg import lobpcg_eigenvalues
+from .solvers.power import power_method, power_method_ds64, power_method_split_complex
 from .solvers.qr import qr_decompose
 from .solvers.qr_eigenvalues import qr_eigenvalues
 from .solvers.solve_shifted import solve_shifted
@@ -68,10 +79,17 @@ __all__ = [
     "SparseELL",
     "SparseGELL",
     "SplitComplexDIA",
+    "arnoldi_eigenvalues",
     "chebyshev_subspace_iteration",
     "from_coo",
     "is_close_relative",
+    "krylov_schur_eigenvalues",
+    "lanczos_eigenpairs",
+    "lanczos_eigenvalues",
+    "lanczos_thick_restart",
+    "lobpcg_eigenvalues",
     "power_method",
+    "power_method_ds64",
     "power_method_split_complex",
     "qr_decompose",
     "qr_eigenvalues",
@@ -83,4 +101,5 @@ __all__ = [
     "suggest_layout",
     "subspace_iteration",
     "to_hessenberg",
+    "write_matrix_to_file",
 ]

@@ -1,10 +1,12 @@
-"""ctypes bindings to the native C++ matrix parser (native/fast_reader.cpp).
+"""ctypes bindings to the native C++ matrix parser and writer
+(native/fast_reader.cpp).
 
 The same library as the JAX package's ``io/native.py``:
 ``native/build/libfast_reader.so``, built with ``make -C native`` on first
 use. If the toolchain, the build or a symbol is missing, ``available()`` is
 False and reader.py parses with its pure-Python tokenizer, which implements
-the identical grammar and error messages.
+the identical grammar and error messages; likewise ``writer_available()``
+and writer.py's Python formatter, which writes the same bytes.
 """
 
 from __future__ import annotations
@@ -55,6 +57,23 @@ def _load():
                 ctypes.c_long, ctypes.POINTER(ctypes.c_long),
                 ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_double),
                 ctypes.POINTER(ctypes.c_double), ctypes.c_char_p, ctypes.c_int]
+            # writer symbols (absent in a stale cached .so; the bindings
+            # stay optional, as in the JAX package)
+            try:
+                lib.eigsol_write_dense.restype = ctypes.c_int
+                lib.eigsol_write_dense.argtypes = [
+                    ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                    ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+                    ctypes.c_char_p, ctypes.c_int]
+                lib.eigsol_write_sparse.restype = ctypes.c_int
+                lib.eigsol_write_sparse.argtypes = [
+                    ctypes.c_char_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+                    ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
+                    ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+                    ctypes.c_char_p, ctypes.c_int]
+                lib._has_writer = True
+            except AttributeError:
+                lib._has_writer = False
             _lib = lib
         except (OSError, AttributeError, subprocess.SubprocessError):
             _lib = None
@@ -124,3 +143,49 @@ def read_matrix_from_file(filename, dtype, device=None):
                               (rows.value, cols.value), dtype=dtype,
                               sum_duplicates=False, device=device)
 
+
+
+def writer_available() -> bool:
+    lib = _load()
+    return lib is not None and getattr(lib, "_has_writer", False)
+
+
+_NULL_DP = ctypes.POINTER(ctypes.c_double)()
+
+
+def write_dense(filename, array: np.ndarray) -> None:
+    """Native dense write (reference grammar) of a host array; raises
+    OSError on failure."""
+    lib = _load()
+    if lib is None or not getattr(lib, "_has_writer", False):
+        raise ImportError("native writer unavailable")
+    a = np.ascontiguousarray(array)
+    cx = np.iscomplexobj(a)
+    re = np.ascontiguousarray(a.real if cx else a, np.float64)
+    im = np.ascontiguousarray(a.imag, np.float64) if cx else None
+    err = ctypes.create_string_buffer(_ERRLEN)
+    rc = lib.eigsol_write_dense(
+        os.fspath(filename).encode(), a.shape[0], a.shape[1], _dp(re),
+        _dp(im) if cx else _NULL_DP, err, _ERRLEN)
+    if rc:
+        raise OSError(err.value.decode())
+
+
+def write_sparse(filename, shape, rows: np.ndarray, cols: np.ndarray,
+                 data: np.ndarray) -> None:
+    """Native sparse (COO triplet) write of host arrays; raises OSError on
+    failure."""
+    lib = _load()
+    if lib is None or not getattr(lib, "_has_writer", False):
+        raise ImportError("native writer unavailable")
+    cx = np.iscomplexobj(data)
+    rr = np.ascontiguousarray(rows, np.int64)
+    cc = np.ascontiguousarray(cols, np.int64)
+    re = np.ascontiguousarray(data.real if cx else data, np.float64)
+    im = np.ascontiguousarray(data.imag, np.float64) if cx else None
+    err = ctypes.create_string_buffer(_ERRLEN)
+    rc = lib.eigsol_write_sparse(
+        os.fspath(filename).encode(), shape[0], shape[1], len(re), _lp(rr),
+        _lp(cc), _dp(re), _dp(im) if cx else _NULL_DP, err, _ERRLEN)
+    if rc:
+        raise OSError(err.value.decode())

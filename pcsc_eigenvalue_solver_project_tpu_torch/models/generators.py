@@ -33,6 +33,13 @@ def dense_random(n: int, *, dtype=np.float64, seed: int = 0,
     return DenseMatrix.from_array(scale * a.astype(dt), dtype=dt, device=resolve_device(device))
 
 
+def dense_diagonal(diag, *, dtype=np.float64, device=None) -> DenseMatrix:
+    """The diagonal matrix of ``diag``."""
+    dt = numpy_dtype(dtype)
+    return DenseMatrix.from_array(np.diag(np.asarray(diag, dtype=dt)), dtype=dt,
+                                  device=resolve_device(device))
+
+
 def laplacian_1d(n: int, *, dtype=np.float64, device=None) -> SparseCSR:
     """Tridiagonal [-1, 2, -1] operator — the classic banded test matrix
     with known spectrum ``2 - 2 cos(k pi / (n+1))``."""

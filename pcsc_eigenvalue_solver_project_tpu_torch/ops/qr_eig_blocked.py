@@ -492,17 +492,26 @@ def qr_eig_blocked_step_q(h: torch.Tensor, q: torch.Tensor, max_sweeps: int, tol
 # The n from which the eigenvalues-only solve runs AED rounds
 # (``ops/qr_aed.py``) rather than plain B13 sweeps, and the n from which
 # eigenpairs run the Schur-mode AED driver rather than the monolithic one
-# (``schur_driver="auto"``); None: never by "auto". Set by the rules of
+# (``schur_driver="auto"``); None: never by "auto". Set by the rule of
 # chip_smoke.py --aed-table on the H100 (PERF.md), not from the JAX
 # package's 768 (a VMEM cap) and 8192 (a TPU worker crash): the smallest n
-# of 1024, 2048 and 4096 from which AED is no slower than plain B13 on the
-# bench, c64 normal, non-symmetric and uniform-[1, 2] operands, and of 2048
-# and 4096 on the bench and non-symmetric operands with eigenpairs. None
-# qualified: AED was 24-42% faster on the non-symmetric matrix at 2048 and
-# 4096 (eigenvalues and eigenpairs), but 7-36% slower on the uniform-[1, 2]
-# operand at every size and 1-17% slower on the spectra 0.9^i, which
-# converge before a round pays for itself.
-AED_MIN_N: int | None = None
+# of 1024, 2048 and 4096 (2048 and 4096 with eigenpairs) from which plain
+# B13 misses phase 14's eigenvalue limit on any of the table's operands, or
+# AED is no slower than plain B13 on every one of them (the bench, c64
+# normal, non-symmetric and uniform-[1, 2] operands; the bench and
+# non-symmetric ones with eigenpairs). Accuracy decides 4096: there plain
+# B13 takes 4952 sweeps on the uniform-[1, 2] operand and misses the 1e-4
+# limit (1.01e-4), while AED's 3530 sweeps reach 2.7e-5 (NVIDIA H100 80GB
+# HBM3, 700 W). Plain B13's backward error grows as f32 rounding summed over
+# its sweeps, ~1e-7 sqrt(sweeps) (4.3e-6, 5.2e-6, 7.2e-6 at 1024, 2048,
+# 4096), and the same solve in complex128 reaches 1.1e-5: rounding over a
+# long iteration, not a kernel fault. Speed alone picks no size: AED is
+# 23-88% slower on the uniform-[1, 2] operand and 1-17% slower on the
+# spectra 0.9^i, which converge before a round pays for itself, though
+# 15-49% faster on the non-symmetric matrix at 2048 and 4096. With
+# eigenpairs no row misses its limit and AED is slower on the bench
+# operand, so ``SCHUR_AED_MIN_N`` stays None.
+AED_MIN_N: int | None = 4096
 SCHUR_AED_MIN_N: int | None = None
 SCHUR_DRIVERS = ("auto", "monolithic", "aed")
 

@@ -22,11 +22,15 @@ count are exactly the while-loop's.
 
 Split-plane complex operators (``matrix/split_complex.py``) run the same
 loop on (2, n) real planes with a (2,) plane eigenvalue
-(``power_method_split_complex``, JAX ``_power_loop_split``).
+(``power_method_split_complex``, JAX ``_power_loop_split``), and
+``power_method_ds64`` runs it in float64 on a ``SparseDIA`` whose diagonals
+it widens (the JAX package's double-single loop, which its TPU needs for
+want of float64).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.dtypes import check_scalar_type, real_dtype_of
@@ -192,3 +196,39 @@ def power_method(M: AbstractMatrix, opts: SolverOptions = SolverOptions(), *,
     r = power_iteration_loop(M.matvec, vdot, norm, x0, opts.max_iterations,
                              opts.tolerance)
     return decode_result(M, r)
+
+
+def power_method_ds64(M, opts: SolverOptions = SolverOptions(), *,
+                      generator: torch.Generator | None = None, x0=None) -> EigenResult:
+    """Dominant eigenpair of a real banded ``SparseDIA`` operator in float64
+    (JAX ``power_method_ds64``, :295).
+
+    The JAX package runs this loop in two-float compensated arithmetic
+    (``ops/ds64.py``) because its TPU has no float64; the card has it, so
+    here the diagonals are widened to float64 on the operand's device and
+    the masked power loop runs on B2's float64 instance. The stopping rule
+    is the JAX loop's: no test on the first iterate, then
+    ``|lambda_k - lambda_{k-1}| <= tol (1 + |lambda_k|)`` with ``tol`` taken
+    at float32 as JAX takes it; a breakdown keeps the last good iterate and
+    ``iterations = k + 1``. ``x0`` is used as given (the loop normalises
+    ``A x0``). Returns numpy values, as JAX does: a float64 eigenvalue and
+    eigenvector, an int32 count and a bool flag."""
+    from ..matrix.dia import SparseDIA
+    if not isinstance(M, SparseDIA):
+        raise ValueError("power_method_ds64: operator must be a SparseDIA")
+    require_square(M, "power_method_ds64")
+    require_nonempty(M, "power_method_ds64")
+    if M.dtype.is_complex:
+        raise ValueError("power_method_ds64: real operators only")
+    wide = SparseDIA(data=M.data.to(torch.float64), offsets=M.offsets, shape=M.shape)
+    if x0 is None:
+        gen = generator if generator is not None else default_generator(M.device)
+        x0 = random_unit_vector(gen, M.shape[0], torch.float64, device=M.device)
+    else:
+        x0 = torch.as_tensor(x0).to(device=M.device, dtype=torch.float64)
+    tol = float(np.float32(opts.tolerance))
+    r = power_iteration_loop(wide.matvec, vdot, norm, x0, opts.max_iterations, tol)
+    return EigenResult(eigenvalue=np.float64(r.eigenvalue.item()),
+                       eigenvector=r.eigenvector.cpu().numpy(),
+                       iterations=np.int32(int(r.iterations)),
+                       converged=np.bool_(bool(r.converged)))

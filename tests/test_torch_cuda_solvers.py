@@ -19,6 +19,14 @@ with an H100 (no JAX needed there):
   against the same call on the CPU copy of the operator: solutions to 1e-8
   (float64) and eigenvalues to 1e-8 (float64) or 1e-5 (float32), and the
   SpMV kernel of the operator launched.
+- C4: ``qr_eigenvalues`` (accelerated) on ``chip_smoke.py --aed-table``'s 4096
+  uniform-[1, 2] draw runs the AED driver and is within 1e-4.
+- Arnoldi, Krylov-Schur, Lanczos (values, eigenpairs, thick restart), LOBPCG
+  and ``power_method_ds64`` on the card against their CPU routes (values to
+  1e-4 / 1e-5 in float32, ds64 to 1e-12 with the same count), with the
+  launches of the kernels their paths name (B1/B2/B6 a matvec, B8 or B13 a
+  projection, B5, B2's float64 instance); the writer and the demo on the
+  card.
 """
 
 import numpy as np
@@ -228,3 +236,195 @@ def test_split_inverse_power_on_the_card(cuda, method, interleaved):
     if method != "dense_lu":
         kernel = ds.dia_il_planes_kernel if interleaved else ds.dia_planes_kernel
         assert kernel.launches > 0
+
+
+# --------------------------------------------------------------------------
+# C4: the public eigenvalues-only route at 4096 on the uniform-[1, 2] operand
+# --------------------------------------------------------------------------
+
+def aed_table_uniform_4096(device):
+    """The uniform-[1, 2] float32 operand at n = 4096 that ``chip_smoke.py
+    --aed-table`` draws from ``default_rng(191)`` (its twelfth operand after
+    the 512 warm-up one; ``chip_smoke.py::aed_table_uniform``): the earlier
+    draws are replayed, then ``U diag(d) U^T`` with U the Q of a standard
+    normal matrix on the card. Returns (matrix, planted spectrum)."""
+    rng = np.random.default_rng(191)
+    rng.uniform(-1, 1, (512, 512))                      # the warm-up operand
+    for n in (1024, 2048, 4096):
+        rng.standard_normal((n, n))                     # bench
+        rng.standard_normal((n, n))                     # c64: real, imaginary,
+        rng.standard_normal((n, n))
+        rng.uniform(0, 2 * np.pi, n)                    # and the phases
+        rng.uniform(-1, 1, (n, n))                      # nonsym
+        g = torch.from_numpy(rng.standard_normal((n, n))).to(device)
+        d = np.sort(rng.uniform(1.0, 2.0, n))[::-1].copy()
+        if n < 4096:
+            continue
+        u, _ = torch.linalg.qr(g)
+        return ((u * torch.from_numpy(d).to(device)) @ u.T).to(torch.float32), d
+
+
+def test_c4_uniform_4096_takes_aed_within_the_limit(cuda):
+    """C4 closed: ``qr_eigenvalues`` (accelerated) on the draw where plain
+    B13 misses 1e-4 runs the AED driver (``AED_MIN_N``) and is within it."""
+    assert qb.AED_MIN_N is not None and qb.AED_MIN_N <= 4096
+    a, d = aed_table_uniform_4096(cuda)
+    qk.reset_launch_counts()
+    qr_aed.last_run.clear()
+    r = T.qr_eigenvalues(T.DenseMatrix(a), T.QROptions(mode="accelerated",
+                                                       max_iterations=20 * 4096, tolerance=TOL))
+    assert bool(r.converged)
+    assert qr_aed.last_run.get("rounds", 0) > 0
+    assert qk.qr_eig_blocked_kernel.launches > 0
+    assert nearest_err(r.eigenvalues.cpu().numpy(), d) <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# The Krylov and block solvers, power_method_ds64, the writer and the demo
+# --------------------------------------------------------------------------
+
+def symmetric_band(n, seed, boost=(8.0, 7.0, 6.5, 6.0), bw=3):
+    """A symmetric band, uniform(-0.5, 0.5) entries, ``boost`` added to the
+    head of the diagonal, as float32 numpy data (k, n) and offsets."""
+    rng = np.random.default_rng(seed)
+    offs = tuple(range(-bw, bw + 1))
+    data = np.zeros((len(offs), n), np.float32)
+    for k, off in enumerate(offs):
+        if off < 0:
+            continue
+        v = rng.uniform(-0.5, 0.5, n).astype(np.float32)
+        if off > 0:
+            v[n - off:] = 0
+            data[offs.index(-off), off:] = v[:n - off]
+        data[k] = v
+    data[bw, :len(boost)] += np.asarray(boost, np.float32)
+    return data, offs
+
+
+def spmv_kernel(kind):
+    return {"dia": ds.dia_kernel, "interleaved": ds.dia_il_kernel, "gell": gs.gell_kernel}[kind]
+
+
+def reset_all():
+    ds.reset_launch_counts()
+    gs.reset_launch_counts()
+    qk.reset_launch_counts()
+
+
+def close_sets(got, want, tol):
+    assert nearest_err(np.asarray(got), np.asarray(want)) <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("kind", ["dia", "interleaved"])
+@pytest.mark.parametrize("m", [30, 150])
+def test_arnoldi_on_the_card(cuda, kind, m):
+    """The basis on B2/B1, the m x m projection on B8 (m = 30) or B13
+    (m = 150, beyond ``UNBLOCKED_MAX_N``), against the CPU route."""
+    n = 3000
+    data, offs = planted_band(n, np.float32, 11)
+    x0 = np.random.default_rng(11).uniform(-1, 1, n)
+    card, host = operator(kind, data, offs, cuda), operator(kind, data, offs, "cpu")
+    reset_all()
+    rc = T.arnoldi_eigenvalues(card, k=3, m=m, x0=x0)
+    rh = T.arnoldi_eigenvalues(host, k=3, m=m, x0=x0)
+    assert rc.eigenvalues.device.type == "cuda" and bool(rc.converged)
+    close_sets(rc.eigenvalues.cpu().numpy(), rh.eigenvalues.numpy(), 1e-4)
+    assert spmv_kernel(kind).launches == m
+    sweep_kernel = qk.qr_eig_kernel if m <= 128 else qk.qr_eig_blocked_kernel
+    assert sweep_kernel.launches == 1
+
+
+@pytest.mark.parametrize("kind", ["dia", "interleaved", "gell"])
+def test_krylov_schur_on_the_card(cuda, kind):
+    n = 3000
+    data, offs = planted_band(n, np.float32, 12)
+    x0 = np.random.default_rng(12).uniform(-1, 1, n)
+    card, host = operator(kind, data, offs, cuda), operator(kind, data, offs, "cpu")
+    opts = T.SolverOptions(tolerance=1e-6)
+    reset_all()
+    rc = T.krylov_schur_eigenvalues(card, k=3, opts=opts, x0=x0)
+    rh = T.krylov_schur_eigenvalues(host, k=3, opts=opts, x0=x0)
+    assert bool(rc.converged) and bool(rh.converged)
+    close_sets(rc.eigenvalues.cpu().numpy(), rh.eigenvalues.numpy(), 1e-5)
+    assert spmv_kernel(kind).launches == int(rc.iterations)
+
+
+@pytest.mark.parametrize("kind", ["dia", "interleaved"])
+def test_lanczos_family_on_the_card(cuda, kind):
+    n = 3000
+    data, offs = symmetric_band(n, 13)
+    x0 = np.random.default_rng(13).uniform(-1, 1, n)
+    card, host = operator(kind, data, offs, cuda), operator(kind, data, offs, "cpu")
+    opts = T.SolverOptions(tolerance=1e-5)
+    for which in ("LM", "LA"):
+        reset_all()
+        rc = T.lanczos_eigenvalues(card, k=4, which=which, opts=opts, x0=x0)
+        rh = T.lanczos_eigenvalues(host, k=4, which=which, opts=opts, x0=x0)
+        np.testing.assert_allclose(rc.eigenvalues.cpu().numpy(), rh.eigenvalues.numpy(),
+                                   rtol=1e-5)
+        assert spmv_kernel(kind).launches == int(rc.iterations)
+    res, Y = T.lanczos_eigenpairs(card, k=4, which="LA", opts=opts, x0=x0)
+    assert Y.device.type == "cuda" and Y.shape == (n, 4)
+    A = host.to_dense().double()
+    for i in range(4):
+        y = Y[:, i].cpu().double()
+        assert float(torch.linalg.vector_norm(A @ y - float(res.eigenvalues[i]) * y)) <= 1e-4
+    rc = T.lanczos_thick_restart(card, k=4, opts=opts, x0=x0)
+    rh = T.lanczos_thick_restart(host, k=4, opts=opts, x0=x0)
+    assert bool(rc.converged) and bool(rh.converged)
+    np.testing.assert_allclose(rc.eigenvalues.cpu().numpy(), rh.eigenvalues.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["dia", "interleaved"])
+def test_lobpcg_on_the_card(cuda, kind):
+    """The block apply on B5 (row-major on the (n, b) block, interleaved on
+    its rows), the small eigh/qr on the card."""
+    n = 3000
+    data, offs = symmetric_band(n, 14)
+    X0 = np.random.default_rng(14).standard_normal((n, 4))
+    card, host = operator(kind, data, offs, cuda), operator(kind, data, offs, "cpu")
+    opts = T.SolverOptions(max_iterations=60, tolerance=1e-4)
+    reset_all()
+    rc = T.lobpcg_eigenvalues(card, k=4, which="LA", opts=opts, X0=X0)
+    rh = T.lobpcg_eigenvalues(host, k=4, which="LA", opts=opts, X0=X0)
+    np.testing.assert_allclose(rc.eigenvalues.cpu().numpy(), rh.eigenvalues.numpy(), rtol=1e-4)
+    block = ds.dia_il_block_kernel if kind == "interleaved" else ds.dia_block_kernel
+    assert block.launches > 0
+    assert ds.dia_kernel.launches == 0 and ds.dia_il_kernel.launches == 0
+
+
+def test_power_method_ds64_on_the_card(cuda):
+    """B2's float64 instance against the CPU route: within 1e-12, the same
+    count."""
+    n = 20000
+    data, offs = planted_band(n, np.float32, 15)
+    x0 = np.random.default_rng(15).uniform(-1, 1, n)
+    opts = T.SolverOptions(max_iterations=400, tolerance=1e-12)
+    card = T.SparseDIA(data=torch.from_numpy(data).to(cuda), offsets=offs, shape=(n, n))
+    host = T.SparseDIA(data=torch.from_numpy(data), offsets=offs, shape=(n, n))
+    reset_all()
+    rc = T.power_method_ds64(card, opts, x0=x0)
+    rh = T.power_method_ds64(host, opts, x0=x0)
+    assert ds.dia_kernel.launches > 0
+    assert abs(rc.eigenvalue - rh.eigenvalue) <= 1e-12 * abs(rh.eigenvalue)
+    assert int(rc.iterations) == int(rh.iterations) and bool(rc.converged) == bool(rh.converged)
+    np.testing.assert_allclose(rc.eigenvector, rh.eigenvector, atol=1e-10)
+
+
+def test_writer_from_the_card(cuda, tmp_path):
+    rng = np.random.default_rng(16)
+    a = rng.standard_normal((40, 30)) + 1j * rng.standard_normal((40, 30))
+    for m in (T.DenseMatrix.from_array(a, device=cuda),
+              T.SparseCSR.from_dense(a * (rng.random((40, 30)) < 0.2), device=cuda)):
+        p = str(tmp_path / "m.txt")
+        T.write_matrix_to_file(p, m)
+        back = T.read_matrix_from_file(p, np.complex128, device=cuda)
+        assert torch.equal(back.to_dense(), m.to_dense())
+
+
+def test_demo_on_the_card(cuda, capsys):
+    from pcsc_eigenvalue_solver_project_tpu_torch import demo
+    assert demo.main(["--data-dir", "data"]) == 0
+    out = capsys.readouterr().out
+    assert "qr_eigenvalues(A): [(1+3i), (2+4i), (5-1i)]" in out
+    assert "raised as expected" in out

@@ -262,12 +262,19 @@ class TestDispatch:
             "hessenberg_cluster.cu", "qr_eig_blocked.cu", "qr_kernels.cu", "trisolve_vec.cu"]
 
     def test_import_builds_nothing_and_imports_no_jax(self):
-        code = ("import sys\n"
+        # every module of the port, the Krylov and block solvers, the writer,
+        # logging, timing and demo.py among them
+        code = ("import importlib, pkgutil, sys\n"
                 "import pcsc_eigenvalue_solver_project_tpu_torch as p\n"
                 "from pcsc_eigenvalue_solver_project_tpu_torch.ops import _build\n"
-                "from pcsc_eigenvalue_solver_project_tpu_torch.models import generators\n"
-                "from pcsc_eigenvalue_solver_project_tpu_torch.utils import interop\n"
+                "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+                "for name in names:\n"
+                "    importlib.import_module(name)\n"
+                "for name in ('demo', 'solvers.arnoldi', 'solvers.lanczos', 'solvers.lobpcg',\n"
+                "             'io.writer', 'utils.logging', 'utils.timing'):\n"
+                "    assert p.__name__ + '.' + name in names, name\n"
                 "assert 'jax' not in sys.modules, 'jax imported'\n"
+                "assert 'pcsc_eigenvalue_solver_project_tpu' not in sys.modules, 'JAX package'\n"
                 "assert _build._lib is None, 'kernel library loaded'\n"
                 "print('ok')\n")
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
