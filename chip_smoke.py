@@ -136,13 +136,37 @@ Phases, each of which raises on failure (the exit code is then non-zero):
     the demo's reference flow on the card and its five Krylov/block solvers
     on a 2000-row file the writer produced, within 1e-4 of numpy. Each solve
     prints its seconds, launches and error beside its limit.
+22. the distributed layer (``parallel/``, ``io/distributed.py``,
+    ``utils/checkpoint.py``) on an NCCL process group of world size 1 (a
+    ``file://`` store in a temporary directory; one H100 hosts one NCCL
+    rank, so more ranks are proven on gloo CPU ranks by the tests) at 1M
+    rows: the interleaved (B1), row-major, ELL and split-plane banded power
+    methods on the bench band, ``distributed_gell_power_method`` and
+    ``distributed_gell_power_pruned`` (B6) on phase 17's uniform operator,
+    each at a budget of 200 iterations against the port's single-device
+    solver on the same operator and ``x0``; ``distributed_lanczos_eigenvalues``
+    (k = 3, m = 40, LA) on phase 16's symmetric band and
+    ``distributed_subspace_iteration`` (k = 2, B5) on the planted band,
+    against scipy; ``distributed_arnoldi_eigenvalues`` (k = 3, m = 30) on the
+    pruned partition (B6, the projection on B8) and
+    ``distributed_krylov_schur_eigenvalues`` on the ELL partition of phase
+    18's planted general operator, against scipy's ``eigs``;
+    ``distributed_shifted_inverse_power`` (BiCGStab inner solves, phase 20's
+    options) on the planted band against scipy and ``solve_shifted_distributed``
+    to a residual; and ``distributed_dia_il_power_checkpointed`` and
+    ``power_method_checkpointed`` (B2), each run once uninterrupted and once
+    stopped after its first chunk and resumed, bit for bit equal; then
+    ``load_partitioned`` of ``data/B.txt`` and its dominant eigenvalue. Each
+    leg prints its seconds; the group is destroyed at the end of the phase.
 
 The banded kernels' launch counts are zeroed just before phases 4-5 and
 read just after, the QR kernels' just before and after phases 7, 10, 14 and
 each run of phase 11, each solve of phase 19 and its public solves, the
 banded ones again around phase 16 and each solve of phase 20, B6's and
 the banded ones around phase 18, and all of them around each solve of phase
-21; each kernel must have run on its path. The script then
+21, and all of them around phase 22's solves; each kernel must have run
+on its path (phase 22's launches are added to B1's, B2's, B5's, B6's and
+B8's rows of the kernels line). The script then
 prints one JSON line with each kernel's numbers (time, plain time, the
 least time the card could take for the same work, the library call's time
 where one PyTorch call computes the same function), the card's name and
@@ -235,6 +259,10 @@ error by plain B13 (``--aed-table`` prints the same rows at its end).
     python3 chip_smoke.py --krylov
 
 runs phase 21 alone, with its own scipy references.
+
+    python3 chip_smoke.py --distributed
+
+runs phase 22 alone, with its own scipy references.
 
     python3 chip_smoke.py --b8 ROOT
 
@@ -3361,6 +3389,379 @@ def krylov_alone() -> None:
     print(f"phase 21: {time.perf_counter() - t0:.1f} s (with its scipy references)")
 
 
+def csr_of_sorted_coo(eigsol, r, c, v, n, plant=()):
+    """The port's CPU ``SparseCSR`` of a COO sorted by (row, column) without
+    duplicates (``general_coo``'s), with ``plant`` (i, value) pairs added to
+    its diagonal, built without a sort of the 33M entries."""
+    import torch
+    r, c, v = np.asarray(r, np.int64), np.asarray(c, np.int64), np.asarray(v)
+    key = r * n + c
+    for i, value in plant:
+        pos = int(np.searchsorted(key, i * n + i))
+        if pos < len(key) and key[pos] == i * n + i:
+            v = v.copy()
+            v[pos] += value
+        else:
+            key, r, c = np.insert(key, pos, i * n + i), np.insert(r, pos, i), np.insert(c, pos, i)
+            v = np.insert(v, pos, value)
+    indptr = np.searchsorted(r, np.arange(n + 1))
+    return eigsol.SparseCSR(data=torch.from_numpy(v.astype(np.float32)),
+                            indices=torch.from_numpy(c.astype(np.int32)),
+                            rows=torch.from_numpy(r.astype(np.int32)),
+                            indptr=torch.from_numpy(indptr.astype(np.int32)), shape=(n, n))
+
+
+def band_ell(eigsol, data, offsets):
+    """The row-indexed DIA band (k, n) as the port's CPU ``SparseELL``: row i
+    holds its k entries, the ones outside the matrix zero at column 0."""
+    import torch
+    k, n = data.shape
+    cols = np.arange(n)[:, None] + np.asarray(offsets)[None, :]
+    inside = (cols >= 0) & (cols < n)
+    return eigsol.SparseELL(data=torch.from_numpy(np.ascontiguousarray(data.T)),
+                            indices=torch.from_numpy(np.where(inside, cols, 0).astype(np.int32)),
+                            shape=(n, n))
+
+
+def distributed_phase(eigsol, ctx):
+    """Phase 22: the distributed layer (``parallel/``, ``utils/checkpoint.py``)
+    on the card, on an NCCL process group of world size 1 (one H100 hosts one
+    NCCL rank; more ranks are proven on gloo CPU ranks by the tests), at
+    1M rows. Every result is held against the port's single-device solver
+    on the same operator and ``x0`` (power paths: a budget of 200
+    iterations at tolerance 0, eigenvalues within 1e-5 of max(|lambda|,
+    ||A x||)), or against scipy's eigenvalues to 1e-4 (Krylov, block and
+    shifted solves); the checkpointed runs, stopped after their first chunk
+    and resumed, must equal the uninterrupted runs bit for bit. The launch
+    counts are zeroed before the phase's solves and read after: B1, B2, B5,
+    B6 and B8 must have run. Returns the launches by kernel name."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.io.distributed import load_partitioned
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import dia_spmv as ds
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import gell_spmv as gs
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import qr_kernels as qk
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops.split_complex import from_planes
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import dia as pd
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import gell as pg
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import gell_pruned as pp
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import mesh as pm
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import split_complex as psc
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.arnoldi import (
+        distributed_arnoldi_eigenvalues, distributed_krylov_schur_eigenvalues)
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.inverse_power import (
+        _partitioned_diagonal, distributed_shifted_inverse_power)
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.krylov import (
+        solve_shifted_distributed)
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.lanczos import (
+        distributed_lanczos_eigenvalues)
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.power import (
+        distributed_power_method, reductions)
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.sharded import partition_ell
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.subspace import (
+        distributed_subspace_iteration)
+    from pcsc_eigenvalue_solver_project_tpu_torch.utils.checkpoint import (
+        distributed_dia_il_power_checkpointed, power_method_checkpointed)
+    from scipy.sparse.linalg import eigs
+
+    dev, offs = ctx["dev"], ctx["offs"]
+    card = f"[{ctx['card_name']}, {ctx['card_limit']}]"
+    folder = tempfile.mkdtemp(prefix="phase22-")
+    t_setup = time.perf_counter()
+    pm.initialize_distributed(device=dev, init_method=f"file://{folder}/store", world_size=1,
+                              rank=0)
+    try:
+        backend = dist.get_backend()
+        print(f"phase 22 process group: backend {backend}, world size {dist.get_world_size()} "
+              f"{card}")
+        check(backend == "nccl", f"phase 22: backend {backend}, not nccl")
+        mesh = pm.make_row_mesh(1)
+        check(mesh.device.type == "cuda", "phase 22: the rank is not on the card")
+        budget = eigsol.SolverOptions(max_iterations=200, tolerance=0.0)
+        x0 = np.random.default_rng(22).uniform(-1, 1, N)
+        op32, op64c, planted = ctx["op32"], ctx["op64c"], ctx["planted"]
+        p32 = eigsol.SparseDIA(data=torch.from_numpy(planted).to(dev), offsets=offs,
+                               shape=(N, N))
+        sym = symmetric_band(N, (8.0, 7.0, 6.5, 6.0), seed=5)
+        s32 = eigsol.SparseDIA(data=torch.from_numpy(sym).to(dev), offsets=offs, shape=(N, N))
+        r, c, v = ctx["uniform_coo"]
+        # the general operator, and phase 18's planted variant (the bulk scaled
+        # by 1 / sqrt(33), 14, 10, 8 added on the head of the diagonal)
+        general = csr_of_sorted_coo(eigsol, r, c, v, N)
+        plant = ((0, 14.0), (1, 10.0), (2, 8.0))
+        planted_general = csr_of_sorted_coo(eigsol, r, c, v / np.sqrt(GELL_PER_ROW), N, plant)
+        t0 = time.perf_counter()
+        gell_ref = eigsol.SparseGELL.from_coo(r, c, v, (N, N), device=dev)
+        split = eigsol.SplitComplexDIA.from_complex_dia(op64c)
+        print(f"phase 22 CSR forms and the single-device SparseGELL: "
+              f"{time.perf_counter() - t_setup:.1f} s host (the GELL pack "
+              f"{time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        oracle_general = eigs(coo_csr64(planted_general.rows.numpy(),
+                                        planted_general.indices.numpy(),
+                                        planted_general.data.numpy(), N, N),
+                              k=3, which="LM", v0=np.ones(N), ncv=20,
+                              return_eigenvectors=False)
+        print(f"phase 22 scipy eigs (k = 3) of the planted general operator: "
+              f"{time.perf_counter() - t0:.1f} s")
+        oracles = ctx.get("oracles16") or {
+            "subspace": scipy_top(planted, offs, 3),
+            "chebyshev": scipy_top(sym, offs, 4, which="LA", symmetric=True)}
+        lam1 = ctx.get("oracle_f32") or scipy_dominant(planted, offs)
+        partitioners = {
+            "il": lambda: pd.partition_dia_il(op32, mesh),
+            "dia": lambda: pd.partition_dia(op32, mesh),
+            "ell": lambda: partition_ell(band_ell(eigsol, op32.data.cpu().numpy(), offs), mesh),
+            "splitc": lambda: psc.partition_splitc_dia(split, mesh),
+            "gell": lambda: pg.partition_gell(general, mesh),
+            "pruned": lambda: pp.partition_gell_pruned(general, mesh),
+            "pruned planted": lambda: pp.partition_gell_pruned(planted_general, mesh),
+            "ell planted": lambda: partition_ell(planted_general, mesh),
+            "il sym": lambda: pd.partition_dia_il(s32, mesh),
+            "il planted": lambda: pd.partition_dia_il(p32, mesh),
+            "ell band": lambda: partition_ell(band_ell(eigsol, planted, offs), mesh),
+        }
+        parts, host_s = {}, {}
+        for name, build in partitioners.items():
+            t0 = time.perf_counter()
+            parts[name] = build()
+            host_s[name] = round(time.perf_counter() - t0, 2)
+        print(f"phase 22 partitions, host s each: {host_s}")
+        torch.cuda.synchronize()
+        print(f"phase 22 set-up (partitions, references, scipy eigs of the planted general "
+              f"operator): {time.perf_counter() - t_setup:.1f} s")
+        del general, planted_general
+
+        kernels = {"B1": ds.dia_il_kernel, "B2": ds.dia_kernel, "B5": ds.dia_il_block_kernel,
+                   "B6": gs.gell_kernel, "B8": qk.qr_eig_kernel}
+        x0p = np.random.default_rng(23).uniform(-1, 1, (2, N))
+        legs = {  # label -> (distributed solve, single-device reference)
+            "dia_il_power_method": (
+                lambda: pd.distributed_dia_il_power_method(parts["il"], mesh, budget, x0=x0),
+                lambda: eigsol.power_method(op32.interleaved(), budget, x0=x0)),
+            "dia_power_method": (
+                lambda: pd.distributed_dia_power_method(parts["dia"], mesh, budget, x0=x0),
+                lambda: eigsol.power_method(op32, budget, x0=x0)),
+            "power_method ELL": (
+                lambda: distributed_power_method(parts["ell"], mesh, budget, x0=x0),
+                lambda: eigsol.power_method(op32, budget, x0=x0)),
+            "splitc_power_method": (
+                lambda: psc.distributed_splitc_power_method(parts["splitc"], mesh, budget,
+                                                            x0=x0p),
+                lambda: eigsol.power_method(split, budget, x0=x0p)),
+            "gell_power_method": (
+                lambda: pg.distributed_gell_power_method(parts["gell"], mesh, budget, x0=x0),
+                lambda: eigsol.power_method(gell_ref, budget, x0=x0)),
+            "gell_power_pruned": (
+                lambda: pp.distributed_gell_power_pruned(parts["pruned"], mesh, budget, x0=x0),
+                lambda: eigsol.power_method(gell_ref, budget, x0=x0)),
+        }
+        for fn, ref in legs.values():  # warm-up: allocator, library handles, NCCL
+            fn()
+            ref()
+        torch.cuda.synchronize()
+
+        ds.reset_launch_counts()
+        gs.reset_launch_counts()
+        qk.reset_launch_counts()
+        t_path = time.perf_counter()
+        results, seconds, refs = {}, {}, {}
+        for label, (fn, ref) in legs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[label] = fn()
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+        units = {"lanczos": "steps", "subspace": "sweeps", "arnoldi": "QR sweeps",
+                 "krylov_schur": "matvecs"}
+        krylov = {
+            "lanczos LA k=3 (interleaved)": (
+                lambda: distributed_lanczos_eigenvalues(
+                    parts["il sym"], mesh, k=3, m=40, which="LA", x0=x0,
+                    opts=eigsol.SolverOptions(tolerance=1e-5)),
+                np.sort(np.asarray(oracles["chebyshev"]).real)[::-1][:3]),
+            "subspace k=2 (interleaved, B5)": (
+                lambda: distributed_subspace_iteration(
+                    parts["il planted"], mesh, k=2,
+                    opts=eigsol.SolverOptions(max_iterations=300, tolerance=1e-6)),
+                np.asarray(oracles["subspace"])[np.argsort(-np.abs(oracles["subspace"]))][:2]),
+            "arnoldi k=3 m=30 (pruned GELL, B6 + B8)": (
+                lambda: distributed_arnoldi_eigenvalues(parts["pruned planted"], mesh, k=3,
+                                                        m=30, x0=x0),
+                oracle_general),
+            "krylov_schur k=3 (ELL)": (
+                lambda: distributed_krylov_schur_eigenvalues(
+                    parts["ell planted"], mesh, k=3, x0=x0,
+                    opts=eigsol.SolverOptions(tolerance=1e-6)),
+                oracle_general),
+        }
+        for label, (fn, _) in krylov.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[label] = fn()
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+        # shifted: BiCGStab inverse power (phase 20's options) and a solve
+        shifted_opts = eigsol.ShiftedSolverOptions(
+            shift=1.01 * lam1.real, tolerance=1e-6, max_iterations=50, inner_method="bicgstab",
+            inner_tolerance=1e-6, inner_max_iterations=200)
+        A = parts["ell band"]
+        t0 = time.perf_counter()
+        inv = distributed_shifted_inverse_power(A, mesh, shifted_opts, x0=x0)
+        torch.cuda.synchronize()
+        seconds["shifted_inverse_power"] = time.perf_counter() - t0
+        vdot, norm = reductions(mesh)
+        matvec = A.local_matvec(mesh)
+        b = A.local_block(np.random.default_rng(24).uniform(-1, 1, N), mesh).to(torch.float32)
+        sigma = 2.0 * lam1.real
+        t0 = time.perf_counter()
+        y = solve_shifted_distributed(matvec, sigma, b, vdot=vdot, norm=norm,
+                                      diag=_partitioned_diagonal(A, mesh), tol=1e-6,
+                                      maxiter=400)
+        residual = float(norm(matvec(y) - sigma * y - b) / norm(b))
+        seconds["solve_shifted_distributed"] = time.perf_counter() - t0
+        # checkpointed: uninterrupted, and stopped after the first chunk then resumed
+        ckpt = {}
+        stop = eigsol.SolverOptions(max_iterations=100, tolerance=0.0)
+        t0 = time.perf_counter()
+        ckpt["distributed whole"] = distributed_dia_il_power_checkpointed(
+            parts["il"], mesh, budget, checkpoint_dir=f"{folder}/a", chunk=100, x0=x0)
+        distributed_dia_il_power_checkpointed(parts["il"], mesh, stop,
+                                              checkpoint_dir=f"{folder}/b", chunk=100, x0=x0)
+        ckpt["distributed resumed"] = distributed_dia_il_power_checkpointed(
+            parts["il"], mesh, budget, checkpoint_dir=f"{folder}/b", chunk=100, x0=x0)
+        ckpt["single whole"] = power_method_checkpointed(op32, budget,
+                                                         checkpoint_dir=f"{folder}/c",
+                                                         chunk=100, x0=x0)
+        power_method_checkpointed(op32, stop, checkpoint_dir=f"{folder}/d", chunk=100, x0=x0)
+        ckpt["single resumed"] = power_method_checkpointed(op32, budget,
+                                                           checkpoint_dir=f"{folder}/d",
+                                                           chunk=100, x0=x0)
+        torch.cuda.synchronize()
+        seconds["checkpointed (4 runs, 2 resumed)"] = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        by_name = {k.__name__: k.launches for k in kernels.values()}
+        # the host cost of one collective of the power loops at world size 1
+        scalar = torch.ones((), device=dev)
+        pm.all_reduce_sum(scalar, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            pm.all_reduce_sum(scalar, mesh)
+        torch.cuda.synchronize()
+        print(f"phase 22 NCCL all_reduce of a scalar at world size 1: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} us a call {card}")
+        print(f"phase 22 launches: {launches} {card}")
+        for name, count in launches.items():
+            check(count > 0, f"phase 22: {name} was not launched by the distributed paths")
+        print(f"phase-22 paths: {time.perf_counter() - t_path:.1f} s")
+
+        # the power paths against the single-device solver (timed the same way)
+        for label, (fn, ref) in legs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = ref()
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+            r = results[label]
+            if label.startswith("splitc"):
+                lam = complex(from_planes(r.eigenvalue))
+                lam_ref = complex(from_planes(want.eigenvalue))
+            else:
+                lam, lam_ref = complex(r.eigenvalue), complex(want.eigenvalue)
+            vec = r.eigenvector
+            scale = max(abs(lam_ref), float(torch.linalg.vector_norm(vec.float())))
+            err = abs(lam - lam_ref) / scale
+            print(f"phase 22 {label} {N}x33 budget: lambda {lam:.7g} vs single device "
+                  f"{lam_ref:.7g} (err {err:.2e}, limit 1e-5), {int(r.iterations)} iterations "
+                  f"(single device {int(want.iterations)}), {seconds[label]:.3f} s, "
+                  f"{seconds[label] / int(r.iterations) * 1e6:.1f} us/iteration (single device "
+                  f"{ref_s / int(want.iterations) * 1e6:.1f}) {card}")
+            check(0 < int(r.iterations) <= budget.max_iterations, f"{label}: iterations")
+            check(bool(torch.isfinite(vec).all()), f"phase 22 {label}: bad eigenvector")
+            check(err <= 1e-5, f"phase 22 {label}: eigenvalue off by {err:.2e}")
+        for label, (_, want) in krylov.items():
+            r = results[label]
+            got = r.eigenvalues.cpu().numpy()
+            err = nearest_err(got, want) / np.abs(want).max()
+            print(f"phase 22 {label}: {seconds[label]:.3f} s, {int(r.iterations)} "
+                  f"{units[label.split()[0]]}, converged={bool(r.converged)}, values "
+                  f"{np.round(got, 6)} vs scipy "
+                  f"{np.round(np.asarray(want), 6)} (rel {err:.2e}, limit 1e-4) {card}")
+            # Lanczos' flag is its Ritz bounds' at 1e-5, which a fixed basis of
+            # 40 need not reach; its values are held to scipy all the same
+            check(bool(r.converged) or label.startswith("lanczos"),
+                  f"phase 22 {label}: did not converge")
+            check(err <= 1e-4, f"phase 22 {label}: off scipy by {err:.2e}")
+        err = abs(complex(inv.eigenvalue) - lam1) / abs(lam1)
+        print(f"phase 22 shifted_inverse_power (ELL, BiCGStab) sigma={shifted_opts.shift:.6g}: "
+              f"lambda {complex(inv.eigenvalue):.7g} vs scipy {lam1:.7g} (rel {err:.2e}, limit "
+              f"1e-4), {int(inv.iterations)} iterations, "
+              f"{seconds['shifted_inverse_power']:.3f} s {card}")
+        check(bool(inv.converged) and err <= 1e-4, "phase 22 shifted inverse power: eigenvalue")
+        print(f"phase 22 solve_shifted_distributed sigma={sigma:.6g}: ||(A - sigma I) y - b|| / "
+              f"||b|| = {residual:.2e} (limit 1e-5), "
+              f"{seconds['solve_shifted_distributed']:.3f} s {card}")
+        check(residual <= 1e-5, f"phase 22 solve_shifted_distributed: residual {residual:.2e}")
+        for kind in ("distributed", "single"):
+            whole, resumed = ckpt[f"{kind} whole"], ckpt[f"{kind} resumed"]
+            same = (torch.equal(whole.eigenvector, resumed.eigenvector)
+                    and torch.equal(whole.eigenvalue, resumed.eigenvalue)
+                    and int(whole.iterations) == int(resumed.iterations))
+            print(f"phase 22 checkpointed {kind}: resumed after 100 of {int(whole.iterations)} "
+                  f"iterations, bitwise equal to the uninterrupted run: {same}")
+            check(same, f"phase 22 checkpointed {kind}: the resumed run differs")
+        check(torch.equal(ckpt["distributed whole"].eigenvector,
+                          results["dia_il_power_method"].eigenvector),
+              "phase 22: the checkpointed distributed run differs from the plain one")
+        print(f"phase 22 checkpointed: {seconds['checkpointed (4 runs, 2 resumed)']:.3f} s")
+        # the row-block loader on the reference's sparse file
+        B = load_partitioned("data/B.txt", mesh, torch.complex128)
+        r = distributed_power_method(B, mesh, eigsol.SolverOptions(tolerance=1e-10))
+        ev = np.linalg.eigvals(eigsol.read_matrix_from_file(
+            "data/B.txt", torch.complex128, device="cpu").to_dense().numpy())
+        want = complex(ev[np.argmax(np.abs(ev))])
+        err = abs(complex(r.eigenvalue) - want) / abs(want)
+        print(f"phase 22 load_partitioned data/B.txt: lambda {complex(r.eigenvalue):.10g} vs "
+              f"numpy {want:.10g} (rel {err:.2e}, limit 1e-6)")
+        check(bool(r.converged) and err <= 1e-6, "phase 22 load_partitioned: eigenvalue")
+        return by_name
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def distributed_alone() -> None:
+    """``--distributed``: phase 22 alone, with its own scipy references."""
+    import torch
+
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    from pcsc_eigenvalue_solver_project_tpu_torch.models.generators import banded_full
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import _build
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card_name, card_limit = card_line().split(", ")
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    dev = torch.device("cuda")
+    op32 = banded_full(N, bandwidth=BANDWIDTH, dtype=np.float32, seed=0, device=dev)
+    ctx = {"dev": dev, "offs": op32.offsets, "op32": op32,
+           "op64c": banded_full(N, bandwidth=BANDWIDTH, dtype=np.complex64, seed=1, device=dev),
+           "planted": planted_band(N, np.float32, seed=2),
+           "uniform_coo": general_coo(N, GELL_PER_ROW, "uniform"),
+           "card_name": card_name, "card_limit": card_limit}
+    t0 = time.perf_counter()
+    launches = distributed_phase(eigsol, ctx)
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s (with its scipy references); "
+          f"launches {launches}")
+
+
 def main() -> None:
     import torch
 
@@ -3683,6 +4084,7 @@ def main() -> None:
     # ---- 17/18. the general sparse kernel and its paths ---------------------
     t0 = time.perf_counter()
     gell_errors, gell_timings, gell_library, uniform_coo = general_sparse_kernel_phase(ctx)
+    ctx["uniform_coo"] = uniform_coo
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     gell_launches = general_sparse_path_phase(ctx, uniform_coo)
@@ -3704,6 +4106,11 @@ def main() -> None:
     t0 = time.perf_counter()
     krylov_phase(eigsol, ctx)
     print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 22. the distributed layer on an NCCL group of one rank ---------------
+    t0 = time.perf_counter()
+    dist_launches = distributed_phase(eigsol, ctx)
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
     print(f"smoke total: {time.perf_counter() - t_start:.1f} s")
 
     # ---- report ------------------------------------------------------------
@@ -3797,6 +4204,8 @@ def main() -> None:
         add_row(name, GELL_SOURCE if picked == "csr" else GELL_WINDOW_SOURCE,
                 f"{GELL_TPU_KERNELS}:{line}", gell_launches[name], gell_errors[tag], k_ms, p_ms,
                 nbytes, flops, tag)
+    for row in rows:  # the distributed paths' launches (phase 22) join their kernels' rows
+        row["launches"] += dist_launches.get(row["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -3827,6 +4236,8 @@ if __name__ == "__main__":
         c4_table()
     elif sys.argv[1:] == ["--krylov"]:
         krylov_alone()
+    elif sys.argv[1:] == ["--distributed"]:
+        distributed_alone()
     else:
         main()
     sys.stdout.flush()

@@ -20,7 +20,12 @@ BiCGStab and GMRES inner solves on the SpMV kernels); and the dense QR
 stack (Hessenberg reduction, QR decomposition, QR eigenvalues in parity and
 accelerated modes with aggressive early deflation, with eigenvectors). The
 demo CLI is ``python -m pcsc_eigenvalue_solver_project_tpu_torch.demo``.
-Only the distributed layer is not ported yet. The banded and general sparse SpMV, the block SpMM and
+The distributed layer (``parallel/``: row-partitioned ELL, DIA, interleaved
+DIA, split-plane and general sparse operators and the power, Krylov, block
+and shifted solvers on them, over ``torch.distributed`` process groups, one
+process per rank; ``io/distributed.py``) and checkpointed power runs
+(``utils/checkpoint.py``) are in their modules, outside ``__all__`` as in
+the JAX package. The banded and general sparse SpMV, the block SpMM and
 the QR stack run as CUDA kernels written for Hopper (``csrc/``), built with
 nvcc at the first CUDA launch. Constructors put their data on the card
 unless given ``device`` (``device="cpu"`` for the CPU); on CPU tensors every

@@ -15,7 +15,9 @@ starts a solve as done: it then returns its start iterate at the cost of one
 host read, which lets an outer loop that masks its own finished iterations
 skip their inner solves.
 
-``solve_shifted_distributed`` (JAX :145) comes with the distributed layer.
+``solve_shifted_distributed`` (JAX :145) is the shifted solve of the
+distributed layer: Jacobi-preconditioned BiCGStab on row shards, with
+reductions all-reduced over them (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -150,3 +152,27 @@ def gmres(matvec, b, *, vdot, norm, m=30, tol=1e-12, atol=0.0, max_restarts=None
              norm(b - op(x0)).to(real_dtype_of(dtype)))
     it, _done, u, rnorm = run_masked(body, carry, max_restarts, 1)
     return M(u), rnorm, it
+
+
+def solve_shifted_distributed(matvec, shift, b, *, vdot, norm, diag=None, tol=1e-12,
+                              maxiter=None, stop=None):
+    """Solve ``(A - shift I) y = b`` on row shards (JAX :145): BiCGStab with
+    the Jacobi preconditioner ``1 / (diag - shift)`` (zero entries of
+    ``diag - shift`` taken as 1) when ``diag`` (this rank's block of the
+    diagonal) is given; ``stop`` as above."""
+    shift = torch.as_tensor(shift, dtype=b.dtype, device=b.device)
+
+    def shifted_mv(v):
+        return matvec(v) - shift * v
+
+    precond = None
+    if diag is not None:
+        d = diag - shift
+        safe = torch.where(d == 0, torch.ones((), dtype=d.dtype, device=d.device), d)
+
+        def precond(v):
+            return v / safe
+
+    x, _, _ = bicgstab(shifted_mv, b, vdot=vdot, norm=norm, precond=precond, tol=tol,
+                       maxiter=maxiter, stop=stop)
+    return x

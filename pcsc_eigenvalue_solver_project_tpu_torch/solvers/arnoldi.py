@@ -170,6 +170,16 @@ def arnoldi_extend(matvec, W_init: torch.Tensor, l: int, m: int, *, norm=_norm, 
     return W, H, torch.clamp(brk, max=m)
 
 
+def _sort_threshold(moduli: np.ndarray, l: int) -> float:
+    """A modulus between the ``l`` largest (with any within 1e-10 of the
+    l-th) and the rest, halfway across the gap; 0 when nothing is left out."""
+    mods = np.sort(moduli)[::-1]
+    cut = max(l, 1)
+    while cut < len(mods) and mods[cut] >= mods[cut - 1] * (1 - 1e-10):
+        cut += 1
+    return 0.0 if cut >= len(mods) else float(mods[cut - 1] + mods[cut]) / 2
+
+
 def _ks_contract(Hm: np.ndarray, beta: float, k: int, l_target: int, tol: float):
     """Host-side Krylov-Schur restart math on the small projected matrix
     (JAX :185, numpy/scipy).
@@ -193,14 +203,20 @@ def _ks_contract(Hm: np.ndarray, beta: float, k: int, l_target: int, tol: float)
     if converged:
         return w[sel_k], resid, True, None, None, None
     l_target = min(l_target, steps - 1)
-    thr = np.sort(np.abs(w))[::-1][min(l_target, steps) - 1]
+    # The ordered Schur form in double precision, sorted at a gap of the
+    # moduli: JAX sorts at the l-th modulus itself (times 1 - 1e-12), where
+    # the reordering's rounding can move that eigenvalue below the bar and
+    # LAPACK then refuses the sort (a float32 projection of the port's
+    # card runs did so). The kept set is JAX's but for moduli within 1e-10
+    # of the l-th, and float64 input gives JAX's factors.
     is_real = not np.iscomplexobj(Hm)
+    wide = Hm.astype(np.float64 if is_real else np.complex128)
+    thr = _sort_threshold(np.abs(np.linalg.eigvals(wide)), l_target)
     if is_real:
-        T, Z, sdim = sla.schur(Hm, output="real",
-                               sort=lambda re, im: np.hypot(re, im) >= thr * (1 - 1e-12))
+        T, Z, sdim = sla.schur(wide, output="real", sort=lambda re, im: np.hypot(re, im) >= thr)
     else:
-        T, Z, sdim = sla.schur(Hm, output="complex",
-                               sort=lambda lam: np.abs(lam) >= thr * (1 - 1e-12))
+        T, Z, sdim = sla.schur(wide, output="complex", sort=lambda lam: np.abs(lam) >= thr)
+    T, Z = T.astype(Hm.dtype), Z.astype(Hm.dtype)
     l_eff = int(min(max(sdim, 1), steps - 1))
     if is_real and T[l_eff, l_eff - 1] != 0.0:
         # The clamp landed inside a real-Schur 2x2 conjugate block (ties in
@@ -242,30 +258,37 @@ def krylov_schur_eigenvalues(M: AbstractMatrix, k: int = 6, *, m: int | None = N
     l_target = min(2 * k, m - 2)
     x0 = _start_vector(M, generator, x0)
 
-    tol = float(opts.tolerance)
-    V, H, brk = arnoldi_decomposition(M.matvec, x0, m)
+    wanted, total_mv, converged = krylov_schur_cycles(
+        M.matvec, arnoldi_decomposition(M.matvec, x0, m), m, k, l_target,
+        float(opts.tolerance), restarts, arnoldi_extend)
+    return _result(torch.from_numpy(np.asarray(wanted)).to(M.device), total_mv, converged)
+
+
+def krylov_schur_cycles(matvec, basis, m: int, k: int, l_target: int, tol: float,
+                        restarts: int, extend):
+    """The restart cycles of Krylov-Schur from the first basis ``basis = (V,
+    H, brk)``: the ordered-Schur contraction on the host (``_ks_contract``),
+    the basis contracted where it lies (``torch.matmul``), and
+    ``extend(matvec, W0, l, m)`` back to ``m``. Returns ``(wanted, matvecs,
+    converged)``; the distributed solver passes its all-reduced extension."""
+    V, H, brk = basis
     steps = _host_steps(brk, m)
     total_mv = steps
     Hnp = H.cpu().numpy()
     Hm = Hnp[:steps, :steps]
     beta = float(np.abs(Hnp[steps, steps - 1])) if steps == m else 0.0
-
-    def result(wanted, converged):
-        return _result(torch.from_numpy(np.asarray(wanted)).to(M.device), total_mv,
-                          converged)
-
     wanted = None
     for _ in range(restarts):
         wanted, _resid, conv, Q_l, S_new, b_new = _ks_contract(Hm, beta, k, l_target, tol)
         if conv:
-            return result(wanted, True)
+            return wanted, total_mv, True
         l_eff = Q_l.shape[1]
         Qd = torch.from_numpy(np.ascontiguousarray(Q_l)).to(V.device, V.dtype)
         W0 = torch.zeros_like(V)
         W0[:l_eff] = torch.matmul(Qd.T, V[:steps].reshape(steps, -1)).reshape(
             (l_eff,) + V.shape[1:])
         W0[l_eff] = V[steps]
-        V, H2, brk2 = arnoldi_extend(M.matvec, W0, l_eff, m)
+        V, H2, brk2 = extend(matvec, W0, l_eff, m)
         steps2 = _host_steps(brk2, m)
         total_mv += max(steps2 - l_eff, 0)
         H2np = H2.cpu().numpy()
@@ -276,4 +299,4 @@ def krylov_schur_eigenvalues(M: AbstractMatrix, k: int = 6, *, m: int | None = N
         Hm[l_eff, :l_eff] = b_new
         beta = float(np.abs(H2np[steps2, steps2 - 1])) if steps2 == m else 0.0
         steps = steps2
-    return result(wanted, False)
+    return wanted, total_mv, False

@@ -349,6 +349,26 @@ class TestKSContractBlockBoundary:
         if l_eff == 1:
             assert np.abs(Q_l.T @ Hm @ Q_l - S_new).max() < 1e-12
 
+    def test_float32_projection_sorts_at_a_gap(self):
+        # a float32 projection on which JAX's sort at the l-th modulus itself
+        # fails in LAPACK after the reordering (ROADMAP Queue C, C5); the
+        # port sorts in float64 halfway across a gap of the moduli
+        rng = np.random.default_rng(9)
+        m = 20
+        Hm = (np.triu(rng.standard_normal((m, m)), -1) * 0.3).astype(np.float32)
+        Hm[np.diag_indices(m)] += rng.uniform(0.9, 1.0, m).astype(np.float32)
+        with pytest.raises(np.linalg.LinAlgError, match="sort condition"):
+            ja._ks_contract(Hm, 0.5, 3, 8, 1e-14)
+        _, _, conv, Q_l, S_new, _ = ta._ks_contract(Hm, 0.5, 3, 8, 1e-14)
+        l_eff = Q_l.shape[1]  # 8, or 9 where a conjugate pair straddles the cut
+        assert not conv and Q_l.dtype == np.float32 and l_eff in (8, 9)
+        np.testing.assert_allclose(Q_l.T @ Q_l, np.eye(l_eff), atol=1e-5)
+        assert np.abs(Q_l.T @ Hm @ Q_l - S_new).max() < 1e-5
+        # the kept block holds the l_eff largest eigenvalues by modulus
+        top = np.sort(np.abs(np.linalg.eigvals(Hm.astype(np.float64))))[::-1]
+        kept = np.sort(np.abs(np.linalg.eigvals(S_new.astype(np.float64))))[::-1]
+        np.testing.assert_allclose(kept, top[:l_eff], rtol=1e-5)
+
     def test_restarts_validation(self):
         for es, dev in ((J, {}), (T, {"device": "cpu"})):
             with pytest.raises(ValueError, match="restarts must be >= 1"):

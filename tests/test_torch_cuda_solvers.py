@@ -27,7 +27,17 @@ with an H100 (no JAX needed there):
   launches of the kernels their paths name (B1/B2/B6 a matvec, B8 or B13 a
   projection, B5, B2's float64 instance); the writer and the demo on the
   card.
+- The distributed layer on an NCCL process group of one rank (a ``file://``
+  store in the test's temporary directory) at 100,000 rows: the six
+  distributed power paths at a budget against the single-device solver on
+  the same operator and ``x0`` (1e-5 relative), B1 and B6 launched; the
+  checkpointed distributed and single-device power methods stopped after a
+  chunk and resumed, bit for bit equal to the uninterrupted runs; Arnoldi
+  (B1, B8), block iteration (B5) and Lanczos against the single-device
+  solvers (1e-4).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -428,3 +438,156 @@ def test_demo_on_the_card(cuda, capsys):
     out = capsys.readouterr().out
     assert "qr_eigenvalues(A): [(1+3i), (2+4i), (5-1i)]" in out
     assert "raised as expected" in out
+
+
+# --------------------------------------------------------------------------
+# The distributed layer on an NCCL process group of one rank (one card hosts
+# one NCCL rank; more ranks run on gloo CPU ranks in tests/test_torch_parallel*.py)
+# --------------------------------------------------------------------------
+
+DIST_N = 100_000
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import mesh as pm
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    pm.initialize_distributed(init_method=f"file://{store}", world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield pm.make_row_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def band_ell(data, offs):
+    """The band (k, n) as a CPU ``SparseELL`` (entries outside the matrix 0)."""
+    k, n = data.shape
+    cols = np.arange(n)[:, None] + np.asarray(offs)[None, :]
+    inside = (cols >= 0) & (cols < n)
+    return T.SparseELL(data=torch.from_numpy(np.ascontiguousarray(data.T)),
+                       indices=torch.from_numpy(np.where(inside, cols, 0).astype(np.int32)),
+                       shape=(n, n))
+
+
+@pytest.mark.parametrize("kind", ["interleaved", "dia", "ell", "splitc", "gell", "pruned"])
+def test_distributed_power_paths_on_the_card(nccl_mesh, kind):
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops.split_complex import from_planes
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import dia as pd
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import gell as pg
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import gell_pruned as pp
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import split_complex as psc
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.power import distributed_power_method
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.sharded import partition_ell
+
+    mesh, dev = nccl_mesh, nccl_mesh.device
+    data, offs = planted_band(DIST_N, np.float32, 30)
+    dia = T.SparseDIA(data=torch.from_numpy(data).to(dev), offsets=offs, shape=(DIST_N,) * 2)
+    budget = T.SolverOptions(max_iterations=100, tolerance=0.0)
+    x0 = np.random.default_rng(31).uniform(-1, 1, DIST_N)
+    reset_all()
+    if kind == "splitc":
+        cdata = (data + 1j * np.roll(data, 1, axis=1)).astype(np.complex64)
+        sc = T.SplitComplexDIA.from_complex_dia(T.SparseDIA(
+            data=torch.from_numpy(cdata).to(dev), offsets=offs, shape=(DIST_N,) * 2))
+        x0 = np.stack([x0, x0[::-1]])
+        r = psc.distributed_splitc_power_method(psc.partition_splitc_dia(sc, mesh), mesh,
+                                                budget, x0=x0)
+        ref = T.power_method(sc, budget, x0=x0)
+        lam, lam_ref = complex(from_planes(r.eigenvalue)), complex(from_planes(ref.eigenvalue))
+    else:
+        if kind in ("gell", "pruned"):
+            rows = np.repeat(np.arange(DIST_N), len(offs))
+            cols = rows + np.tile(offs, DIST_N)
+            keep = (cols >= 0) & (cols < DIST_N)
+            coo = (rows[keep], cols[keep], data.T.reshape(-1)[keep], (DIST_N, DIST_N))
+            csr = T.SparseCSR.from_coo(*coo, device="cpu")
+            part = (pg.partition_gell if kind == "gell" else pp.partition_gell_pruned)(csr, mesh)
+            r = (pg.distributed_gell_power_method if kind == "gell"
+                 else pp.distributed_gell_power_pruned)(part, mesh, budget, x0=x0)
+            ref = T.power_method(T.SparseGELL.from_coo(*coo, device=dev), budget, x0=x0)
+            assert gs.gell_kernel.launches > 0
+        elif kind == "interleaved":
+            r = pd.distributed_dia_il_power_method(pd.partition_dia_il(dia, mesh), mesh, budget,
+                                                   x0=x0)
+            ref = T.power_method(dia.interleaved(), budget, x0=x0)
+            assert ds.dia_il_kernel.launches > 0
+        elif kind == "dia":
+            r = pd.distributed_dia_power_method(pd.partition_dia(dia, mesh), mesh, budget,
+                                                x0=x0)
+            ref = T.power_method(dia, budget, x0=x0)
+        else:
+            r = distributed_power_method(partition_ell(band_ell(data, offs), mesh), mesh,
+                                         budget, x0=x0)
+            ref = T.power_method(dia, budget, x0=x0)
+        lam, lam_ref = complex(r.eigenvalue), complex(ref.eigenvalue)
+    assert r.eigenvector.device.type == "cuda"
+    assert abs(lam - lam_ref) <= 1e-5 * abs(lam_ref)
+
+
+def test_distributed_checkpoint_resume_on_the_card(nccl_mesh, tmp_path):
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import dia as pd
+    from pcsc_eigenvalue_solver_project_tpu_torch.utils.checkpoint import (
+        distributed_dia_il_power_checkpointed, power_method_checkpointed)
+
+    mesh, dev = nccl_mesh, nccl_mesh.device
+    data, offs = planted_band(DIST_N, np.float32, 32)
+    dia = T.SparseDIA(data=torch.from_numpy(data).to(dev), offsets=offs, shape=(DIST_N,) * 2)
+    A = pd.partition_dia_il(dia, mesh)
+    x0 = np.random.default_rng(33).uniform(-1, 1, DIST_N)
+    budget = T.SolverOptions(max_iterations=120, tolerance=0.0)
+    stop = T.SolverOptions(max_iterations=20, tolerance=0.0)
+    plain = pd.distributed_dia_il_power_method(A, mesh, budget, x0=x0)
+    for run in (lambda o, d: distributed_dia_il_power_checkpointed(A, mesh, o, checkpoint_dir=d,
+                                                                   chunk=10, x0=x0),
+                lambda o, d: power_method_checkpointed(dia, o, checkpoint_dir=d, chunk=10,
+                                                       x0=x0)):
+        whole = run(budget, str(tmp_path / "whole"))
+        run(stop, str(tmp_path / "split"))
+        resumed = run(budget, str(tmp_path / "split"))
+        assert torch.equal(whole.eigenvector, resumed.eigenvector)
+        assert torch.equal(whole.eigenvalue, resumed.eigenvalue)
+        assert int(whole.iterations) == int(resumed.iterations) > 20
+        for d in ("whole", "split"):
+            for f in os.listdir(tmp_path / d):
+                os.remove(tmp_path / d / f)
+    assert torch.equal(whole.eigenvalue.cpu(), torch.as_tensor(
+        T.power_method(dia, budget, x0=x0).eigenvalue).cpu())
+    assert torch.isfinite(plain.eigenvector).all()
+
+
+def test_distributed_krylov_on_the_card(nccl_mesh):
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel import dia as pd
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.arnoldi import (
+        distributed_arnoldi_eigenvalues)
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.lanczos import (
+        distributed_lanczos_eigenvalues)
+    from pcsc_eigenvalue_solver_project_tpu_torch.parallel.subspace import (
+        distributed_subspace_iteration)
+
+    mesh, dev = nccl_mesh, nccl_mesh.device
+    data, offs = planted_band(DIST_N, np.float32, 34)
+    dia = T.SparseDIA(data=torch.from_numpy(data).to(dev), offsets=offs, shape=(DIST_N,) * 2)
+    x0 = np.random.default_rng(35).uniform(-1, 1, DIST_N)
+    reset_all()
+    arn = distributed_arnoldi_eigenvalues(pd.partition_dia_il(dia, mesh), mesh, k=3, m=30,
+                                          x0=x0)
+    assert qk.qr_eig_kernel.launches > 0 and ds.dia_il_kernel.launches > 0
+    close_sets(arn.eigenvalues.cpu().numpy(),
+               T.arnoldi_eigenvalues(dia, k=3, m=30, x0=x0).eigenvalues.cpu().numpy(), 1e-4)
+    sub = distributed_subspace_iteration(pd.partition_dia_il(dia, mesh), mesh, k=2,
+                                         opts=T.SolverOptions(max_iterations=300,
+                                                              tolerance=1e-6))
+    assert ds.dia_il_block_kernel.launches > 0 and bool(sub.converged)
+    close_sets(np.abs(sub.eigenvalues.cpu().numpy()), np.abs(arn.eigenvalues.cpu().numpy())[:2],
+               1e-4)
+    sdata, soffs = symmetric_band(DIST_N, 36)
+    sym = T.SparseDIA(data=torch.from_numpy(sdata).to(dev), offsets=soffs, shape=(DIST_N,) * 2)
+    lz = distributed_lanczos_eigenvalues(pd.partition_dia_il(sym, mesh), mesh, k=3, m=40,
+                                         which="LA", x0=x0)
+    close_sets(lz.eigenvalues.cpu().numpy(), T.lanczos_eigenvalues(
+        sym, k=3, m=40, which="LA", x0=x0).eigenvalues.cpu().numpy(), 1e-4)
