@@ -46,6 +46,7 @@ from functools import partial
 
 import torch
 
+from ..utils.timing import annotate, host_read
 from ._common import abs2, eye
 from .qr_eig_blocked import blocked_sweeps, qr_eig_blocked_step, qr_eig_blocked_step_q
 
@@ -120,7 +121,7 @@ def aed_round(h: torch.Tensor, hi: int, tol: float, w: int, q: torch.Tensor | No
     tdiag = T.diagonal()
     ok = (abs2(u).sqrt() <= tol_t * torch.maximum(abs2(tdiag).sqrt(), one)) & (idx >= hi_w)
     d_t = torch.cumprod(ok.flip(0).to(torch.int32), 0).sum()
-    d = int(d_t)  # the round's host read: kk sizes the re-reduction
+    d = host_read(d_t)  # the round's host read: kk sizes the re-reduction
     kk = w - d
 
     # 3a. the Householder Z1 = I - f v v^H collapsing the kept spike to alpha e1
@@ -175,13 +176,14 @@ def aed_sweep_round(h, hi, budget, tol, w, q=None):
     (counterpart of ``_aed_sweep_round``, JAX :207, and of
     ``_aed_sweep_round_q``, :193). Returns ``(h', eig, sweeps, hi', d, hi_w)``,
     with ``q'`` after ``h'`` in Schur mode; ``sweeps`` and ``hi'`` as ints."""
-    if q is None:
-        h, d, hi_w, shifts = aed_round(h, hi, tol, w)
-        h, eig, sweeps, hi2 = qr_eig_blocked_step(h, budget, tol, shifts)
-    else:
-        h, q, d, hi_w, shifts = aed_round(h, hi, tol, w, q)
-        h, q, eig, sweeps, hi2 = qr_eig_blocked_step_q(h, q, budget, tol, shifts)
-    sweeps, hi2 = _ints(sweeps, hi2)
+    with annotate("eigsol.qr.aed_round"):
+        if q is None:
+            h, d, hi_w, shifts = aed_round(h, hi, tol, w)
+            h, eig, sweeps, hi2 = qr_eig_blocked_step(h, budget, tol, shifts)
+        else:
+            h, q, d, hi_w, shifts = aed_round(h, hi, tol, w, q)
+            h, q, eig, sweeps, hi2 = qr_eig_blocked_step_q(h, q, budget, tol, shifts)
+        sweeps, hi2 = _ints(sweeps, hi2)
     out = (h, eig, sweeps, hi2, d, hi_w)
     return out if q is None else (out[0], q) + out[1:]
 
@@ -244,7 +246,7 @@ def _driver(h, q, max_sweeps, tol, w, sweeps_per_round):
 
 def _ints(sweeps, hi):
     """A step's ``(sweeps, hi)`` on the host, in one read."""
-    return tuple(torch.stack([sweeps.to(torch.int64), hi.to(torch.int64)]).tolist())
+    return tuple(host_read(torch.stack([sweeps.to(torch.int64), hi.to(torch.int64)])))
 
 
 def _check_hessenberg(name, h):

@@ -65,6 +65,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.timing import annotate, count
 from . import _build
 from ._common import (COMPLEX_CODES, DTYPE_CODES, abs2, check_square, deflate_and_lo, eye,
                       givens, ptr, raise_on_error, real_dtype, rotate_rows, stream,
@@ -377,13 +378,16 @@ def _launch(name, code, h, max_sweeps, tol, shifts, qq, block, grid, parity):
     part = torch.zeros(2 * -(-n // RIGHT_ROWS) + 1, dtype=real_dtype(h.dtype),
                        device=h.device) if parity else None
     launches = ctypes.c_longlong(0)
-    rc = lib.qr_eig_blocked_sweeps(code, h.device.index, t.data_ptr(), ptr(qq), ubuf.data_ptr(),
-                                   side.data_ptr(), flags.data_ptr(), eig.data_ptr(),
-                                   state.data_ptr(), mu.data_ptr(), ptr(shifts),
-                                   0 if shifts is None else shifts.shape[0], n, max_sweeps,
-                                   float(tol), block, int(grid), int(parity), ptr(part),
-                                   ctypes.byref(launches), stream(h))
+    # the launcher blocks on the card after each launch to read the state
+    with annotate("eigsol.qr.sweeps", wait=True):
+        rc = lib.qr_eig_blocked_sweeps(code, h.device.index, t.data_ptr(), ptr(qq),
+                                       ubuf.data_ptr(), side.data_ptr(), flags.data_ptr(),
+                                       eig.data_ptr(), state.data_ptr(), mu.data_ptr(),
+                                       ptr(shifts), 0 if shifts is None else shifts.shape[0], n,
+                                       max_sweeps, float(tol), block, int(grid), int(parity),
+                                       ptr(part), ctypes.byref(launches), stream(h))
     raise_on_error(name, lib, rc)
+    count("host_reads", launches.value)
     return t, eig, state, part, launches.value
 
 

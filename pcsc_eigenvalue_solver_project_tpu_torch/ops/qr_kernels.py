@@ -56,6 +56,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from ..utils.timing import annotate, host_read
 from . import _build
 from ._common import (COMPLEX_CODES, DTYPE_CODES, abs2, check_square, deflate_and_lo, eye,
                       givens, ptr, raise_on_error, real_dtype, reflector, rotate_rows, stream,
@@ -565,11 +566,12 @@ def hessenberg_reduce(a: torch.Tensor, accumulate_q: bool = False):
     ``n >= HESSENBERG_BLOCKED_MIN_N`` (``solvers/hessenberg.py``), the
     unblocked B7 below it."""
     from ..solvers import hessenberg
-    if a.shape[0] >= hessenberg.HESSENBERG_BLOCKED_MIN_N:
-        return hessenberg_blocked(a, accumulate_q)
-    if a.device.type == "cpu":
-        return hessenberg_plain(a, accumulate_q)
-    return hessenberg_kernel(a, accumulate_q)
+    with annotate("eigsol.qr.hessenberg"):
+        if a.shape[0] >= hessenberg.HESSENBERG_BLOCKED_MIN_N:
+            return hessenberg_blocked(a, accumulate_q)
+        if a.device.type == "cpu":
+            return hessenberg_plain(a, accumulate_q)
+        return hessenberg_kernel(a, accumulate_q)
 
 
 def qr_eig_sweeps(h: torch.Tensor, max_sweeps: int, tol: float,
@@ -611,7 +613,7 @@ def accelerated_eigenvalues(a: torch.Tensor, max_sweeps: int, tol: float, sweeps
     if not h.is_complex():
         h = h.to(h.dtype.to_complex())
     eig, count, hi = (sweeps or qr_eig_sweeps)(h, max_sweeps, tol)[:3]
-    return eig, int(count), int(hi) <= 1
+    return eig, host_read(count), host_read(hi) <= 1
 
 
 def parity_eigenvalues(a: torch.Tensor, max_iterations: int, tol: float):
@@ -680,4 +682,4 @@ def accelerated_eigenpairs(a: torch.Tensor, max_sweeps: int, tol: float, sweeps=
         h, qh = h.to(h.dtype.to_complex()), qh.to(qh.dtype.to_complex())
     sweeps = sweeps or partial(qr_eig_sweeps, accumulate_q=True)
     eig, count, hi, t, qs = sweeps(h, max_sweeps, tol)
-    return eig, int(count), int(hi) <= 1, finish_eigenvectors_device(t, qh @ qs)
+    return eig, host_read(count), host_read(hi) <= 1, finish_eigenvectors_device(t, qh @ qs)

@@ -112,7 +112,7 @@ def splitc_bicgstab(matvec, b, *, precond=None, tol=1e-10, maxiter=200, stop=Non
 
     carry = (count(dev), flag(False if stop is None else stop, dev), torch.zeros_like(b), b_p,
              b_p, torch.zeros_like(b), torch.zeros_like(b), one, one, one)
-    return run_masked(body, carry, maxiter, BICGSTAB_BLOCK)[2]
+    return run_masked(body, carry, maxiter, BICGSTAB_BLOCK, span="eigsol.bicgstab.block")[2]
 
 
 def solve_shifted_splitc(matvec, shift, b, *, diag=None, tol=1e-10, maxiter=200, stop=None):
@@ -203,7 +203,7 @@ def splitc_gmres(matvec, b, *, precond=None, tol=1e-10, m=30, max_restarts=None,
 
     carry = (count(dev), flag(bnorm <= atol, dev) | flag(False if stop is None else stop, dev),
              torch.zeros_like(b), bnorm)
-    return run_masked(body, carry, max_restarts, 1)[2]
+    return run_masked(body, carry, max_restarts, 1, span="eigsol.gmres.block")[2]
 
 
 def solve_shifted_splitc_gmres(matvec, shift, b, *, diag=None, tol=1e-10, m=30,

@@ -31,6 +31,7 @@ from ..solvers.arnoldi import (_projection_eigenvalues, arnoldi_decomposition, a
                                krylov_schur_cycles)
 from ..solvers.lanczos import _default_project
 from ..solvers.qr_eigenvalues import _result
+from ..utils.timing import spanned
 from .mesh import ROW_AXIS, RowMesh, all_reduce_sum, axis_size
 from .power import host_start_vector, reductions
 from .sharded import PartitionedELL
@@ -45,6 +46,7 @@ def _start_block(A, mesh: RowMesh, generator, x0) -> torch.Tensor:
                          mesh)
 
 
+@spanned
 def distributed_arnoldi_eigenvalues(A: PartitionedELL, mesh: RowMesh, k: int = 6, *,
                                     m: int | None = None,
                                     opts: SolverOptions = SolverOptions(),
@@ -71,6 +73,7 @@ def distributed_arnoldi_eigenvalues(A: PartitionedELL, mesh: RowMesh, k: int = 6
     return _result(eigs[order][:k], sweeps, converged)
 
 
+@spanned
 def distributed_krylov_schur_eigenvalues(A, mesh: RowMesh, k: int = 6, *,
                                          m: int | None = None, restarts: int = 60,
                                          opts: SolverOptions = SolverOptions(),

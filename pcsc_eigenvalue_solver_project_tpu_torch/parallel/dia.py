@@ -31,6 +31,7 @@ from ..core.results import EigenResult
 from ..matrix.dia import SparseDIA
 from ..ops.dia_spmv import (DEFAULT_IL_TILE, LANES, dia_matvec_il_window, il_rows,
                             il_window_halo)
+from ..utils.timing import spanned
 from .mesh import ROW_AXIS, RowMesh, all_gather_rows, axis_size, neighbour_exchange, row_block
 from .power import host_start_vector, partition_power
 from .sharded import padded_block
@@ -118,6 +119,7 @@ def distributed_dia_matvec(A: PartitionedDIA, x_local, mesh: RowMesh, *,
     return A.local_matvec(mesh)(x_local)
 
 
+@spanned
 def distributed_dia_power_method(A: PartitionedDIA, mesh: RowMesh,
                                  opts: SolverOptions = SolverOptions(), *,
                                  axis: str = ROW_AXIS, generator: torch.Generator | None = None,
@@ -246,6 +248,7 @@ def distributed_dia_il_matvec(A: PartitionedILDIA, x_il, mesh: RowMesh, *,
     return A.local_matvec(mesh)(x_il)
 
 
+@spanned
 def distributed_dia_il_power_method(A: PartitionedILDIA, mesh: RowMesh,
                                     opts: SolverOptions = SolverOptions(), *,
                                     axis: str = ROW_AXIS,

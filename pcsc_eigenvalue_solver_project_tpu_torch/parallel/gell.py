@@ -27,6 +27,7 @@ from ..core.options import SolverOptions
 from ..core.results import EigenResult
 from ..matrix.sparse import SparseCSR
 from ..ops.gell_spmv import LANES, GELLPack, gell_matvec, pack_gell
+from ..utils.timing import spanned
 from .mesh import ROW_AXIS, RowMesh, all_gather_rows, axis_size
 from .power import host_start_vector, partition_power
 from .sharded import padded_block
@@ -116,6 +117,7 @@ def distributed_gell_matvec(A: PartitionedGELL, x_local, mesh: RowMesh, *,
     return A.local_matvec(mesh)(x_local)
 
 
+@spanned
 def distributed_gell_power_method(A: PartitionedGELL, mesh: RowMesh,
                                   opts: SolverOptions | None = None, *,
                                   axis: str = ROW_AXIS,

@@ -32,6 +32,7 @@ from ..core.options import SolverOptions
 from ..core.results import EigenResult
 from ..matrix.sparse import SparseCSR
 from ..ops.gell_spmv import LANES, GELLPack, pack_gell
+from ..utils.timing import spanned
 from .gell import auto_tile_rows, gell_local_matvec, host_coo, shard_rows
 from .mesh import ROW_AXIS, RowMesh, axis_size, post_exchange
 from .power import host_start_vector, partition_power
@@ -182,6 +183,7 @@ def pruned_gell_matvec(A: PrunedGELL, x_local, mesh: RowMesh, *, axis: str = ROW
     return A.local_matvec(mesh)(x_local)
 
 
+@spanned
 def distributed_gell_power_pruned(A: PrunedGELL, mesh: RowMesh,
                                   opts: SolverOptions | None = None, *, axis: str = ROW_AXIS,
                                   generator: torch.Generator | None = None,

@@ -16,6 +16,7 @@ import torch
 from ..core.options import ShiftedSolverOptions
 from ..core.results import EigenResult
 from ..solvers.inverse_power import inverse_power_loop
+from ..utils.timing import spanned
 from .krylov import solve_shifted_distributed
 from .mesh import ROW_AXIS, RowMesh, axis_size
 from .power import host_start_vector, reductions
@@ -29,6 +30,7 @@ def _partitioned_diagonal(A: PartitionedELL, mesh: RowMesh) -> torch.Tensor:
     return torch.sum(torch.where(on_diag, A.data, torch.zeros_like(A.data)), dim=1)
 
 
+@spanned
 def distributed_shifted_inverse_power(A: PartitionedELL, mesh: RowMesh,
                                       opts: ShiftedSolverOptions = ShiftedSolverOptions(), *,
                                       axis: str = ROW_AXIS, exchange: str = "auto",

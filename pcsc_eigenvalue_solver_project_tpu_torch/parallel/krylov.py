@@ -26,6 +26,7 @@ import torch
 
 from ..core.dtypes import real_dtype_of
 from ..utils.loops import count, flag, run_masked
+from ..utils.timing import spanned
 
 # BiCGStab iterations between two host reads: half the power loops' block
 # (``utils.loops.BLOCK_ITERATIONS``). An inner solve often converges inside
@@ -96,7 +97,7 @@ def bicgstab(matvec, b, *, vdot, norm, precond=None, tol=1e-12, atol=0.0, maxite
 
     carry = (count(dev), flag(False if stop is None else stop, dev), x0, r0, r0, one, one, one,
              torch.zeros_like(b), torch.zeros_like(b))
-    carry = run_masked(body, carry, maxiter, BICGSTAB_BLOCK)
+    carry = run_masked(body, carry, maxiter, BICGSTAB_BLOCK, span="eigsol.bicgstab.block")
     return carry[2], norm(carry[3]), carry[0]
 
 
@@ -150,10 +151,11 @@ def gmres(matvec, b, *, vdot, norm, m=30, tol=1e-12, atol=0.0, max_restarts=None
 
     carry = (count(dev), flag(False if stop is None else stop, dev), x0,
              norm(b - op(x0)).to(real_dtype_of(dtype)))
-    it, _done, u, rnorm = run_masked(body, carry, max_restarts, 1)
+    it, _done, u, rnorm = run_masked(body, carry, max_restarts, 1, span="eigsol.gmres.block")
     return M(u), rnorm, it
 
 
+@spanned
 def solve_shifted_distributed(matvec, shift, b, *, vdot, norm, diag=None, tol=1e-12,
                               maxiter=None, stop=None):
     """Solve ``(A - shift I) y = b`` on row shards (JAX :145): BiCGStab with

@@ -19,12 +19,14 @@ import torch
 from ..core.options import SolverOptions
 from ..core.results import QRResult
 from ..solvers.lanczos import _default_project, _ritz_from_tridiag, _values, lanczos_decomposition
+from ..utils.timing import spanned
 from .dia import PartitionedDIA, PartitionedILDIA
 from .mesh import ROW_AXIS, RowMesh, all_reduce_sum, axis_size
 from .power import host_start_vector, reductions
 from .sharded import PartitionedELL
 
 
+@spanned
 def distributed_lanczos_eigenvalues(A, mesh: RowMesh, k: int = 6, *, m: int | None = None,
                                     opts: SolverOptions = SolverOptions(), which: str = "LM",
                                     reorth: bool = True, axis: str = ROW_AXIS,

@@ -24,6 +24,7 @@ from ..core.options import SolverOptions
 from ..core.results import EigenResult
 from ..solvers.power import power_iteration_loop
 from ..utils.prng import default_generator, random_unit_vector
+from ..utils.timing import spanned
 from .mesh import ROW_AXIS, RowMesh, axis_size
 from .sharded import PartitionedELL, psum_norm, psum_vdot
 
@@ -58,6 +59,7 @@ def partition_power(A, mesh: RowMesh, opts: SolverOptions, x0_local, exchange="a
                                 opts.max_iterations, opts.tolerance)
 
 
+@spanned
 def distributed_power_method(A: PartitionedELL, mesh: RowMesh,
                              opts: SolverOptions = SolverOptions(), *, axis: str = ROW_AXIS,
                              exchange: str = "auto", generator: torch.Generator | None = None,

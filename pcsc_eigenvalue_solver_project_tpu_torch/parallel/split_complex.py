@@ -24,6 +24,7 @@ from ..matrix.split_complex import SplitComplexDIA
 from ..ops.split_complex import splitc_is_close_relative
 from ..solvers.power import carry_to_result, power_carry_loop, power_init_carry
 from ..utils.prng import default_generator
+from ..utils.timing import spanned
 from .mesh import ROW_AXIS, RowMesh, all_reduce_sum, axis_size, neighbour_exchange, row_block
 
 
@@ -115,6 +116,7 @@ def _psum_splitc_vdot(a, b, mesh: RowMesh):
                                        torch.sum(a[0] * b[1] - a[1] * b[0])]), mesh)
 
 
+@spanned
 def distributed_splitc_power_method(A: PartitionedSplitComplexDIA, mesh: RowMesh,
                                     opts: SolverOptions = SolverOptions(), *,
                                     axis: str = ROW_AXIS,

@@ -23,6 +23,7 @@ from ..core.tolerance import is_close_relative
 from ..ops.dia_spmv import dia_matmat_il_window, il_window_halo
 from ..solvers.subspace import _conj_factor_inverse, _result
 from ..utils.prng import default_generator
+from ..utils.timing import spanned
 from .dia import PartitionedILDIA, dia_il_halo_window, encode_vec_il_sharded
 from .mesh import ROW_AXIS, RowMesh, all_reduce_sum, axis_size
 
@@ -55,6 +56,7 @@ def _dist_subspace_chunk(A: PartitionedILDIA, Xf, sweeps: int, mesh: RowMesh):
     return Xf, _block_gram(Xf, apply_block(Xf), mesh)
 
 
+@spanned
 def distributed_subspace_iteration(A: PartitionedILDIA, mesh: RowMesh, k: int = 4, *,
                                    block: int | None = None,
                                    opts: SolverOptions = SolverOptions(),

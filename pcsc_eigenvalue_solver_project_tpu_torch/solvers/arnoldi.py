@@ -31,6 +31,7 @@ from ..core.dtypes import check_scalar_type, complex_dtype_of, real_dtype_of
 from ..core.options import SolverOptions
 from ..core.results import QRResult
 from ..matrix.protocol import AbstractMatrix, require_nonempty, require_square
+from ..utils.timing import annotate, host_read, host_write, spanned
 from .lanczos import _combine, _default_project, _host_steps, _start_vector
 from .qr_eigenvalues import _result
 from .power import norm as _norm
@@ -53,23 +54,25 @@ def arnoldi_decomposition(matvec, x0: torch.Tensor, m: int, *, vdot=_vdot, norm=
     V = torch.zeros((m + 1,) + tuple(x0.shape), dtype=dtype, device=dev)
     V[0] = x0 / norm(x0).to(dtype)
     H = torch.zeros((m + 1, m), dtype=dtype, device=dev)
-    brk = torch.tensor(m + 1, dtype=torch.int32, device=dev)
+    brk = host_write(m + 1, dev, torch.int32)
     zero = torch.zeros((), dtype=dtype, device=dev)
     for j in range(m):
-        w = matvec(V[j])
-        h = []
-        for i in range(j + 1):
-            hij = vdot(V[i], w)
-            w = w - hij * V[i]
-            h.append(hij)
-        hjj = norm(w).to(rdt)
-        breakdown = hjj == 0
-        safe = torch.where(breakdown, 1, hjj).to(dtype)
-        hcol = torch.stack(h + [hjj.to(dtype)] + [zero] * (m - j - 1))
-        still = ~(brk < j + 1)  # no earlier breakdown
-        V[j + 1] = torch.where(still & ~breakdown, w / safe, V[j + 1])
-        H[:, j] = torch.where(still, hcol, H[:, j])
-        brk = torch.where(still & breakdown, torch.clamp(brk, max=j + 1), brk)
+        with annotate("eigsol.arnoldi.spmv"):
+            w = matvec(V[j])
+        with annotate("eigsol.arnoldi.orthogonalize"):
+            h = []
+            for i in range(j + 1):
+                hij = vdot(V[i], w)
+                w = w - hij * V[i]
+                h.append(hij)
+            hjj = norm(w).to(rdt)
+            breakdown = hjj == 0
+            safe = torch.where(breakdown, 1, hjj).to(dtype)
+            hcol = torch.stack(h + [hjj.to(dtype)] + [zero] * (m - j - 1))
+            still = ~(brk < j + 1)  # no earlier breakdown
+            V[j + 1] = torch.where(still & ~breakdown, w / safe, V[j + 1])
+            H[:, j] = torch.where(still, hcol, H[:, j])
+            brk = torch.where(still & breakdown, torch.clamp(brk, max=j + 1), brk)
     return V, H, torch.clamp(brk, max=m)
 
 
@@ -82,12 +85,13 @@ def _projection_eigenvalues(Hm: torch.Tensor, max_sweeps: int, tol: float):
     from ..ops.qr_kernels import qr_eig_sweeps
     from . import qr_eigenvalues as qe
     engine = qe.qr_dispatch(Hm.shape[0], Hm.device)
-    if engine == "torch":
-        r = qe._qr_eigenvalues_accel(Hm, int(max_sweeps), float(tol))
-        return r.eigenvalues, int(r.iterations), bool(r.converged)
-    sweeps = qr_eig_sweeps if engine == "cuda_unblocked" else blocked_sweeps
-    eig, count, hi = sweeps(Hm, int(max_sweeps), float(tol))[:3]
-    return eig, int(count), int(hi) <= 1
+    with annotate("eigsol.arnoldi.projection"):
+        if engine == "torch":
+            r = qe._qr_eigenvalues_accel(Hm, int(max_sweeps), float(tol))
+            return r.eigenvalues, int(r.iterations), bool(r.converged)
+        sweeps = qr_eig_sweeps if engine == "cuda_unblocked" else blocked_sweeps
+        eig, count, hi = sweeps(Hm, int(max_sweeps), float(tol))[:3]
+        return eig, host_read(count), host_read(hi) <= 1
 
 
 def _arnoldi_eigs(M: AbstractMatrix, x0: torch.Tensor, m: int, k: int, qr_tol: float,
@@ -111,6 +115,7 @@ def _check(M: AbstractMatrix, k: int, dtype, what: str) -> int:
     return M.shape[0]
 
 
+@spanned
 def arnoldi_eigenvalues(M: AbstractMatrix, k: int = 6, *, m: int | None = None,
                         opts: SolverOptions = SolverOptions(), dtype=None,
                         generator: torch.Generator | None = None, x0=None) -> QRResult:
@@ -152,7 +157,7 @@ def arnoldi_extend(matvec, W_init: torch.Tensor, l: int, m: int, *, norm=_norm, 
     eps = torch.finfo(rdt).eps
     W = W_init.clone()
     H = torch.zeros((m + 1, m), dtype=dtype, device=dev)
-    brk = torch.tensor(m + 1, dtype=torch.int32, device=dev)
+    brk = host_write(m + 1, dev, torch.int32)
     for j in range(l, m):
         w = matvec(W[j])
         c = project(W, w)                      # (m+1,) coefficients
@@ -233,6 +238,7 @@ def _ks_contract(Hm: np.ndarray, beta: float, k: int, l_target: int, tol: float)
     return w[sel_k], resid, False, Q_l, S_new, b_new
 
 
+@spanned
 def krylov_schur_eigenvalues(M: AbstractMatrix, k: int = 6, *, m: int | None = None,
                              restarts: int = 60, opts: SolverOptions = SolverOptions(),
                              dtype=None, generator: torch.Generator | None = None,

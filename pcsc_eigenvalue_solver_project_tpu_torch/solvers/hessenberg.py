@@ -23,6 +23,7 @@ import torch
 
 from ..core.dtypes import check_scalar_type
 from ..matrix.protocol import AbstractMatrix
+from ..utils.timing import spanned
 
 
 # The n from which a Hessenberg reduction runs the blocked B11 rather than
@@ -96,6 +97,7 @@ def hessenberg_host(a) -> np.ndarray:
     return H
 
 
+@spanned
 def to_hessenberg(M: AbstractMatrix, *, dtype=None) -> torch.Tensor:
     """Wrapper with the reference's dense-only and scalar-type guards. The
     result lies where the matrix lies."""

@@ -37,6 +37,7 @@ from ..ops.krylov import solve_shifted_bicgstab
 from ..ops.split_complex import splitc_is_close_relative, splitc_norm, splitc_vdot
 from ..utils.loops import count, flag, run_masked
 from ..utils.prng import default_generator, random_unit_vector
+from ..utils.timing import spanned
 from .power import norm, vdot
 from .solve_shifted import DENSE_FALLBACK_MAX_N, lu_factor, lu_solve, shifted_dense
 
@@ -78,8 +79,8 @@ def inverse_power_loop(matvec, solve, vdot, norm, x0: torch.Tensor, max_iteratio
 
     carry = (count(dev), flag(False, dev), x0, lam0, flag(False, dev), flag(False, dev),
              count(dev), shift0)
-    k, done, x, lam, initialized, converged, used, shift = run_masked(body, carry,
-                                                                      max_iterations)
+    k, done, x, lam, initialized, converged, used, shift = run_masked(
+        body, carry, max_iterations, span="eigsol.inverse_power.block")
     return EigenResult(eigenvalue=lam, eigenvector=x, iterations=used, converged=converged)
 
 
@@ -233,6 +234,7 @@ def _start_vector(M, dtype, generator, x0, n, planes=False):
     return torch.where(nrm == 0, x0, x0 / torch.where(nrm == 0, 1, nrm).to(dtype))
 
 
+@spanned
 def rayleigh_quotient_iteration(M: AbstractMatrix,
                                 opts: ShiftedSolverOptions = ShiftedSolverOptions(), *,
                                 dtype=None, generator: torch.Generator | None = None,
@@ -252,6 +254,7 @@ def rayleigh_quotient_iteration(M: AbstractMatrix,
                       opts.max_iterations, opts.tolerance)
 
 
+@spanned
 def shifted_inverse_power_method(M: AbstractMatrix,
                                  opts: ShiftedSolverOptions = ShiftedSolverOptions(), *,
                                  dtype=None, generator: torch.Generator | None = None,

@@ -32,6 +32,7 @@ from ..core.options import SolverOptions
 from ..core.results import QRResult
 from ..matrix.protocol import AbstractMatrix, require_nonempty, require_square
 from ..utils.prng import default_generator, random_unit_vector
+from ..utils.timing import spanned
 from .power import norm as _norm
 from .power import vdot as _vdot
 
@@ -182,6 +183,7 @@ def _values(theta, total_mv: int, converged: bool, device) -> QRResult:
                    converged)
 
 
+@spanned
 def lanczos_thick_restart(M: AbstractMatrix, k: int = 6, *, m: int | None = None,
                           restarts: int = 50, opts: SolverOptions = SolverOptions(),
                           which: str = "LA", dtype=None,
@@ -265,6 +267,7 @@ def lanczos_thick_restart(M: AbstractMatrix, k: int = 6, *, m: int | None = None
     return _values(theta[order], total_mv, False, M.device)
 
 
+@spanned
 def lanczos_eigenpairs(M: AbstractMatrix, k: int = 6, *, m: int | None = None,
                        opts: SolverOptions = SolverOptions(), which: str = "LM",
                        reorth: bool = True, dtype=None,
@@ -279,6 +282,7 @@ def lanczos_eigenpairs(M: AbstractMatrix, k: int = 6, *, m: int | None = None,
                          generator=generator, x0=x0, want_vectors=True)
 
 
+@spanned
 def lanczos_eigenvalues(M: AbstractMatrix, k: int = 6, *, m: int | None = None,
                         opts: SolverOptions = SolverOptions(), which: str = "LM",
                         reorth: bool = True, dtype=None,

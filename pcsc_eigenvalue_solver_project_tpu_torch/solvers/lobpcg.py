@@ -40,6 +40,7 @@ from ..matrix.dia import InterleavedDIA
 from ..matrix.protocol import AbstractMatrix, require_nonempty, require_square
 from ..utils.loops import count, flag, run_masked
 from ..utils.prng import default_generator
+from ..utils.timing import spanned
 from .subspace import _apply_block, _apply_block_rows
 
 
@@ -205,7 +206,7 @@ def _lobpcg_standard(A, X: torch.Tensor, m: int, tol=None):
 
     dev = X.device
     carry = (count(dev), flag(False, dev), X, P, R, theta)
-    i, _, X, _, _, theta = run_masked(body, carry, m)
+    i, _, X, _, _, theta = run_masked(body, carry, m, span="eigsol.lobpcg.block")
     return theta[0, :], X, i
 
 
@@ -213,6 +214,7 @@ def _lobpcg_standard(A, X: torch.Tensor, m: int, tol=None):
 # Public entry point
 # ---------------------------------------------------------------------------
 
+@spanned
 def lobpcg_eigenvalues(M: AbstractMatrix, k: int = 4, *,
                        opts: SolverOptions = SolverOptions(), which: str = "LA",
                        dtype=None, generator: torch.Generator | None = None,

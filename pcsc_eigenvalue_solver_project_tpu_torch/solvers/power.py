@@ -43,6 +43,7 @@ from ..matrix.split_complex import InterleavedSplitComplexDIA, SplitComplexDIA
 from ..ops.split_complex import splitc_is_close_relative, splitc_norm, splitc_vdot
 from ..utils.loops import BLOCK_ITERATIONS, count, flag, run_masked
 from ..utils.prng import default_generator, random_unit_vector
+from ..utils.timing import host_write, spanned
 
 
 def vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -75,7 +76,7 @@ def power_carry_loop(matvec, vdot, norm, carry, max_iterations: int, tol,
     rdt = real_dtype_of(dtype)
     device = carry[2].device
     if not isinstance(tol, torch.Tensor):
-        tol = torch.tensor(tol, dtype=torch.float64, device=device)
+        tol = host_write(tol, device, torch.float64)
     one = torch.ones((), dtype=rdt, device=device)
 
     def body(c):
@@ -104,7 +105,8 @@ def power_carry_loop(matvec, vdot, norm, carry, max_iterations: int, tol,
             torch.where(live, k + 1, used),  # usedIters = k+1 (power_method.hpp:87,95)
         )
 
-    return run_masked(body, carry, max_iterations, BLOCK_ITERATIONS)
+    return run_masked(body, carry, max_iterations, BLOCK_ITERATIONS,
+                      span="eigsol.power.block")
 
 
 def carry_to_result(carry) -> EigenResult:
@@ -121,6 +123,7 @@ def power_iteration_loop(matvec, vdot, norm, x0: torch.Tensor,
     return carry_to_result(carry)
 
 
+@spanned
 def power_method_split_complex(M, opts: SolverOptions = SolverOptions(), *,
                                generator: torch.Generator | None = None,
                                x0=None) -> EigenResult:
@@ -155,12 +158,13 @@ def power_method_split_complex(M, opts: SolverOptions = SolverOptions(), *,
     x0 = M.encode_vec(x0)  # identity for SplitComplexDIA; interleave otherwise
     carry = power_init_carry(M.matvec, x0)
     carry = carry[:4] + (torch.zeros(2, dtype=rdt, device=x0.device),) + carry[5:]
-    tol = torch.tensor(opts.tolerance, dtype=rdt, device=x0.device)
+    tol = host_write(opts.tolerance, x0.device, rdt)
     carry = power_carry_loop(M.matvec, splitc_vdot, splitc_norm, carry,
                              opts.max_iterations, tol, splitc_is_close_relative)
     return decode_result(M, carry_to_result(carry))
 
 
+@spanned
 def power_method(M: AbstractMatrix, opts: SolverOptions = SolverOptions(), *,
                  dtype=None, generator: torch.Generator | None = None,
                  x0=None) -> EigenResult:
@@ -198,6 +202,7 @@ def power_method(M: AbstractMatrix, opts: SolverOptions = SolverOptions(), *,
     return decode_result(M, r)
 
 
+@spanned
 def power_method_ds64(M, opts: SolverOptions = SolverOptions(), *,
                       generator: torch.Generator | None = None, x0=None) -> EigenResult:
     """Dominant eigenpair of a real banded ``SparseDIA`` operator in float64

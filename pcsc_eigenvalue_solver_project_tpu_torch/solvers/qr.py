@@ -18,6 +18,7 @@ import torch
 
 from ..core.dtypes import check_scalar_type
 from ..matrix.protocol import AbstractMatrix
+from ..utils.timing import spanned
 from .hessenberg import vector_norm
 
 
@@ -52,6 +53,7 @@ def qr_decompose_dense(a: torch.Tensor):
     return Q, R
 
 
+@spanned
 def qr_decompose(M: AbstractMatrix, *, dtype=None):
     """Wrapper with the reference's dense-only and scalar-type guards;
     returns ``(Q, R)`` where the matrix lies."""

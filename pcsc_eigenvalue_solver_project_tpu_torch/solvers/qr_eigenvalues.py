@@ -38,6 +38,7 @@ from ..core.dtypes import check_scalar_type, complex_dtype_of, real_dtype_of
 from ..core.options import QROptions, SolverOptions
 from ..core.results import QRResult
 from ..matrix.protocol import AbstractMatrix
+from ..utils.timing import host_write, spanned
 from .hessenberg import hessenberg_dense, vector_norm
 from .qr import qr_decompose_dense
 
@@ -45,8 +46,8 @@ from .qr import qr_decompose_dense
 def _result(eigenvalues, iterations, converged) -> QRResult:
     device = eigenvalues.device
     return QRResult(eigenvalues=eigenvalues,
-                    iterations=torch.tensor(int(iterations), dtype=torch.int32, device=device),
-                    converged=torch.tensor(bool(converged), device=device))
+                    iterations=host_write(int(iterations), device, torch.int32),
+                    converged=host_write(bool(converged), device))
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +364,7 @@ def qr_dispatch(n: int, device) -> str:
     return "cuda_blocked"
 
 
+@spanned
 def qr_eigenvalues(M: AbstractMatrix, opts: SolverOptions = QROptions(), *,
                    dtype=None) -> QRResult:
     """All eigenvalues of a dense square matrix via QR iteration, where the

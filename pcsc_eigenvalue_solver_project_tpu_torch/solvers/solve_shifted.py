@@ -23,6 +23,7 @@ import torch
 from ..core.dtypes import check_scalar_type
 from ..matrix.protocol import AbstractMatrix
 from ..ops.krylov import solve_shifted_bicgstab
+from ..utils.timing import spanned
 
 # Up to this size a sparse system is densified and LU-solved.
 DENSE_FALLBACK_MAX_N = 2048
@@ -48,6 +49,7 @@ def _dense_solve_shifted(a: torch.Tensor, shift, b: torch.Tensor) -> torch.Tenso
     return lu_solve(*lu_factor(shifted_dense(a, shift)), b)
 
 
+@spanned
 def solve_shifted(M: AbstractMatrix, shift, b, *, dtype=None, method: str = "auto",
                   tol: float = 1e-12, maxiter: int | None = None) -> torch.Tensor:
     """Solve ``(A - shift*I) x = b`` for a wrapped dense or sparse matrix, on

@@ -34,6 +34,7 @@ from ..matrix.dia import InterleavedDIA, SparseDIA
 from ..matrix.protocol import AbstractMatrix, require_nonempty, require_square
 from ..ops.dia_spmv import dia_matmat_cols
 from ..utils.prng import default_generator
+from ..utils.timing import spanned
 
 
 def _apply_block(M: AbstractMatrix, X: torch.Tensor) -> torch.Tensor:
@@ -174,6 +175,7 @@ def _result(ritz, total: int, converged: bool, device) -> QRResult:
                     converged=torch.tensor(converged, device=device))
 
 
+@spanned
 def chebyshev_subspace_iteration(M: AbstractMatrix, k: int = 4, *,
                                  block: int | None = None, degree: int = 10,
                                  opts: SolverOptions = SolverOptions(),
@@ -259,6 +261,7 @@ def chebyshev_subspace_iteration(M: AbstractMatrix, k: int = 4, *,
     return _result(ritz, total, converged, M.device)
 
 
+@spanned
 def subspace_iteration(M: AbstractMatrix, k: int = 4, *, block: int | None = None,
                        opts: SolverOptions = SolverOptions(), dtype=None,
                        sweeps_per_check: int = 10,

@@ -33,6 +33,7 @@ from ..solvers.power import (carry_to_result, norm, power_carry_loop, power_init
                              vdot)
 from .loops import host_flags
 from .prng import default_generator, random_unit_vector
+from .timing import spanned
 
 _VECTORS = (2, 3)  # x and z: the carry's rank blocks
 
@@ -83,6 +84,7 @@ def _run_chunks(carry, opts: SolverOptions, chunk: int, advance, save):
         save(carry)
 
 
+@spanned
 def power_method_checkpointed(M: AbstractMatrix, opts: SolverOptions = SolverOptions(), *,
                               checkpoint_dir: str, chunk: int = 200,
                               generator: torch.Generator | None = None,
@@ -172,6 +174,7 @@ def _restore_distributed(path: str, like, mesh):
     return tuple(carry)
 
 
+@spanned
 def distributed_dia_il_power_checkpointed(A, mesh, opts: SolverOptions = SolverOptions(), *,
                                           checkpoint_dir: str, chunk: int = 200,
                                           axis: str = "rows",

@@ -14,25 +14,30 @@ from __future__ import annotations
 
 import torch
 
+from .timing import annotate, host_read, host_write
+
 # Iterations between two host reads of the flags.
 BLOCK_ITERATIONS = 32
 
 
 def host_flags(k: torch.Tensor, done: torch.Tensor):
     """``(int(k), bool(done))`` in one read from the device."""
-    k_host, done_host = torch.stack([k.to(torch.int64), done.to(torch.int64)]).tolist()
+    k_host, done_host = host_read(torch.stack([k.to(torch.int64), done.to(torch.int64)]))
     return k_host, bool(done_host)
 
 
-def run_masked(step, carry, limit: int, block: int = BLOCK_ITERATIONS):
+def run_masked(step, carry, limit: int, block: int = BLOCK_ITERATIONS, *, span: str):
     """Apply ``step`` to ``carry = (k, done, ...)`` until ``done`` or
-    ``k == limit``, reading the two flags once every ``block`` steps."""
+    ``k == limit``, reading the two flags once every ``block`` steps. Each
+    read and the block it lets run are one span, the caller's ``span``
+    (``eigsol.power.block`` for the power loops)."""
     while True:
-        k, done = host_flags(carry[0], carry[1])
-        if done or k >= limit:
-            return carry
-        for _ in range(min(block, limit - k)):
-            carry = step(carry)
+        with annotate(span):
+            k, done = host_flags(carry[0], carry[1])
+            if done or k >= limit:
+                return carry
+            for _ in range(min(block, limit - k)):
+                carry = step(carry)
 
 
 def count(device) -> torch.Tensor:
@@ -41,4 +46,6 @@ def count(device) -> torch.Tensor:
 
 def flag(value, device) -> torch.Tensor:
     """A 0-d bool tensor (``value`` a bool or a 0-d tensor)."""
-    return torch.as_tensor(value, device=device).to(torch.bool).reshape(())
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.bool).reshape(())
+    return host_write(bool(value), device, torch.bool)

@@ -172,10 +172,6 @@ class TestTiming:
         x = torch.arange(5.0)
         assert t_timing.readback(x * 2) == 0.0
         assert t_timing.readback(torch.tensor([3.0 + 4.0j])) == 3.0
-        assert t_timing.timed(lambda v: v + 1, x, reps=2, warmup=1) >= 0.0
-        per_it = t_timing.marginal_loop_time(lambda n: torch.ones(n).cumsum(0), lo=10,
-                                             hi=20, reps=1)
-        assert per_it > 0.0
 
     def test_trace_and_annotate(self, tmp_path):
         with t_timing.trace(str(tmp_path)):
