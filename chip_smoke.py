@@ -285,6 +285,7 @@ N = 1_000_000
 BANDWIDTH = 16  # 33 diagonals: the operator of bench.py --n 1000000
 KERNEL_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/dia_spmv.cu"
 TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/dia_spmv.py"
+TPU_POWER = "pcsc_eigenvalue_solver_project_tpu/solvers/power.py"
 QR_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/qr_kernels.cu"
 B7_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/hessenberg_cluster.cu"
 QR_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/qr_kernels.py"
@@ -2138,7 +2139,9 @@ def general_sparse_path_phase(ctx, uniform_coo):
         if pack is not None:
             print(f"phase-18 route {key[0]} {key[1]}: "
                   f"{gs.pick_route(pack, planes=isinstance(M, GELLPlanes))}")
-    for name in ("gell_kernel", "gell_planes_kernel", "dia_il_kernel"):
+    # B1's window under the permuted bands, its power step on the plain band
+    for name in ("gell_kernel", "gell_planes_kernel", "dia_il_kernel", "dia_il_power_kernel",
+                 "power_finish_kernel"):
         check(launches[name] > 0, f"{name} was not launched by the phase-18 paths")
     print(f"phase-18 paths: {time.perf_counter() - t_path:.1f} s")
 
@@ -3869,8 +3872,47 @@ def main() -> None:
     compare(f"B1 dia_matvec_il_window with halo values n={N}", "B1",
             ds.dia_matvec_il_window(il.data_il, offs, w),
             ds.dia_matvec_il_window_plain(il.data_il, offs, w), 1e-5)
+    # B1's power step and its finish, f32 and bf16 diagonals: launch by launch
+    # from the same state as their plain versions (the start's product and
+    # its finish, then one iteration), then timed from the state they leave
+    for dt in (torch.float32, torch.bfloat16):
+        il = op32.interleaved(dtype=dt)
+        st = ds.power_state(il.encode_vec(x32 / torch.linalg.vector_norm(x32)))
+        for it in range(2):
+            ref = ds.PowerState(*(t.clone() for t in st))
+            ds.dia_il_power_kernel(il.data_il, offs, st, it)
+            ds.dia_il_power_step_plain(il.data_il, offs, ref, it)
+            main = dt == torch.float32 and it == 1
+            compare(f"B1 dia_il_power_kernel {dt} step {it} product n={N}", "B1 power",
+                    st.zz[1 - it], ref.zz[1 - it], 1e-5, main)
+            compare(f"B1 dia_il_power_kernel {dt} step {it} partials n={N}", "B1 power",
+                    st.partials, ref.partials, 1e-5)
+            ref = ds.PowerState(*(t.clone() for t in st))
+            ds.power_finish_kernel(st, 0.0, init=it == 0)
+            ds.power_finish_plain(ref, 0.0, init=it == 0)
+            check(torch.equal(st.ctl, ref.ctl),
+                  f"power_finish_kernel {dt} step {it}: carry {st.ctl.tolist()}, plain "
+                  f"{ref.ctl.tolist()}")
+            compare(f"power_finish_kernel {dt} step {it} scalars", "power finish",
+                    st.sc, ref.sc, 1e-5, main)
+        check(st.ctl.tolist() == [1, 0, 1, 0, 1, 0, 0, 0],
+              f"power step {dt}: carry {st.ctl.tolist()} after one iteration")
+        # the step reads half cur; the finish times a tolerance no difference
+        # meets, so that each call makes the whole update
+        step_bytes = (il.data_il.numel() * il.data_il.element_size() + 2 * st.zz[0].numel() * 4
+                      + st.partials.numel() * 4)
+        k_ms, p_ms = timed_pair(lambda: ds.dia_il_power_kernel(il.data_il, offs, st, 0),
+                                lambda: ds.dia_il_power_step_plain(il.data_il, offs, st, 0),
+                                plain_timer=time_events_ms)
+        timings[("B1 power", dt)] = (k_ms, p_ms, step_bytes)
+        finish_bytes = st.partials.numel() * 4 + 2 * (st.ctl.numel() + st.sc.numel()) * 4
+        k_ms, p_ms = timed_pair(lambda: ds.power_finish_kernel(st, -1.0),
+                                lambda: ds.power_finish_plain(st, -1.0),
+                                plain_timer=time_events_ms)
+        timings[("power finish", dt)] = (k_ms, p_ms, finish_bytes)
     spmv_kernels = (ds.dia_il_kernel, ds.dia_kernel, ds.dia_complex_kernel)  # B1-B3
-    for kernel in spmv_kernels:
+    power_kernels = (ds.dia_il_power_kernel, ds.power_finish_kernel)
+    for kernel in (*spmv_kernels, *power_kernels):
         print(f"launches in phase 3: {kernel.__name__} = {kernel.launches}")
         check(kernel.launches > 0, f"{kernel.__name__} never launched")
     card_name, card_limit = (s.strip() for s in card.splitlines()[0].split(","))
@@ -3931,11 +3973,15 @@ def main() -> None:
         seconds[name] = start.elapsed_time(end) / 1e3
     files = {"A": eigsol.power_method(A, demo), "B": eigsol.power_method(B, demo)}
     torch.cuda.synchronize()
-    launches = {kernel.__name__: kernel.launches for kernel in spmv_kernels}
+    launches = {kernel.__name__: kernel.launches for kernel in (*spmv_kernels, *power_kernels)}
 
     print(f"main-path launches: {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched by the main path")
+    for kernel in (*spmv_kernels[1:], *power_kernels):
+        check(launches[kernel.__name__] > 0,
+              f"{kernel.__name__} was not launched by the main path")
+    # the power runs on InterleavedDIA take B1's power step, not B1's window
+    check(launches["dia_il_kernel"] == 0,
+          f"dia_il_kernel launched {launches['dia_il_kernel']} times by the main path")
     # (a) fixed budget: against the loop driven by the plain matvec
     for name in ("IL f32 budget", "IL bf16 budget", "DIA f32 budget", "DIA c64 budget"):
         M, opts = runs[name]
@@ -4130,6 +4176,17 @@ def main() -> None:
                                           8 * nnz)):
         k_ms, p_ms, nbytes = timings[(tag, dt)]
         add_row(kernel.__name__, KERNEL_SOURCE, f"{TPU_KERNELS}:{line}",
+                launches[kernel.__name__], errors[tag], k_ms, p_ms, nbytes, flops, tag)
+    # B1's power step per call at 1M x 33 f32 (the product, the scale of its
+    # input and the two partial sums), and its one-block finish (the partials
+    # read, the carry read and written); both replace the JAX package's B1
+    # and its power loop's vector work
+    m = ds.il_rows(N) * ds.LANES
+    for kernel, tag, flops in ((ds.dia_il_power_kernel, "B1 power", 2 * nnz + 5 * m),
+                               (ds.power_finish_kernel, "power finish",
+                                2 * ds.power_blocks(ds.il_rows(N)))):
+        k_ms, p_ms, nbytes = timings[(tag, torch.float32)]
+        add_row(kernel.__name__, KERNEL_SOURCE, f"{TPU_KERNELS}:390, {TPU_POWER}:98",
                 launches[kernel.__name__], errors[tag], k_ms, p_ms, nbytes, flops, tag)
     # B7/B9 per call at 512 float32; B8 (complex64) per sweep at 128 (a call
     # of 10 sweeps reads H once and writes it once). B10 (float32) per sweep

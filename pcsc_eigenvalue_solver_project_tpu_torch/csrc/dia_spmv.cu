@@ -6,6 +6,9 @@
 //   B3  _dia_complex_kernel (:73)     -> dia_rowmajor_kernel on float2/double2
 //   B1  _dia_il_kernel (:390) and
 //       _dia_il_kernel_stream (:535)  -> dia_il_window_kernel
+//       and, for the power loop, dia_il_window_kernel_power (the
+//       product and the step's vector work in one launch) with its
+//       one-block power_finish_kernel
 //   B3  on split planes (:73, the SplitComplexDIA entry) and
 //   B4  _dia_il_planes_kernel (:577) and
 //       _dia_il_planes_kernel_stream (:603)
@@ -132,6 +135,160 @@ dia_il_window_kernel(const V* __restrict__ vals, const A* __restrict__ w,
     acc = madd(acc, widen(vals[d * m + e]), w[e + shift]);
   }
   y[e] = acc;
+}
+
+// B1's power-step form: one iteration of the power method on the
+// interleaved layout, the product and the vector work of the step in one
+// launch. The pair zz (2, R, 128) holds the products z; the step reads
+// z = zz[src] and the scale s = 1/||z|| (1 where z is zero), writes
+// z_new = A (s z) to zz[1 - src] once, and leaves each block's partial sums
+// of x_new . z_new and z_new . z_new, x_new = s z, in partials (2, blocks).
+// The host passes the halves as pointers: src is the step's parity, which
+// is the carry's cur whenever the step runs (cur flips with every kept
+// iterate, and once one is not kept none runs again). As kernel arguments
+// the halves' addresses are uniform across the grid; a read of cur by each
+// thread before its first load cost a quarter of the step's speed on the
+// H100 (PERF.md). The halo is read from z itself, predicated: row r + off
+// outside [0, R) is row r + off -+ R of lane l -+ 1, zero past lane 0 or
+// 127 (the window _il_window builds for dia_il_window_kernel, without
+// building it); the selects keep every load unconditional. A block of 256
+// threads takes kPowerRows rows, a thread lanes l and l + 64 of its row, so
+// that a diagonal's index arithmetic, the same for the two, serves both (a
+// thread an element ran ~4% slower). After done, or with a zero z pending
+// (the next finish's breakdown), the step reads the flags and writes
+// nothing. The sums run in a fixed order, so a step repeats bit for bit.
+constexpr int kCtlK = 0, kCtlDone = 1, kCtlInitialized = 2, kCtlConverged = 3, kCtlUsed = 4,
+              kCtlCur = 5, kCtlZero = 6;  // ctl, int32 (ops/dia_spmv.py: CTL_*)
+constexpr int kScS = 0, kScSx = 1, kScLam = 2;  // sc, float32 (SC_*)
+constexpr int kPowerRows = kThreads / (kLanes / 2);  // rows a block (POWER_BLOCK / 128)
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+dia_il_window_kernel_power(const V* __restrict__ vals, const float* __restrict__ z,
+                           float* __restrict__ out, const int* __restrict__ offsets, int k,
+                           int64_t rows, const int* __restrict__ ctl,
+                           const float* __restrict__ sc, float* __restrict__ partials) {
+  if (ctl[kCtlDone] | ctl[kCtlZero]) return;
+  const float s = sc[kScS];
+  const int64_t m = rows * kLanes;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kPowerRows + threadIdx.x / 64;
+  const int lane = threadIdx.x % 64;  // and lane + 64
+  float acc0 = 0.0f, acc1 = 0.0f, p = 0.0f, q = 0.0f;
+  if (row < rows) {
+    const int64_t e = row * kLanes + lane;
+    const int64_t wrap = m - 1;  // from row r + off -+ R of lane l to lane l -+ 1
+    const V* v = vals + e;
+#pragma unroll 9
+    for (int d = 0; d < k; ++d) {
+      const int off = __ldg(offsets + d);
+      const int64_t r = row + off;
+      const bool lo = r < 0, hi = r >= rows;
+      const int64_t j = e + static_cast<int64_t>(off) * kLanes + (lo ? wrap : (hi ? -wrap : 0));
+      const bool in0 = !(lo && lane == 0), in1 = !(hi && lane == 63);
+      const float x0 = __ldg(z + (in0 ? j : e));
+      const float x1 = __ldg(z + (in1 ? j + 64 : e));
+      acc0 = fmaf(widen(v[0]), in0 ? x0 * s : 0.0f, acc0);
+      acc1 = fmaf(widen(v[64]), in1 ? x1 * s : 0.0f, acc1);
+      v += m;
+    }
+    out[e] = acc0;
+    out[e + 64] = acc1;
+    p = __ldg(z + e) * s * acc0 + __ldg(z + e + 64) * s * acc1;
+    q = acc0 * acc0 + acc1 * acc1;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    p += __shfl_down_sync(0xffffffffu, p, o);
+    q += __shfl_down_sync(0xffffffffu, q, o);
+  }
+  __shared__ float warp_p[kThreads / 32], warp_q[kThreads / 32];
+  if (threadIdx.x % 32 == 0) {
+    warp_p[threadIdx.x / 32] = p;
+    warp_q[threadIdx.x / 32] = q;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sp = 0.0f, sq = 0.0f;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      sp += warp_p[w];
+      sq += warp_q[w];
+    }
+    partials[blockIdx.x] = sp;
+    partials[gridDim.x + blockIdx.x] = sq;
+  }
+}
+
+// The power step's scalar finish, one block: sums the step's partials in a
+// fixed order (each thread a strided run in double, by fours where the
+// count allows, then a tree), then
+// updates the loop's carry as solvers/power.py::power_carry_loop's body
+// does. Nothing after done. A zero z pending is the breakdown: k and used
+// advance, done is set, nothing is kept. Else lambda_new = x_new . z_new,
+// converged by is_close_relative (the difference and the scale in float32,
+// tol in float64, after the first kept iterate), the kept x becomes
+// s * zz[cur] (sx = s), cur flips to the new z, and s becomes 1/||z_new||
+// (1, with the zero flag, where z_new is zero). init = 1 finishes the
+// product A x0 of the start: only x = 1 * x0, cur, s and the zero flag.
+constexpr int kFinishThreads = 1024;
+
+__global__ void __launch_bounds__(kFinishThreads)
+power_finish_kernel(const float* __restrict__ partials, int64_t blocks, int* __restrict__ ctl,
+                    float* __restrict__ sc, double tol, int init) {
+  const int t = threadIdx.x;
+  if (ctl[kCtlDone]) return;
+  if (ctl[kCtlZero] && !init) {
+    if (t == 0) {
+      ctl[kCtlK] += 1;
+      ctl[kCtlUsed] = ctl[kCtlK];
+      ctl[kCtlDone] = 1;
+    }
+    return;
+  }
+  double p = 0.0, q = 0.0;
+  if (blocks % 4 == 0) {  // 16-byte loads, 8 in flight a thread
+    const float4* p4 = reinterpret_cast<const float4*>(partials);
+    const float4* q4 = reinterpret_cast<const float4*>(partials + blocks);
+#pragma unroll 4
+    for (int64_t b = t; b < blocks / 4; b += kFinishThreads) {
+      const float4 a = p4[b], c = q4[b];
+      p += (static_cast<double>(a.x) + a.y) + (static_cast<double>(a.z) + a.w);
+      q += (static_cast<double>(c.x) + c.y) + (static_cast<double>(c.z) + c.w);
+    }
+  } else {
+    for (int64_t b = t; b < blocks; b += kFinishThreads) {
+      p += partials[b];
+      q += partials[blocks + b];
+    }
+  }
+  __shared__ double sum_p[kFinishThreads], sum_q[kFinishThreads];
+  sum_p[t] = p;
+  sum_q[t] = q;
+  __syncthreads();
+  for (int h = kFinishThreads / 2; h > 0; h >>= 1) {
+    if (t < h) {
+      sum_p[t] += sum_p[t + h];
+      sum_q[t] += sum_q[t + h];
+    }
+    __syncthreads();
+  }
+  if (t != 0) return;
+  if (!init) {
+    const float lam_new = static_cast<float>(sum_p[0]);
+    const float diff = fabsf(lam_new - sc[kScLam]);
+    const float scale = 1.0f + fabsf(lam_new);
+    const int conv = ctl[kCtlInitialized] && static_cast<double>(diff) <= tol * scale;
+    ctl[kCtlK] += 1;
+    ctl[kCtlUsed] = ctl[kCtlK];
+    ctl[kCtlInitialized] = 1;
+    ctl[kCtlConverged] |= conv;
+    ctl[kCtlDone] = conv;
+    sc[kScLam] = lam_new;
+  }
+  const float norm = static_cast<float>(sqrt(sum_q[0]));
+  sc[kScSx] = sc[kScS];
+  ctl[kCtlCur] = 1 - ctl[kCtlCur];
+  ctl[kCtlZero] = norm == 0.0f;
+  sc[kScS] = norm == 0.0f ? 1.0f : 1.0f / norm;
 }
 
 // Where element e of the output reads its vector: row-major, x[e + off]
@@ -492,6 +649,20 @@ int launch_il_window(const void* vals, const void* w, const void* offsets, int k
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename V>
+int launch_il_power(const void* vals, void* zz, int src, const void* offsets, int k,
+                    int64_t rows, const void* ctl, const void* sc, void* partials,
+                    cudaStream_t stream) {
+  if (src != 0 && src != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t m = rows * kLanes;
+  const unsigned blocks = static_cast<unsigned>((rows + kPowerRows - 1) / kPowerRows);
+  dia_il_window_kernel_power<V><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const V*>(vals), static_cast<const float*>(zz) + src * m,
+      static_cast<float*>(zz) + (1 - src) * m, static_cast<const int*>(offsets), k, rows,
+      static_cast<const int*>(ctl), static_cast<const float*>(sc), static_cast<float*>(partials));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename V, typename A>
 int launch_planes(int window, const void* vals, const void* x, const void* offsets, int k,
                   int pr, int64_t m, int64_t x_plane, void* y, cudaStream_t stream) {
@@ -600,6 +771,38 @@ int dia_il_window_spmv(int dtype, int device, const void* vals, const void* w,
     case kC128: return launch_il_window<double2, double2>(vals, w, offsets, k, pr, m, y, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// B1's power step on the interleaved layout: float32 (dtype kF32) or bf16
+// (kBF16) diagonals (k, R, 128), the float32 pair zz (2, R, 128) read from
+// half src (0 or 1), the carry ctl (int32) and sc (float32), partials
+// (2, ceil(R / 4)).
+int dia_il_power_step(int dtype, int device, const void* vals, void* zz, int src,
+                      const void* offsets, int k, long long rows, const void* ctl,
+                      const void* sc, void* partials, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return launch_il_power<float>(vals, zz, src, offsets, k, rows, ctl, sc, partials, s);
+    case kBF16:
+      return launch_il_power<__nv_bfloat16>(vals, zz, src, offsets, k, rows, ctl, sc, partials,
+                                            s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The power step's scalar finish: one block over the step's partials.
+int dia_il_power_finish(int device, const void* partials, long long blocks, void* ctl, void* sc,
+                        double tol, int init, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  power_finish_kernel<<<1, kFinishThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partials), blocks, static_cast<int*>(ctl),
+      static_cast<float*>(sc), tol, init);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Split-plane complex SpMV (B4 with window = 1 on the interleaved layout,

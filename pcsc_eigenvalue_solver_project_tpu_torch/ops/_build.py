@@ -116,6 +116,13 @@ def load() -> ctypes.CDLL:
             # dtype, device, vals_il, w, offsets, k, pr, R*128, y, stream
             lib.dia_il_window_spmv.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i64, ptr, ptr]
             lib.dia_il_window_spmv.restype = i32
+            # dtype, device, vals_il, zz, src, offsets, k, R, ctl, sc, partials, stream
+            lib.dia_il_power_step.argtypes = [i32, i32, ptr, ptr, i32, ptr, i32, i64, ptr, ptr,
+                                              ptr, ptr]
+            lib.dia_il_power_step.restype = i32
+            # device, partials, blocks, ctl, sc, tol, init, stream
+            lib.dia_il_power_finish.argtypes = [i32, ptr, i64, ptr, ptr, f64, i32, ptr]
+            lib.dia_il_power_finish.restype = i32
             # dtype, device, vals_p, x_p, offsets, k, pr, m, x plane stride, window, y, stream
             lib.dia_planes_spmv.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i64, i64, i32,
                                             ptr, ptr]

@@ -13,6 +13,12 @@ all in ``csrc/dia_spmv.cu`` (see its header for the design):
 - ``dia_planes_kernel`` (B3's split-plane entry) and ``dia_il_planes_kernel``
   (B4): the complex SpMV on real re/im planes, row-major ``(2, k, n)`` and
   interleaved ``(2, k, R, 128)``, four FMAs per diagonal;
+- ``dia_il_power_kernel`` (B1's power-step form) and ``power_finish_kernel``:
+  one iteration of the power method on the interleaved layout in two
+  launches, the product with the step's vector work (the scale of the
+  iterate, the halo read in place, the partial sums of the Rayleigh
+  quotient and the norm) and a one-block finish that updates the loop's
+  carry on the device (``PowerState``);
 - ``dia_block_kernel`` and ``dia_il_block_kernel`` (B5): the band times a
   block of ``nvec`` vectors, row-major (an ``(nvec, n)`` block, or by
   strides the ``(n, nvec)`` block of the block solvers) and interleaved,
@@ -24,7 +30,8 @@ Each kernel wrapper checks its inputs, allocates the output, launches on
 the current stream and counts its launches in ``.launches``. The
 dispatchers (``dia_matvec``, ``dia_matvec_il``, ``dia_matvec_il_window``,
 ``dia_matvec_planes``, ``dia_matvec_il_planes``, ``dia_matmat``,
-``dia_matmat_cols``, ``dia_matmat_il``, ``dia_matmat_il_window``) run the
+``dia_matmat_cols``, ``dia_matmat_il``, ``dia_matmat_il_window``,
+``dia_il_power_step``, ``power_finish``) run the
 plain PyTorch version when the operands lie on the CPU, and the kernel
 otherwise: a tensor on a CUDA device launches the kernel or raises. Outputs have the accumulation
 dtype ``acc_dtype(stored)``, as the Pallas kernels' do.
@@ -41,6 +48,7 @@ inside the kernels and ``_backend_supports_pallas``.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -232,6 +240,100 @@ def dia_matmat_il_plain(vals_il: torch.Tensor, offsets, xs_il: torch.Tensor) -> 
 
 
 # --------------------------------------------------------------------------
+# B1's power-step form: the state and the plain versions
+# --------------------------------------------------------------------------
+
+# The carry's fields, as csrc/dia_spmv.cu indexes them: ctl (int32) holds
+# the iteration count k, done, initialized, converged, the iterations used,
+# cur (which of the pair holds the newest product z) and the zero flag
+# (||zz[cur]|| == 0: the next iteration breaks down); sc (float32) the step's
+# scale s = 1/||zz[cur]|| (1 where zero), the kept iterate's scale sx (the
+# iterate is x = sx * zz[1 - cur]) and lambda.
+CTL_K, CTL_DONE, CTL_INITIALIZED, CTL_CONVERGED, CTL_USED, CTL_CUR, CTL_ZERO = range(7)
+SC_S, SC_SX, SC_LAM = range(3)
+POWER_BLOCK = 512  # elements of the step's block (4 rows), summed into one partial
+
+
+class PowerState(NamedTuple):
+    """The power step's operands: ``zz`` the pair (2, R, 128) of products in
+    float32, the carry ``ctl`` (8,) and ``sc`` (4,) (``CTL_*``, ``SC_*``),
+    and the step's partial sums ``partials`` (2, blocks) of x . z and z . z,
+    one a block of ``POWER_BLOCK`` elements."""
+    zz: torch.Tensor
+    ctl: torch.Tensor
+    sc: torch.Tensor
+    partials: torch.Tensor
+
+
+def power_blocks(R: int) -> int:
+    """Blocks of the power step over an (R, 128) vector, one partial each."""
+    return -(-R * LANES // POWER_BLOCK)
+
+
+def power_state(x0_il: torch.Tensor) -> PowerState:
+    """The state of a start vector (R, 128), before its product: zz[0] = x0
+    and cur 0, s = sx = 1, the counters, flags and lambda zero. Made on
+    x0's device with no copy from the host."""
+    R = x0_il.shape[0]
+    zz = torch.empty((2, R, LANES), dtype=torch.float32, device=x0_il.device)
+    zz[0] = x0_il
+    ctl = torch.zeros(8, dtype=torch.int32, device=x0_il.device)
+    sc = torch.zeros(4, dtype=torch.float32, device=x0_il.device)
+    sc[:SC_LAM] = 1
+    partials = torch.empty((2, power_blocks(R)), dtype=torch.float32, device=x0_il.device)
+    return PowerState(zz, ctl, sc, partials)
+
+
+def dia_il_power_step_plain(vals_il: torch.Tensor, offsets, st: PowerState, src: int) -> None:
+    """B1's power step by its definition, in place on ``st``: unless done or
+    the zero flag is set, x = s * zz[src], zz[1 - src] = A x
+    (``dia_matvec_il_plain``), and the partial sums of x . (A x) and
+    (A x) . (A x) over each block of ``POWER_BLOCK`` elements. ``src`` is
+    the step's parity, the carry's cur whenever the step runs
+    (``power_fused_loop``)."""
+    if int(st.ctl[CTL_DONE]) or int(st.ctl[CTL_ZERO]):
+        return
+    x = st.zz[src] * st.sc[SC_S]
+    z = dia_matvec_il_plain(vals_il, offsets, x)
+    st.zz[1 - src] = z
+    blocks = st.partials.shape[1]
+    sums = torch.stack([x * z, z * z]).reshape(2, -1)
+    sums = torch.nn.functional.pad(sums, (0, blocks * POWER_BLOCK - sums.shape[1]))
+    st.partials.copy_(sums.reshape(2, blocks, POWER_BLOCK).sum(-1))
+
+
+def power_finish_plain(st: PowerState, tol: float, init: bool = False) -> None:
+    """The power step's finish by its definition, in place on ``st``: the
+    carry update of ``solvers/power.py::power_carry_loop``'s body (see
+    ``power_finish_kernel``), the partials summed in float64."""
+    ctl, sc = st.ctl, st.sc
+    if int(ctl[CTL_DONE]):
+        return
+    if int(ctl[CTL_ZERO]) and not init:  # breakdown: nothing kept
+        ctl[CTL_K] += 1
+        ctl[CTL_USED] = ctl[CTL_K]
+        ctl[CTL_DONE] = 1
+        return
+    p, q = st.partials.to(torch.float64).sum(1)
+    if not init:
+        lam_new = p.to(torch.float32)
+        diff = torch.abs(lam_new - sc[SC_LAM])
+        scale = 1 + torch.abs(lam_new)
+        conv = int(ctl[CTL_INITIALIZED]) and bool(diff.double() <= tol * scale.double())
+        ctl[CTL_K] += 1
+        ctl[CTL_USED] = ctl[CTL_K]
+        ctl[CTL_INITIALIZED] = 1
+        ctl[CTL_CONVERGED] |= int(conv)
+        ctl[CTL_DONE] = int(conv)
+        sc[SC_LAM] = lam_new
+    norm = torch.sqrt(q).to(torch.float32)
+    sc[SC_SX] = sc[SC_S].clone()
+    ctl[CTL_CUR] = 1 - ctl[CTL_CUR]
+    ctl[CTL_ZERO] = int(norm == 0)
+    sc[SC_S] = 1 if norm == 0 else 1 / norm
+
+
+# --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -335,6 +437,69 @@ def dia_il_kernel(vals_il: torch.Tensor, offsets, w: torch.Tensor) -> torch.Tens
 
 
 dia_il_kernel.launches = 0
+
+
+def _check_power_state(name: str, st: PowerState, R: int, device: torch.device) -> None:
+    expected = {"zz": ((2, R, LANES), torch.float32), "ctl": ((8,), torch.int32),
+                "sc": ((4,), torch.float32), "partials": ((2, power_blocks(R)), torch.float32)}
+    for label, (shape, dtype) in expected.items():
+        t = getattr(st, label)
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: {label} is {tuple(t.shape)} {t.dtype}, expected "
+                             f"{shape} {dtype}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous on {device}")
+
+
+def dia_il_power_kernel(vals_il: torch.Tensor, offsets, st: PowerState, src: int) -> None:
+    """B1's power step on the card (``dia_il_window_kernel_power``): float32
+    or bfloat16 (k, R, 128) interleaved diagonals, the state ``st`` updated
+    in place as ``dia_il_power_step_plain`` says, reading half ``src`` of
+    the pair, |offsets| <= R."""
+    offsets = tuple(int(o) for o in offsets)
+    if src not in (0, 1):
+        raise ValueError(f"dia_il_power_kernel: src {src}, expected 0 or 1")
+    if vals_il.ndim != 3 or vals_il.shape[2] != LANES:
+        raise ValueError(f"dia_il_power_kernel: expected (k, R, {LANES}) diagonals, "
+                         f"got {tuple(vals_il.shape)}")
+    if vals_il.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dia_il_power_kernel: diagonals must be float32 or bfloat16, "
+                        f"got {vals_il.dtype}")
+    k, R, _ = vals_il.shape
+    if any(abs(o) > R for o in offsets):
+        raise ValueError("dia_il_power_kernel: bandwidth exceeds chunk size R")
+    _check_operands("dia_il_power_kernel", vals_il, st.zz, offsets, k)
+    _check_power_state("dia_il_power_kernel", st, R, vals_il.device)
+    lib = _build.load()
+    rc = lib.dia_il_power_step(
+        _DTYPE_CODES[vals_il.dtype], vals_il.device.index, vals_il.data_ptr(), st.zz.data_ptr(),
+        src, _device_offsets(offsets, vals_il.device).data_ptr(), k, R, st.ctl.data_ptr(),
+        st.sc.data_ptr(), st.partials.data_ptr(),
+        torch.cuda.current_stream(vals_il.device).cuda_stream)
+    _raise_on_error("dia_il_power_kernel", lib, rc)
+    dia_il_power_kernel.launches += 1
+
+
+dia_il_power_kernel.launches = 0
+
+
+def power_finish_kernel(st: PowerState, tol: float, init: bool = False) -> None:
+    """The power step's finish on the card (``power_finish_kernel``, one
+    block): ``st`` updated in place as ``power_finish_plain`` says, the
+    partials summed in a fixed order."""
+    device = st.zz.device
+    if device.type != "cuda":
+        raise ValueError(f"power_finish_kernel: state on {device}, expected a CUDA device")
+    _check_power_state("power_finish_kernel", st, st.zz.shape[1], device)
+    lib = _build.load()
+    rc = lib.dia_il_power_finish(
+        device.index, st.partials.data_ptr(), st.partials.shape[1], st.ctl.data_ptr(),
+        st.sc.data_ptr(), float(tol), int(init), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error("power_finish_kernel", lib, rc)
+    power_finish_kernel.launches += 1
+
+
+power_finish_kernel.launches = 0
 
 
 def _check_planes(name: str, vals: torch.Tensor) -> None:
@@ -525,7 +690,8 @@ dia_il_block_kernel.launches = 0
 dia_il_block_kernel.last_route = None
 
 KERNELS = (dia_il_kernel, dia_kernel, dia_complex_kernel, dia_il_planes_kernel,
-           dia_planes_kernel, dia_block_kernel, dia_il_block_kernel)
+           dia_planes_kernel, dia_block_kernel, dia_il_block_kernel, dia_il_power_kernel,
+           power_finish_kernel)
 
 
 def reset_launch_counts() -> None:
@@ -658,3 +824,21 @@ def dia_matmat_il_window(vals_il: torch.Tensor, offsets, w: torch.Tensor) -> tor
         return dia_matmat_il_window_plain(vals_il, offsets, w)
     return dia_il_block_kernel(vals_il, offsets,
                                w.to(torch.promote_types(w.dtype, torch.float32)))
+
+
+def dia_il_power_step(vals_il: torch.Tensor, offsets, st: PowerState, src: int) -> None:
+    """One power step on ``st`` (``power_state``) from half ``src`` of the
+    pair: B1's power-step form on the card, its plain version on the CPU."""
+    if vals_il.device.type == "cpu":
+        dia_il_power_step_plain(vals_il, offsets, st, src)
+    else:
+        dia_il_power_kernel(vals_il, offsets, st, src)
+
+
+def power_finish(st: PowerState, tol: float, init: bool = False) -> None:
+    """The finish of a power step (``init``: of the start's product), in
+    place on ``st``: the kernel on the card, the plain version on the CPU."""
+    if st.zz.device.type == "cpu":
+        power_finish_plain(st, tol, init)
+    else:
+        power_finish_kernel(st, tol, init)

@@ -20,6 +20,16 @@ iterations after ``done`` inside a block change nothing, and the host reads
 the flag once per block, not once per matvec. The result and iteration
 count are exactly the while-loop's.
 
+An ``InterleavedDIA`` with float32 or bfloat16 diagonals on a CUDA device
+runs the same iteration on B1's power-step form (``power_fused_loop``):
+each iteration is two launches, the product with the step's vector work and
+a one-block finish that updates the carry on the device, so no vector is
+masked or copied; after ``done`` both launches change nothing. The
+iterations, flags and stopping rule are the loop's; only the summation
+order and the scale (``s z`` for ``z / ||z||``) round differently. On the
+CPU ``power_method`` keeps ``power_carry_loop``; ``power_fused_loop`` called
+there runs the step's plain version.
+
 Split-plane complex operators (``matrix/split_complex.py``) run the same
 loop on (2, n) real planes with a (2,) plane eigenvalue
 (``power_method_split_complex``, JAX ``_power_loop_split``), and
@@ -39,7 +49,9 @@ from ..core.results import EigenResult
 from ..core.tolerance import is_close_relative
 from ..matrix.protocol import (AbstractMatrix, decode_result,
                                require_nonempty, require_square)
+from ..matrix.dia import InterleavedDIA
 from ..matrix.split_complex import InterleavedSplitComplexDIA, SplitComplexDIA
+from ..ops import dia_spmv as ds
 from ..ops.split_complex import splitc_is_close_relative, splitc_norm, splitc_vdot
 from ..utils.loops import BLOCK_ITERATIONS, count, flag, run_masked
 from ..utils.prng import default_generator, random_unit_vector
@@ -123,6 +135,49 @@ def power_iteration_loop(matvec, vdot, norm, x0: torch.Tensor,
     return carry_to_result(carry)
 
 
+# The diagonals B1's power-step form takes: real, accumulated in float32.
+FUSED_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def fused_route(M) -> bool:
+    """Whether ``power_method`` runs ``M`` on B1's power-step form: an
+    ``InterleavedDIA`` on a CUDA device with float32 or bfloat16 diagonals
+    whose halo fits in a lane's chunk (the condition of its matvec). Every
+    other operator, and every other power loop, runs ``power_carry_loop``."""
+    return (isinstance(M, InterleavedDIA) and M.data_il.is_cuda
+            and M.dtype in FUSED_DTYPES and ds.il_window_halo(M.offsets) <= M.R)
+
+
+def power_fused_loop(M: InterleavedDIA, x0: torch.Tensor, max_iterations: int,
+                     tol) -> EigenResult:
+    """The power iteration from the interleaved start ``x0`` (R, 128) on
+    B1's power-step form (``ops/dia_spmv.py``: ``dia_il_power_step`` and
+    ``power_finish``), with the carry in the step's state on the device:
+    one step and one finish an iteration, the host reading ``(k, done)``
+    once a block as ``power_carry_loop`` does, and the iterate
+    ``x = sx * zz[1 - cur]`` built once at the end. Step t (the start's
+    product is step 0) reads half ``t % 2`` of the pair, which is the
+    carry's cur whenever it runs. ``tol`` is decided in float64."""
+    tol = float(tol)
+    st = ds.power_state(x0)
+    ds.dia_il_power_step(M.data_il, M.offsets, st, 0)  # z = A x0
+    ds.power_finish(st, tol, init=True)
+
+    def step(carry):
+        k, done, t = carry
+        ds.dia_il_power_step(M.data_il, M.offsets, st, (t + 1) % 2)
+        ds.power_finish(st, tol)
+        return k, done, t + 1
+
+    run_masked(step, (st.ctl[ds.CTL_K], st.ctl[ds.CTL_DONE], 0), max_iterations,
+               BLOCK_ITERATIONS, span="eigsol.power.block")
+    prev = 1 - st.ctl[ds.CTL_CUR:ds.CTL_CUR + 1].long()
+    x = st.zz.index_select(0, prev)[0] * st.sc[ds.SC_SX]
+    return EigenResult(eigenvalue=st.sc[ds.SC_LAM].clone(), eigenvector=x,
+                       iterations=st.ctl[ds.CTL_USED].clone(),
+                       converged=st.ctl[ds.CTL_CONVERGED].bool())
+
+
 @spanned
 def power_method_split_complex(M, opts: SolverOptions = SolverOptions(), *,
                                generator: torch.Generator | None = None,
@@ -175,7 +230,9 @@ def power_method(M: AbstractMatrix, opts: SolverOptions = SolverOptions(), *,
     mismatch with the stored dtype raises ``TypeError`` (parity with
     power_method.hpp:137-139). ``generator``/``x0`` control the start vector.
     Split-plane complex operators are routed to the plane loop
-    (``power_method_split_complex``), as in the JAX package.
+    (``power_method_split_complex``), as in the JAX package, and an
+    ``InterleavedDIA`` with float32 or bfloat16 diagonals on a CUDA device to
+    B1's power-step form (``fused_route``).
     """
     if isinstance(M, (SplitComplexDIA, InterleavedSplitComplexDIA)):
         return power_method_split_complex(M, opts, generator=generator, x0=x0)
@@ -197,8 +254,11 @@ def power_method(M: AbstractMatrix, opts: SolverOptions = SolverOptions(), *,
     # lane-major interleaved for InterleavedDIA) — encode once, iterate
     # domain-native, decode the eigenvector once.
     x0 = M.encode_vec(x0)
-    r = power_iteration_loop(M.matvec, vdot, norm, x0, opts.max_iterations,
-                             opts.tolerance)
+    if fused_route(M):
+        r = power_fused_loop(M, x0, opts.max_iterations, opts.tolerance)
+    else:
+        r = power_iteration_loop(M.matvec, vdot, norm, x0, opts.max_iterations,
+                                 opts.tolerance)
     return decode_result(M, r)
 
 

@@ -66,6 +66,15 @@ non-consecutive offsets, one-sided bands, ragged n, 1, 7, 8, 9 and 17
 vectors, a band too wide for the tile, halo rows carrying values) and on the
 (n, nvec) entry of the block solvers.
 
+B1's power-step form (``dia_il_power_kernel``) and its finish are held to
+their plain versions launch by launch from the same state, on HPCG's 104^3
+stencil and on a band whose rows fill lane 127 and whose halo crosses a lane
+in every row (R = 1024, and 1021 for a ragged last block): the product and the partial sums to ``TOL``, the carry's
+flags exactly and its scalars to 1e-6; after done and on a breakdown they
+change nothing that the plain versions keep; two runs repeat bit for bit;
+``power_method`` on that route against the generic loop at 200 iterations
+(the same count, the eigenvalue to 1e-6), its B1 launches the power step's.
+
 The general sparse SpMV B6 (``gell_kernel`` on real and native complex
 vectors, ``gell_planes_kernel`` on re/im planes) is held to its plain version
 the same way, relative to ``max|y|`` (``TOL`` of the vector dtype), for every
@@ -209,6 +218,199 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         ds.dia_kernel(vals[:2].contiguous(), (-1, 0, 1), x)
     with pytest.raises(TypeError, match="dia_complex_kernel"):
         ds.dia_kernel(vals.to(torch.complex64), (-1, 0, 1), x.to(torch.complex64))
+
+
+# --------------------------------------------------------------------------
+# B1's power-step form (dia_il_window_kernel_power) and its finish
+# --------------------------------------------------------------------------
+
+def hpcg_stencil(grid, dtype, device):
+    """A 27-point stencil on a grid^3 cube with HPCG's pattern (a
+    neighbour's entry where it lies inside the cube), the values uniform
+    around HPCG's 26 and -1: interleaved diagonals (27, R, 128) with R the
+    band's halo, the offsets and n."""
+    n = grid ** 3
+    gen = torch.Generator(device=device).manual_seed(grid)
+    i = torch.arange(n, device=device)
+    x, y, z = i % grid, (i // grid) % grid, i // grid ** 2
+    offsets, rows = [], []
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                inside = ((0 <= x + dx) & (x + dx < grid) & (0 <= y + dy) & (y + dy < grid)
+                          & (0 <= z + dz) & (z + dz < grid))
+                offsets.append(dz * grid * grid + dy * grid + dx)
+                value = 26.0 if offsets[-1] == 0 else -1.0
+                noise = torch.rand(n, generator=gen, device=device) * 0.2 - 0.1
+                rows.append(torch.where(inside, value + noise, 0.0))
+    R = ds.il_rows(n, ds.il_window_halo(offsets))
+    return ds.interleave_dia_vals(torch.stack(rows).to(dtype), R), tuple(offsets), n
+
+
+def power_operands(case, dtype, device):
+    """``stencil-104``: HPCG's default 104^3 grid, the lanes past 102
+    padding; ``band-lane-127``: a band whose rows fill lane 127 (n = 128 R - 3)
+    and reach R rows up and down, so that every row's halo crosses a lane;
+    ``band-ragged-R``: the same with R = 1021, so that the step's last block
+    of 4 rows holds one."""
+    if case == "stencil-104":
+        return hpcg_stencil(104, dtype, device)
+    R = 1024 if case == "band-lane-127" else 1021
+    n = ds.LANES * R - 3
+    offsets = (-R, -R + 1, -1, 0, 1, R - 1, R)
+    vals, _ = band(n, offsets, dtype, seed=11, device=device)
+    return ds.interleave_dia_vals(vals, R), offsets, n
+
+
+def start_state(n, R, device, seed=3):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x0 = torch.rand(n, generator=gen, device=device) * 2 - 1
+    return ds.power_state(ds.interleave_vec(x0 / torch.linalg.vector_norm(x0), R))
+
+
+def copied(st):
+    return ds.PowerState(*(t.clone() for t in st))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["stencil-104", "band-lane-127", "band-ragged-R"])
+def test_il_power_kernel_matches_plain(cuda, case, dtype):
+    # each launch from the same state as its plain version: the start's
+    # product and its finish, then three iterations
+    vals_il, offsets, n = power_operands(case, dtype, cuda)
+    st = start_state(n, vals_il.shape[1], cuda)
+    before = (ds.dia_il_power_kernel.launches, ds.power_finish_kernel.launches)
+    for it in range(4):
+        cur = it % 2  # the step's parity is the carry's cur while it runs
+        assert int(st.ctl[ds.CTL_CUR]) == cur
+        ref = copied(st)
+        ds.dia_il_power_kernel(vals_il, offsets, st, cur)
+        ds.dia_il_power_step_plain(vals_il, offsets, ref, cur)
+        assert rel_err(st.zz[1 - cur], ref.zz[1 - cur]) <= TOL[dtype]
+        assert torch.equal(st.zz[cur], ref.zz[cur])
+        for j in range(2):
+            assert rel_err(st.partials[j], ref.partials[j]) <= TOL[dtype]
+        ref = copied(st)
+        ds.power_finish_kernel(st, 0.0, init=it == 0)
+        ds.power_finish_plain(ref, 0.0, init=it == 0)
+        assert torch.equal(st.ctl, ref.ctl)
+        torch.testing.assert_close(st.sc, ref.sc, rtol=1e-6, atol=0)
+    torch.cuda.synchronize()
+    assert st.ctl.tolist() == [3, 0, 1, 0, 3, 0, 0, 0]
+    assert (ds.dia_il_power_kernel.launches, ds.power_finish_kernel.launches) == (
+        before[0] + 4, before[1] + 4)
+
+
+def test_il_power_kernel_after_done_and_breakdown(cuda):
+    vals_il, offsets, n = power_operands("band-lane-127", torch.float32, cuda)
+    st = start_state(n, vals_il.shape[1], cuda)
+    ds.dia_il_power_kernel(vals_il, offsets, st, 0)
+    ds.power_finish_kernel(st, 0.0, init=True)
+    # a tolerance any change meets: no test on the first kept iterate, done
+    # on the second
+    ds.dia_il_power_kernel(vals_il, offsets, st, 1)
+    ds.power_finish_kernel(st, 100.0)
+    ds.dia_il_power_kernel(vals_il, offsets, st, 0)
+    ds.power_finish_kernel(st, 100.0)
+    assert st.ctl.tolist() == [2, 1, 1, 1, 2, 1, 0, 0]
+    frozen = copied(st)
+    for src in (1, 0):
+        ds.dia_il_power_kernel(vals_il, offsets, st, src)
+        ds.power_finish_kernel(st, 100.0)
+    assert all(torch.equal(a, b) for a, b in zip(frozen, st))
+    # a zero operator: the start's product is zero, the first iteration
+    # breaks down and keeps x0 and lambda 0
+    zero = torch.zeros_like(vals_il)
+    st = start_state(n, vals_il.shape[1], cuda)
+    x0 = st.zz[0].clone()
+    ds.dia_il_power_kernel(zero, offsets, st, 0)
+    ds.power_finish_kernel(st, 0.0, init=True)
+    ds.dia_il_power_kernel(zero, offsets, st, 1)
+    ds.power_finish_kernel(st, 0.0)
+    assert st.ctl.tolist() == [1, 1, 0, 0, 1, 1, 1, 0]
+    assert st.sc.tolist() == [1.0, 1.0, 0.0, 0.0] and torch.equal(st.zz[0], x0)
+
+
+def test_il_power_kernel_repeats_bitwise(cuda):
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    vals_il, offsets, n = power_operands("stencil-104", torch.float32, cuda)
+    R = vals_il.shape[1]
+    states = []
+    for _ in range(2):
+        st = start_state(n, R, cuda)
+        ds.dia_il_power_kernel(vals_il, offsets, st, 0)
+        ds.power_finish_kernel(st, 0.0, init=True)
+        for t in range(1, 6):
+            ds.dia_il_power_kernel(vals_il, offsets, st, t % 2)
+            ds.power_finish_kernel(st, 0.0)
+        states.append(st)
+    assert all(torch.equal(a, b) for a, b in zip(*states))
+    M = eigsol.InterleavedDIA(data_il=vals_il, offsets=offsets, shape=(n, n), tile_s=R)
+    x0 = np.random.default_rng(6).uniform(-1, 1, n)
+    r1, r2 = (eigsol.power_method(M, eigsol.SolverOptions(40, 0.0), x0=x0) for _ in range(2))
+    assert torch.equal(r1.eigenvalue, r2.eigenvalue) and torch.equal(r1.eigenvector,
+                                                                     r2.eigenvector)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_power_method_fused_route_against_the_generic_loop(cuda, dtype):
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers import power as tpower
+    vals_il, offsets, n = power_operands("stencil-104", dtype, cuda)
+    M = eigsol.InterleavedDIA(data_il=vals_il, offsets=offsets, shape=(n, n),
+                              tile_s=vals_il.shape[1])
+    assert tpower.fused_route(M)
+    x0 = np.random.default_rng(8).uniform(-1, 1, n)
+    ds.reset_launch_counts()
+    r = eigsol.power_method(M, eigsol.SolverOptions(200, 0.0), x0=x0)
+    torch.cuda.synchronize()
+    # B1's launches on this path are the power step's: the start's and 200
+    assert ds.dia_il_power_kernel.launches == ds.power_finish_kernel.launches == 201
+    assert ds.dia_il_kernel.launches == 0
+    xs = torch.from_numpy(x0).to(cuda, torch.float32)
+    g = tpower.power_iteration_loop(M.matvec, tpower.vdot, tpower.norm,
+                                    M.encode_vec(xs / torch.linalg.vector_norm(xs)), 200, 0.0)
+    assert ds.dia_il_kernel.launches == 201
+    assert int(r.iterations) == int(g.iterations) == 200
+    assert not bool(r.converged) and not bool(g.converged)
+    lam, lam_g = float(r.eigenvalue), float(g.eigenvalue)
+    assert abs(lam - lam_g) <= 1e-6 * abs(lam_g)
+    assert rel_err(r.eigenvector, M.decode_vec(g.eigenvector)) <= 1e-4
+
+
+def test_power_fused_route_rule_on_the_card(cuda):
+    # from the operand's type, dtype and device alone: float32 and bfloat16
+    # interleaved diagonals on the card whose band fits a lane's chunk
+    import pcsc_eigenvalue_solver_project_tpu_torch as eigsol
+    from pcsc_eigenvalue_solver_project_tpu_torch.solvers import power as tpower
+    vals_il, offsets, n = power_operands("band-lane-127", torch.float32, cuda)
+    R = vals_il.shape[1]
+    M = eigsol.InterleavedDIA(data_il=vals_il, offsets=offsets, shape=(n, n), tile_s=R)
+    assert tpower.fused_route(M)
+    assert tpower.fused_route(M.to_natural().interleaved(R, dtype=torch.bfloat16))
+    assert not tpower.fused_route(M.to_natural())
+    assert not tpower.fused_route(M.to_natural().interleaved(R, dtype=torch.float64))
+    cpx = eigsol.SparseDIA(data=M.to_natural().data.to(torch.complex64), offsets=offsets,
+                           shape=(n, n))
+    assert not tpower.fused_route(cpx.interleaved(R))
+    cpu = eigsol.InterleavedDIA(data_il=vals_il.cpu(), offsets=offsets, shape=(n, n), tile_s=R)
+    assert not tpower.fused_route(cpu)
+
+
+def test_il_power_kernels_reject_what_they_do_not_take(cuda):
+    vals_il, offsets, n = power_operands("band-lane-127", torch.float32, cuda)
+    R = vals_il.shape[1]
+    st = start_state(n, R, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ds.dia_il_power_kernel(vals_il.double(), offsets, st, 0)
+    with pytest.raises(ValueError, match="bandwidth exceeds chunk size R"):
+        ds.dia_il_power_kernel(vals_il[:2].contiguous(), (-R - 1, 0), st, 0)
+    with pytest.raises(ValueError, match="partials"):
+        ds.dia_il_power_kernel(vals_il, offsets, st._replace(partials=st.partials[:, 1:]), 0)
+    with pytest.raises(ValueError, match="src 2"):
+        ds.dia_il_power_kernel(vals_il, offsets, st, 2)
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        ds.power_finish_kernel(ds.PowerState(*(t.cpu() for t in st)), 0.0)
 
 
 # --------------------------------------------------------------------------
