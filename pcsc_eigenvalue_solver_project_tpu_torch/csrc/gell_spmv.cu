@@ -13,8 +13,8 @@
 // bits, the int8 inverse permutation, the transposed x, the chunk lists and
 // the COO spill tail) exists for the TPU's 128-lane gather and its VMEM.
 // None of it is carried over: here a gather is an address, so the pack is
-// plain CSR (indptr, indices, values) built on the host from the same COO
-// (ops/gell_spmv.py::pack_gell).
+// plain CSR (indptr, indices, values) built from the same COO, on the host
+// or on the card (ops/gell_spmv.py::pack_gell).
 //
 // What bounds it: bytes. Each stored entry does one multiply-add (four for
 // complex data) and must move its value and its column index; x and y move
@@ -34,7 +34,9 @@
 //     and complex128), the group reduces it with __shfl_down_sync, and its
 //     first lane writes y[row] once.
 // Every lane of a warp reaches the shuffles, the lanes of rows past the end
-// with a zero sum, so the full mask is always right.
+// with a zero sum, so the full mask is always right. Entry offsets are int64
+// from the first add on: indptr holds up to 2^31 - 1 entries, and a row
+// that starts within G of that would wrap an int32 start + lane.
 //
 // Complex values are (re, im) pairs of f32, bf16 or f64. In native mode x and
 // y are complex64/complex128 tensors, read as float2/double2; in planes mode
@@ -116,7 +118,7 @@ gell_real_kernel(const int* __restrict__ indptr, const int* __restrict__ indices
   A acc = A(0);
   if (row < n_rows) {
     const int64_t end = indptr[row + 1];
-    for (int64_t k = indptr[row] + lane; k < end; k += G)
+    for (int64_t k = static_cast<int64_t>(indptr[row]) + lane; k < end; k += G)
       acc = madd(widen(vals[k]), __ldg(x + indices[k]), acc);
   }
   acc = group_sum<G>(acc);
@@ -137,7 +139,7 @@ gell_complex_kernel(const int* __restrict__ indptr, const int* __restrict__ indi
   A re = A(0), im = A(0);
   if (row < n_rows) {
     const int64_t end = indptr[row + 1];
-    for (int64_t k = indptr[row] + lane; k < end; k += G) {
+    for (int64_t k = static_cast<int64_t>(indptr[row]) + lane; k < end; k += G) {
       A vr, vi, xr, xi;
       load_pair(vals, k, &vr, &vi);
       const int col = indices[k];

@@ -170,15 +170,18 @@ def from_coo(row, col, values, shape, *, layout: str = "auto", dtype=None,
     ``layout``: "auto" (decide from the pattern), "dia_il", "gell", or "csr"
     (``SparseCSR.from_coo``). Returns an ``AbstractMatrix``, possibly a
     ``PermutedOperator`` around the layout of the RCM-permuted matrix. A
-    rectangular matrix under "auto" becomes a ``SparseGELL``."""
+    rectangular matrix under "auto" becomes a ``SparseGELL``. Under "gell"
+    the data goes straight to ``SparseGELL.from_coo``, which packs card
+    tensors where they lie; "auto" reads the pattern on the host (its RCM
+    step is scipy's)."""
     from .sparse import SparseCSR
 
     n_rows, n_cols = map(int, shape)
     if layout == "csr":
         return SparseCSR.from_coo(row, col, values, shape, dtype=dtype, device=device)
-    if n_rows != n_cols and layout in ("auto", "dia_il"):
-        if layout == "dia_il":
-            raise ValueError("from_coo: DIA layout requires a square matrix")
+    if n_rows != n_cols and layout == "dia_il":
+        raise ValueError("from_coo: DIA layout requires a square matrix")
+    if layout == "gell" or (n_rows != n_cols and layout == "auto"):
         return SparseGELL.from_coo(row, col, values, shape, dtype=dtype,
                                    tile_rows=tile_rows, device=device)
 
@@ -188,7 +191,7 @@ def from_coo(row, col, values, shape, *, layout: str = "auto", dtype=None,
     if layout == "auto":
         dec = suggest_layout(r, c, v, shape, try_rcm=try_rcm)
         kind, perm = dec.kind, dec.perm
-    elif layout in ("dia_il", "gell"):
+    elif layout == "dia_il":
         kind, perm = layout, None
     else:
         raise ValueError(f"from_coo: unknown layout {layout!r}")

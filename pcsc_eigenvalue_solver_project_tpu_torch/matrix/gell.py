@@ -5,19 +5,20 @@ The operator type behind the fast path for the reference's sparse ``A * x``
 src/matrix/matrix.hpp:39-44). ``SparseCSR`` stays the ingest and storage
 format; ``SparseCSR.to_gell()`` re-packs its nonzeros for the CUDA kernel B6
 (``ops/gell_spmv.py``, ``csrc/gell_spmv.cu``). The packing is a one-time
-host cost, like the reference's ``makeCompressed()``; the matvec runs on the
-device where the pack lies.
+cost, like the reference's ``makeCompressed()``, made on the device that
+holds the pack (``ops/gell_spmv.py::pack_device``; ``diag`` beside it); the
+matvec runs there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
-from ..core.dtypes import canonical_dtype, numpy_dtype
-from ..ops.gell_spmv import GELLPack, gell_matvec, pack_gell
+from ..core.dtypes import canonical_dtype
+from ..ops.gell_spmv import (PACK_CHUNK, GELLPack, gell_matvec, index_tensor, pack_device,
+                             pack_gell, value_tensor)
 from .protocol import AbstractMatrix
 
 
@@ -25,9 +26,9 @@ from .protocol import AbstractMatrix
 class SparseGELL(AbstractMatrix):
     """General sparse matrix in the GELL pack (see module docstring).
 
-    ``diag`` is computed at pack time on the host, duplicates summed, over
-    ``min(n_rows, n_cols)``; ``nnz`` counts the input entries, duplicates
-    included."""
+    ``diag`` is computed at pack time where the pack is built, duplicates
+    summed, over ``min(n_rows, n_cols)``; ``nnz`` counts the input entries,
+    duplicates included."""
 
     pack: GELLPack
     diag: torch.Tensor
@@ -37,30 +38,26 @@ class SparseGELL(AbstractMatrix):
     @staticmethod
     def from_coo(row, col, values, shape, dtype=None,
                  tile_rows: int | None = None, device=None) -> "SparseGELL":
-        """Pack COO triplets on ``device`` (default: the card). ``tile_rows``
-        is the JAX keyword, checked and recorded (``GELLPack``)."""
+        """Pack COO triplets (``pack_gell``) on ``device`` when given, else
+        where card tensors lie, else on the card (``pack_device``), and sum
+        ``diag`` there. ``tile_rows`` is the JAX keyword, checked and
+        recorded (``GELLPack``)."""
         n_rows, n_cols = map(int, shape)
-        r = np.asarray(row, np.int64)
-        c = np.asarray(col, np.int64)
-        v = np.asarray(values, dtype=numpy_dtype(dtype) if dtype else None)
-        canonical_dtype(v.dtype)
+        dev = pack_device(device, row, col, values)
+        r, c, v = index_tensor(row, dev), index_tensor(col, dev), value_tensor(values, dev)
+        v = v.to(canonical_dtype(v.dtype if dtype is None else dtype))
         if not (r.shape == c.shape == v.shape) or r.ndim != 1:
             raise ValueError("SparseGELL.from_coo: row/col/values must be 1-D of equal length")
         # pack_gell raises "Sparse indices out of range", as JAX's from_coo does
-        pack = pack_gell(r, c, v, (n_rows, n_cols), tile_rows=tile_rows, device=device)
-        k = min(n_rows, n_cols)
-        d = np.zeros(k, v.dtype)
-        on = (r == c) & (r < k)
-        np.add.at(d, r[on], v[on])
-        return SparseGELL(pack=pack, diag=torch.from_numpy(d).to(pack.device),
-                          nnz=int(r.size))
+        pack = pack_gell(r, c, v, (n_rows, n_cols), tile_rows=tile_rows, device=dev)
+        return SparseGELL(pack=pack, diag=coo_diagonal(r, c, v, min(n_rows, n_cols)),
+                          nnz=r.numel())
 
     @staticmethod
     def from_csr(csr, tile_rows: int | None = None) -> "SparseGELL":
         """Re-pack a ``SparseCSR`` on the device where it lies."""
-        return SparseGELL.from_coo(csr.rows.cpu().numpy(), csr.indices.cpu().numpy(),
-                                   csr.data.cpu().numpy(), csr.shape, tile_rows=tile_rows,
-                                   device=csr.device)
+        return SparseGELL.from_coo(csr.rows, csr.indices, csr.data, csr.shape,
+                                   tile_rows=tile_rows, device=csr.device)
 
     # --- queries ---
     @property
@@ -85,3 +82,15 @@ class SparseGELL(AbstractMatrix):
 
     def diagonal(self):
         return self.diag
+
+
+def coo_diagonal(row: torch.Tensor, col: torch.Tensor, values: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """The first ``k`` diagonal entries of a COO, duplicates summed in input
+    order, on its device: ``PACK_CHUNK`` entries a step."""
+    d = torch.zeros(k, dtype=values.dtype, device=values.device)
+    for s in range(0, row.numel(), PACK_CHUNK):
+        r, c = row[s:s + PACK_CHUNK], col[s:s + PACK_CHUNK]
+        on = ((r == c) & (r < k)).nonzero().squeeze(1)
+        d.index_add_(0, r[on].long(), values[s:s + PACK_CHUNK][on])
+    return d

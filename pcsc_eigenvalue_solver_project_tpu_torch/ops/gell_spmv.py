@@ -49,6 +49,16 @@ version when the pack lies on the CPU and the kernel otherwise: a pack on a
 CUDA device launches a kernel or raises. ``gell_window_matvec_plain`` (and
 its planes form) computes y from the windowed arrays alone.
 
+**Where the pack is built** (``pack_device``): on ``device`` when given,
+else where COO tensors on a card lie, else on the card; host arrays are
+copied there first. One pack serves every input (``_device_pack``): row
+counts by ``bincount`` into ``indptr``, then, a piece of whole rows of about
+``PACK_CHUNK`` entries at a time, the piece's entries found by a scan of the
+COO, sorted by (row, column) and written in place. No int64 array or sort
+spans all entries, so a COO of ~2e9 entries packs beside its own 25 GB on
+one 80 GB card. The windowed layout's rule is counted piece by piece too,
+and the layout is built only where the rule keeps it (``_window_layout``).
+
 Not ported, as they serve the TPU only: the lane buckets, the int16/int32
 segment word and its mask bits, the suffix scan, the int8 inverse
 permutation, the transposed x, the spill tail, ``auto_tile_rows``,
@@ -68,6 +78,7 @@ import torch
 from ..core.device import resolve_device
 from ..core.dtypes import as_torch_dtype
 from ..utils.interop import to_tensor
+from ..utils.timing import annotate, count
 from . import _build
 
 LANES = 128
@@ -85,6 +96,7 @@ WINDOW_CLUSTER = 1                # blocks a cluster: multicast of the windows d
 CLUSTER_SIZES = (1, 2, 4)
 NOMINAL_SMS = 132                 # a CPU pack's ranges: as on the H100's 132 SMs
 SECTOR_BYTES = 32                 # what one gather of x moves from L2
+PACK_CHUNK = 1 << 27              # entries a step of a device pack or of the window rule takes
 
 
 def group_width(nnz: int, n_rows: int) -> int:
@@ -176,40 +188,126 @@ class GELLPack:
         return attach_windows(dataclasses.replace(self, values=self.values.to(dt), windows=None))
 
 
-def build_pack(row, col, values: torch.Tensor, shape, *, is_complex: bool,
+def pack_device(device, *arrays) -> torch.device:
+    """Where a pack of ``arrays`` is built: ``device`` when given, else
+    where those of them that are tensors on a card lie, else on the card
+    (``resolve_device``), as for host arrays and CPU tensors."""
+    if device is None:
+        on_card = [a.device for a in arrays if isinstance(a, torch.Tensor) and a.device.type != "cpu"]
+        if on_card:
+            return on_card[0]
+    return resolve_device(device)
+
+
+def index_tensor(a, device: torch.device) -> torch.Tensor:
+    """Row or column indices on ``device``: a tensor moved (not copied where
+    it lies, its integer dtype kept), host input as int64."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+
+def value_tensor(a, device: torch.device) -> torch.Tensor:
+    """Values on ``device``: a tensor moved, host input copied."""
+    return a.to(device) if isinstance(a, torch.Tensor) else to_tensor(a, device=device)
+
+
+def build_pack(row, col, values, shape, *, is_complex: bool,
                tile_rows: int | None = None, device=None) -> GELLPack:
-    """Sort COO triplets by (row, col) on the host (stably: duplicates keep
-    their order) and place the CSR on ``device`` (default: the card).
-    ``values`` is a host tensor, (nnz,) or (nnz, 2) pairs when
-    ``is_complex``."""
+    """The CSR pack of COO triplets: entries sorted by (row, col), stably
+    (duplicates keep their order and sum in the product), with its windowed
+    layout where the rule picks it, under the span ``eigsol.gell.pack``
+    (the sort under ``eigsol.gell.sort``, the layout under
+    ``eigsol.gell.windows``) and counted in ``gell_pack_entries``.
+
+    ``row`` and ``col`` are integer tensors or host arrays; ``values`` is
+    (nnz,) f32, bf16 or f64, or (nnz, 2) (re, im) pairs when ``is_complex``.
+    Built on ``pack_device(device, row, col, values)`` (``_device_pack``)."""
     n_rows, n_cols = map(int, shape)
     if tile_rows is not None and tile_rows % LANES != 0:
         raise ValueError("pack_gell: tile_rows must be a multiple of 128")
-    r = np.asarray(row, np.int64)
-    c = np.asarray(col, np.int64)
+    dev = pack_device(device, row, col, values)
+    with annotate("eigsol.gell.pack"):
+        pack = _device_pack(index_tensor(row, dev), index_tensor(col, dev),
+                            value_tensor(values, dev), n_rows, n_cols, is_complex, tile_rows)
+        count("gell_pack_entries", pack.nnz)
+        with annotate("eigsol.gell.windows"):
+            return attach_windows(pack)
+
+
+def _chunk_bounds(starts: torch.Tensor, chunk: int) -> list:
+    """Boundaries that cut units (rows, or clusters of ranges) into pieces
+    of about ``chunk`` entries, unit ``i`` holding entries ``[starts[i],
+    starts[i + 1])`` (int64, ascending): a piece is the units whose first
+    entry lies in one stretch ``[k chunk, (k + 1) chunk)``, so it holds at
+    most ``chunk`` entries and the rest of its last unit. Sorted, 0 and the
+    number of units included."""
+    stretch = starts[:-1] // chunk
+    cuts = torch.nonzero(stretch[1:] != stretch[:-1]).squeeze(1) + 1
+    return sorted({0, starts.numel() - 1, *cuts.tolist()})
+
+
+def _device_pack(row: torch.Tensor, col: torch.Tensor, values: torch.Tensor, n_rows: int,
+                 n_cols: int, is_complex: bool, tile_rows: int | None) -> GELLPack:
+    """The pack of COO tensors that lie on one device, built there.
+
+    Row counts come from ``bincount`` (``PACK_CHUNK`` entries a call) into
+    an int64 ``indptr``; then each piece of whole rows holding about
+    ``PACK_CHUNK`` entries (``_chunk_bounds``) finds its entries by a scan
+    of ``row``, in input order, sorts them stably by (row, column) on an
+    int64 key of the piece alone and writes their columns and values at the
+    piece's place. Beyond its inputs and output the pack holds the int64
+    counts and ``indptr`` (16 B a row) and one piece's positions, keys, sort
+    and gathers (~40 B an entry of the piece, ~5 GiB at ``PACK_CHUNK``); with
+    the window rule's pieces and ``SparseGELL``'s ``diag``, 7.3 GiB beyond a
+    COO of 2.1e9 entries (23.5 GiB) and its pack (15.9 GiB) on an H100: under
+    a third of the COO's bytes."""
     if values.dtype not in _VALUE_CODES:
         raise TypeError(f"pack_gell: unsupported value dtype {values.dtype}")
-    if r.ndim != 1 or r.shape != c.shape or values.shape[:1] != r.shape \
+    if row.dtype.is_floating_point or row.dtype.is_complex or row.dtype == torch.bool \
+            or col.dtype.is_floating_point or col.dtype.is_complex or col.dtype == torch.bool:
+        raise TypeError("pack_gell: row and col must be integer tensors")
+    if row.ndim != 1 or row.shape != col.shape or values.shape[:1] != row.shape \
             or values.shape[1:] != ((2,) if is_complex else ()):
         raise ValueError("pack_gell: row/col/values must be 1-D of equal length")
-    nnz = r.shape[0]
+    dev = values.device
+    nnz = row.numel()
     if min(n_rows, n_cols) < 0 or max(n_rows, n_cols, nnz) > _INT32_MAX:
         raise ValueError("pack_gell: nnz and both dimensions must fit int32")
-    if nnz and (r.min() < 0 or r.max() >= n_rows or c.min() < 0 or c.max() >= n_cols):
-        raise ValueError("Sparse indices out of range")
-    key = r * n_cols + c
-    if nnz and (key[1:] < key[:-1]).any():  # a sorted COO (a CSR's) skips the sort
-        order = np.argsort(key, kind="stable")
-        c, values = c[order], values[torch.from_numpy(order)]
-    indptr = np.zeros(n_rows + 1, np.int64)
-    np.cumsum(np.bincount(r, minlength=n_rows), out=indptr[1:])
-    device = resolve_device(device)
-    return attach_windows(GELLPack(
-        indptr=torch.from_numpy(indptr.astype(np.int32)).to(device),
-        indices=torch.from_numpy(c.astype(np.int32)).to(device),
-        values=values.contiguous().to(device),
-        shape=(n_rows, n_cols), group=group_width(nnz, n_rows), tile_rows=tile_rows,
-        is_complex=is_complex))
+    steps = range(0, nnz, PACK_CHUNK)
+    if nnz:
+        ends = torch.stack([torch.stack([t.min(), t.max()]).long()
+                            for s in steps for t in (row[s:s + PACK_CHUNK], col[s:s + PACK_CHUNK])])
+        lo, hi = ends[:, 0].view(-1, 2).amin(0), ends[:, 1].view(-1, 2).amax(0)
+        if bool((lo < 0).any() | (hi[0] >= n_rows) | (hi[1] >= n_cols)):
+            raise ValueError("Sparse indices out of range")
+    counts = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    for s in steps:
+        counts += torch.bincount(row[s:s + PACK_CHUNK], minlength=n_rows)
+    indptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=indptr[1:])
+    del counts
+    indices = torch.empty(nnz, dtype=torch.int32, device=dev)
+    vals = torch.empty(values.shape, dtype=values.dtype, device=dev)
+    cuts = _chunk_bounds(indptr, PACK_CHUNK)
+    firsts = indptr[cuts].tolist()
+    with annotate("eigsol.gell.sort"):
+        for a, b, s, e in zip(cuts, cuts[1:], firsts, firsts[1:]):
+            if e == s:
+                continue
+            pos = torch.cat([((row[t:t + PACK_CHUNK] >= a) & (row[t:t + PACK_CHUNK] < b))
+                             .nonzero().squeeze(1) + t for t in steps])
+            key = (row[pos].long() - a) * n_cols + col[pos].long()
+            order = torch.sort(key, stable=True).indices
+            del key
+            src = pos[order]
+            del pos, order
+            indices[s:e] = col[src]
+            vals[s:e] = values[src]
+            del src
+    return GELLPack(indptr=indptr.to(torch.int32), indices=indices, values=vals,
+                    shape=(n_rows, n_cols), group=group_width(nnz, n_rows),
+                    tile_rows=tile_rows, is_complex=is_complex)
 
 
 # --------------------------------------------------------------------------
@@ -271,35 +369,63 @@ def _rule_keeps(staged_bytes: int, nnz: int, planes: bool) -> bool:
 def _window_layout(pack: GELLPack, cluster: int, rows: int | None, cols: int | None,
                    planes: bool | None) -> GELLWindows | None:
     """The layout (see ``window_layout``); with ``planes`` given, None when
-    ``window_rule`` would refuse it, found from the union windows alone,
-    before the entries are sorted."""
+    ``window_rule`` would refuse it. The CSR is taken a piece of whole
+    clusters, about ``PACK_CHUNK`` entries, at a time (``_chunk_bounds``). The
+    rule is read off each piece's union windows, before any entry is sorted,
+    and stops at the first piece that takes the staged bytes to CSR's: a
+    refused layout is never built. Where it is kept, each piece's entries
+    are sorted by (range, window) on their own, since a piece holds whole
+    ranges; no int64 array spans all entries. The rule reads an entry's
+    cluster, the layout its row."""
     R, W, n_ranges = window_shape(pack, cluster, rows, cols)
     dev = pack.device
+    n_rows, nnz = pack.shape[0], pack.nnz
     n_windows = max(-(-pack.shape[1] // W), 1)
     n_clusters = n_ranges // cluster
     slots = n_windows + 1  # windows of a cluster, then its sentinel
-    rows_of = _row_ids(pack)
-    cols_of = pack.indices.long()
-    union = torch.unique((rows_of // (R * cluster)) * slots + cols_of // W)
-    staged = int(union.numel())
-    staged_bytes = staged * W * x_element_bytes(pack)
-    if planes is not None and not _rule_keeps(staged_bytes, pack.nnz, planes):
-        return None
-    key = (rows_of // R) * n_windows + cols_of // W
-    key, order = torch.sort(key, stable=True)
-    words = ((rows_of % R) << 16 | (cols_of % W))[order]
-    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
-    sentinels = torch.arange(n_clusters, device=dev) * slots + n_windows
-    union = torch.sort(torch.cat([union, sentinels])).values
+    xe = x_element_bytes(pack)
+    indptr = pack.indptr.long()
+    span = R * cluster  # rows a cluster
+    starts = indptr[torch.clamp(torch.arange(n_clusters + 1, device=dev) * span, max=n_rows)]
+    cuts = _chunk_bounds(starts, PACK_CHUNK)
+    row_cuts = [min(k * span, n_rows) for k in cuts]
+    firsts = starts[cuts].tolist()
+    pieces = list(zip(cuts, cuts[1:], row_cuts, row_cuts[1:], firsts, firsts[1:]))
+
+    unions, staged = [], 0
+    for k0, k1, _, _, s, e in pieces:
+        cluster_of = torch.repeat_interleave(torch.arange(k0, k1, device=dev),
+                                             starts[k0 + 1:k1 + 1] - starts[k0:k1])
+        unions.append(torch.unique(cluster_of * slots + pack.indices[s:e].long() // W))
+        del cluster_of
+        staged += unions[-1].numel()
+        if planes is not None and not _rule_keeps(staged * W * xe, nnz, planes):
+            return None
+    words = torch.empty(nnz, dtype=torch.int32, device=dev)
+    values = torch.empty_like(pack.values)
+    union_rows, uoff = [], []
+    for (k0, k1, r0, r1, s, e), union in zip(pieces, unions):
+        rows_of = torch.repeat_interleave(torch.arange(r0, r1, device=dev),
+                                          indptr[r0 + 1:r1 + 1] - indptr[r0:r1])
+        cols_of = pack.indices[s:e].long()
+        key, order = torch.sort((rows_of // R) * n_windows + cols_of // W, stable=True)
+        word = ((rows_of % R) << 16 | (cols_of % W))[order]
+        words[s:e] = torch.where(word >= 2 ** 31, word - 2 ** 32, word)
+        values[s:e] = pack.values[s:e][order]
+        sentinels = torch.arange(k0, k1, device=dev) * slots + n_windows
+        union = torch.sort(torch.cat([union, sentinels])).values
+        g_row, w_row = union // slots, union % slots
+        ranges = g_row[:, None] * cluster + torch.arange(cluster, device=dev)[None, :]
+        uoff.append(torch.searchsorted(key, (ranges * n_windows + w_row[:, None]).reshape(-1)) + s)
+        union_rows.append(union)
+    union = torch.cat(union_rows)
     g_row, w_row = union // slots, union % slots
     uptr = torch.zeros(n_clusters + 1, dtype=torch.int64, device=dev)
     uptr[1:] = torch.cumsum(torch.bincount(g_row, minlength=n_clusters), 0)
-    ranges = g_row[:, None] * cluster + torch.arange(cluster, device=dev)[None, :]
-    uoff = torch.searchsorted(key, (ranges * n_windows + w_row[:, None]).reshape(-1))
-    return GELLWindows(words=words, values=pack.values[order].contiguous(), rows=R, cols=W,
-                       cluster=cluster, n_ranges=n_ranges, uptr=uptr.to(torch.int32),
-                       uwin=w_row.to(torch.int32), uoff=uoff.to(torch.int32),
-                       staged_windows=staged, staged_bytes=staged_bytes)
+    return GELLWindows(words=words, values=values, rows=R, cols=W, cluster=cluster,
+                       n_ranges=n_ranges, uptr=uptr.to(torch.int32), uwin=w_row.to(torch.int32),
+                       uoff=torch.cat(uoff).to(torch.int32), staged_windows=staged,
+                       staged_bytes=staged * W * xe)
 
 
 def window_layout(pack: GELLPack, cluster: int = WINDOW_CLUSTER, rows: int | None = None,
@@ -345,17 +471,18 @@ def pick_route(pack: GELLPack, planes: bool = False) -> str:
 
 def pack_gell(row, col, values, shape, tile_rows: int | None = None,
               device=None) -> GELLPack:
-    """Host-side packing of COO triplets on ``device`` (default: the card).
-    Duplicates are kept and sum in the product, as in the JAX pack. Complex
-    values are stored as (re, im) pairs, f64 for complex128, else f32."""
-    v = np.asarray(values)
-    if v.dtype.kind == "c":
-        rdt = np.float64 if v.dtype.itemsize > 8 else np.float32
-        pairs = np.stack([v.real, v.imag], axis=-1).astype(rdt)
-        return build_pack(row, col, torch.from_numpy(pairs), shape, is_complex=True,
-                          tile_rows=tile_rows, device=device)
-    return build_pack(row, col, to_tensor(v), shape, is_complex=False,
-                      tile_rows=tile_rows, device=device)
+    """Packing of COO triplets (``build_pack``) on ``pack_device(device,
+    row, col, values)``: ``device`` when given, else where card tensors lie,
+    else the card. Duplicates are kept and sum in the product, as in the JAX
+    pack. Complex values are stored as (re, im) pairs, f64 for complex128,
+    else f32."""
+    dev = pack_device(device, row, col, values)
+    v = value_tensor(values, dev)
+    if v.is_complex():
+        rdt = torch.float64 if v.dtype == torch.complex128 else torch.float32
+        return build_pack(row, col, torch.view_as_real(v).to(rdt), shape, is_complex=True,
+                          tile_rows=tile_rows, device=dev)
+    return build_pack(row, col, v, shape, is_complex=False, tile_rows=tile_rows, device=dev)
 
 
 def unpack_gell_leaves(seg_packed, val, inv, sp_rows, sp_cols, sp_vals,
