@@ -94,7 +94,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
     bf16 values, f64, complex64 native and on planes, complex128, by the
     route the dispatch picks, by the CSR route and by the windowed route at
     cluster sizes 1, 2 and 4, and small cases, with every route's time, the
-    plain version's and ``torch.sparse.mm``'s side by side;
+    plain version's and ``torch.sparse.mm``'s side by side; then the uniform
+    operator with nine hub rows (``hub_coo``: one of 2^20 entries more, eight
+    of 2^17), and 1M rows over 3 x 2^24 + 5 columns with 4,000 rows of
+    1,025 to 12,000 entries more (``hub_rect_coo``: chunks run window by
+    window), by the CSR route, whose long rows are split over whole blocks,
+    in f32 and bf16 values, against the plain version, repeated bit for bit,
+    and timed with and without the split (``gell_hub_checks``);
 18. the general-sparse path: ``from_coo(layout="auto")`` on bench.py's three
     auto patterns at 100,000, ``power_method`` on each pick and on the
     hand-picked layout, on ``SparseGELL`` at 1M x 33 (budget and a planted
@@ -180,6 +186,13 @@ checkout, so that two commits can be compared in one call, in turns):
 the time to enqueue one ``gell_kernel`` call on the 1M x 33 uniform
 operator in float32 and complex64, and ``power_method``'s time per
 iteration on each at a budget of 200 iterations, three times each.
+
+    python3 chip_smoke.py --b6 ROOT
+
+times B6 with the port found under ROOT on the 1M x 33 uniform operator in
+float32, by the route the pack picks and by the CSR route, and on the same
+operator with hub rows (``hub_coo``) by the CSR route (CUDA-graph replay,
+the best of two), three times each.
 
     python3 chip_smoke.py --b7 ROOT
 
@@ -310,6 +323,11 @@ GELL_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/gell_spmv.cu"
 GELL_WINDOW_SOURCE = "pcsc_eigenvalue_solver_project_tpu_torch/csrc/gell_window_spmv.cu"
 GELL_TPU_KERNELS = "pcsc_eigenvalue_solver_project_tpu/ops/pallas/gell_spmv.py"
 GELL_PER_ROW = 33  # bench.py --general: 1M rows x 33 entries a row
+GELL_HUBS = (1 << 20,) + (1 << 17,) * 8  # hub rows added to the uniform operator
+# the rectangle with long rows: 3 windows of the split and a bit, and this
+# many rows of 1025 to 12,000 entries more
+HUB_RECT_COLS = 3 * (1 << 24) + 5
+HUB_RECT_ROWS = 4000
 AUTO_N = 100_000   # bench.py's auto leg (BENCH_R05_SET.jsonl:8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}  # H100 SXM data sheet, outside the tensor cores
@@ -1775,6 +1793,81 @@ def general_coo(n, per_row, pattern, seed=0):
     return rows[uniq], cols[uniq], vals[uniq]
 
 
+def hub_coo(n, seed=0):
+    """``general_coo``'s uniform operator with ``GELL_HUBS`` entries more
+    in nine rows spread over it, uniform columns: rows that B6's CSR route
+    splits over whole blocks."""
+    r, c, v = general_coo(n, GELL_PER_ROW, "uniform", seed)
+    rng = np.random.default_rng(seed + 1)
+    hub_rows = np.arange(len(GELL_HUBS)) * (n // len(GELL_HUBS)) + 7
+    hr = np.repeat(hub_rows, GELL_HUBS)
+    return (np.concatenate([r, hr]), np.concatenate([c, rng.integers(0, n, len(hr))]),
+            np.concatenate([v, rng.standard_normal(len(hr)).astype(np.float32)]))
+
+
+def hub_rect_coo(n, n_cols, seed=0):
+    """``n`` rows over ``n_cols`` columns: ``GELL_PER_ROW`` uniform entries a
+    row, and ``HUB_RECT_ROWS`` rows among them with 1025 to 12,000 entries
+    more, uniform columns: rows that B6's CSR route splits, whose chunks
+    then run over several windows of x."""
+    rng = np.random.default_rng(seed)
+    long = rng.choice(n, HUB_RECT_ROWS, replace=False)
+    r = np.concatenate([np.repeat(np.arange(n), GELL_PER_ROW),
+                        np.repeat(long, rng.integers(1025, 12_001, HUB_RECT_ROWS))])
+    return r, rng.integers(0, n_cols, len(r)), rng.standard_normal(len(r)).astype(np.float32)
+
+
+def gell_hub_checks(dev, card_name, card_limit):
+    """Phase 17's long rows: B6's CSR route splits them over whole blocks.
+    On ``hub_coo(N)`` (nine hub rows, one window of x) and on
+    ``hub_rect_coo(N, HUB_RECT_COLS)`` (thousands of long rows, chunks run
+    window by window), in f32 and bf16 values: against the plain version in
+    float64 (limit 1e-5), repeated bit for bit, timed with and without the
+    split."""
+    import dataclasses
+
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import gell_spmv as gs
+
+    rng = np.random.default_rng(171)
+    for label, coo, n_cols in (("hub rows", hub_coo(N), N),
+                               ("hub rectangle", hub_rect_coo(N, HUB_RECT_COLS), HUB_RECT_COLS)):
+        pack = gs.pack_gell(*coo, (N, n_cols), device=dev)
+        del coo
+        sp = pack.split
+        n_long = len(GELL_HUBS) if label == "hub rows" else HUB_RECT_ROWS
+        check(sp is not None and len(sp.rows) == n_long, f"B6 {label}: no split")
+        in_row_order = torch.equal(sp.order.cpu(), torch.arange(sp.n_chunks, dtype=torch.int32))
+        check(in_row_order == (n_cols <= gs.SPLIT_WINDOW),
+              f"B6 {label}: the chunks' run order is not window by window")
+        x = torch.from_numpy(rng.uniform(-1, 1, n_cols)).to(dev, torch.float32)
+        for name, p in (("f32", pack), ("bf16", pack.with_values_dtype(torch.bfloat16))):
+            whole = dataclasses.replace(p, split=None)
+            y = gs.gell_kernel(p, x, route="csr")
+            # against the plain version in float64: float32 sums of 2^20 terms would not do
+            want = gs.gell_matvec_plain(p, x.double())
+            torch.cuda.synchronize()
+            err = rel_err(y.double(), want)
+            print(f"check B6 {label} {name} csr, {len(sp.rows)} rows split into "
+                  f"{sp.n_chunks} blocks over {-(-n_cols // gs.SPLIT_WINDOW)} windows: "
+                  f"rel err {err:.3e} (limit 1e-05)")
+            check(err <= 1e-5, f"B6 {label} {name}: rel err {err:.3e} above 1e-05")
+            for _ in range(2):
+                check(torch.equal(y, gs.gell_kernel(p, x, route="csr")),
+                      f"B6 {label} {name}: not repeated bit for bit")
+            check(not sp.counters.any(), f"B6 {label} {name}: counters not reset")
+            del want
+            split_ms = min(time_ms(lambda: gs.gell_kernel(p, x, route="csr"))
+                           for _ in range(2))
+            whole_ms = min(time_ms(lambda: gs.gell_kernel(whole, x, route="csr"), reps=5)
+                           for _ in range(2))
+            print(f"time B6 {label} {name} {N}x{n_cols} (us per call): csr split "
+                  f"{split_ms * 1e3:.1f}, csr one group a row {whole_ms * 1e3:.1f} "
+                  f"[{card_name}, {card_limit}]")
+        del pack, p, whole
+
+
 def auto_cases(n):
     """bench.py:338-376's three patterns at n, in its order of draws:
     banded (bandwidth 16), the same band under shuffled labels, and uniform
@@ -1834,8 +1927,8 @@ def general_sparse_kernel_phase(ctx):
     vectors and on re/im planes, complex128, each by the route the dispatch
     picks, by the CSR route and by the windowed route at cluster sizes 1, 2
     and 4; small cases (the empty matrix, empty rows, duplicates, a
-    5000-entry row, the 700 x 40000 rectangle). Times per call from a
-    CUDA-graph replay for every route, plain versions (which read the device
+    5000-entry row, the 700 x 40000 rectangle); hub rows split by the CSR
+    route. Times per call from a CUDA-graph replay for every route, plain versions (which read the device
     to size their row ids) between CUDA events, ``torch.sparse.mm`` of the
     CSR times the (n, 1) block beside them. Returns ({tag: max abs error},
     {tag: (picked route's ms, plain ms, CSR-equivalent bytes, flops, {route:
@@ -1963,6 +2056,8 @@ def general_sparse_kernel_phase(ctx):
               f"bytes, bound {nb / HBM_BYTES_PER_S * 1e6:.1f} us, "
               f"{nb / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s) "
               f"[{card_name}, {card_limit}]")
+
+    gell_hub_checks(dev, card_name, card_limit)
 
     # small cases, f32 and complex64, against the plain version
     none = np.zeros(0, np.int64)
@@ -2279,6 +2374,34 @@ def b6_host_compare(root: str) -> None:
         print(f"b6-host {root}: power_method {name} budget 200 ({int(res.iterations)} "
               f"iterations): " + ", ".join(f"{us:.1f}" for us in readings)
               + f" us/iteration [{card_name}, {card_limit}]")
+
+
+def b6_compare(root: str) -> None:
+    """``--b6 ROOT`` (see the module docstring). Prints one line a reading;
+    fails if the port is not the one under ROOT or a product is off its
+    plain version."""
+    eigsol = import_port(root)
+    import torch
+
+    from pcsc_eigenvalue_solver_project_tpu_torch.ops import gell_spmv as gs
+
+    card_name, card_limit = card_line().split(", ")
+    x = torch.from_numpy(np.random.default_rng(17).uniform(-1, 1, N)).to("cuda", torch.float32)
+    for label, coo in (("uniform", general_coo(N, GELL_PER_ROW, "uniform")),
+                       ("hub rows", hub_coo(N))):
+        pack = eigsol.SparseGELL.from_coo(*coo, (N, N), device="cuda").pack
+        routes = ("picked", "csr") if label == "uniform" else ("csr",)
+        for route in routes:
+            chosen = gs.pick_route(pack) if route == "picked" else route
+            y = gs.gell_kernel(pack, x, route=chosen).double()
+            check(rel_err(y, gs.gell_matvec_plain(pack, x.double())) <= 1e-5,
+                  f"B6 {label} {route}")
+            readings = [min(time_ms(lambda: gs.gell_kernel(pack, x, route=chosen), reps=20)
+                            for _ in range(2)) for _ in range(3)]
+            print(f"b6 {root}: {label} f32 {N}x{GELL_PER_ROW} {route} ({chosen}): "
+                  + ", ".join(f"{ms * 1e3:.2f}" for ms in readings)
+                  + f" us per call [{card_name}, {card_limit}]")
+        del pack
 
 
 def b11_compare(root: str) -> None:
@@ -4273,6 +4396,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--b6-host"] and len(sys.argv) == 3:
         b6_host_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--b6"] and len(sys.argv) == 3:
+        b6_compare(sys.argv[2])
     elif sys.argv[1:2] == ["--b11"] and len(sys.argv) == 3:
         b11_compare(sys.argv[2])
     elif sys.argv[1:2] == ["--b7"] and len(sys.argv) == 3:

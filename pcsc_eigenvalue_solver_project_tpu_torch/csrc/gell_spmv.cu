@@ -38,6 +38,31 @@
 // from the first add on: indptr holds up to 2^31 - 1 entries, and a row
 // that starts within G of that would wrap an int32 start + lane.
 //
+// Long rows (real values). One group a row leaves a hub row's entries to G
+// lanes: a Graph 500 SCALE-26 graph has a row of 1,004,611 entries, ~31,000
+// gathers a lane on one warp, and 313,912 rows of more than 1024 entries
+// that hold 55% of its entries. Their gathers reach all of x (268 MB, 5x the
+// L2) and miss it. So the pack cuts its long rows into chunks, one block a
+// chunk, in the same launch (ops/gell_spmv.py's GELLSplit, built with the
+// pack, which sets the threshold, the chunk size and the windows): a chunk
+// holds entries of one row within one window of columns, and the chunks run
+// window by window, so the blocks resident at once gather from one window
+// of x, not from all of it:
+//   * the chunk blocks take the lowest blockIdx values, block b chunk
+//     order[b]; the group-per-row blocks follow and skip the rows longer
+//     than long_row;
+//   * a chunk block sums its entries (each thread every kThreads-th entry
+//     in order, then the warps' shuffle trees and the 8 warp sums in
+//     order), writes one partial to its chunk's slot, fences, and counts
+//     itself in the row's counter;
+//   * the block that arrives last sums the row's partials in chunk order,
+//     which is entry order, writes y[row] and sets the counter back to 0 for
+//     the next call.
+// The order of every sum is fixed, so y repeats bit for bit whatever order
+// the blocks run in; y takes no atomics and is never zero-filled. A pack
+// with no long row launches the group-per-row blocks alone. Calls that share
+// a split run in stream order (its counters and partials are the pack's).
+//
 // Complex values are (re, im) pairs of f32, bf16 or f64. In native mode x and
 // y are complex64/complex128 tensors, read as float2/double2; in planes mode
 // x is (2, n_cols) real planes x_plane elements apart and y is (2, n_rows).
@@ -107,22 +132,104 @@ __device__ __forceinline__ int64_t group_row() {
   return static_cast<int64_t>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
 }
 
-// B6, real values: y[r] = sum_{k in row r} vals[k] * x[indices[k]].
-template <typename V, typename A, int G>
+// The long rows of a pack and their chunks (ops/gell_spmv.py::GELLSplit);
+// n_chunks = 0: none. A row is long above long_row entries. Chunk c belongs to long row i = chunk_row[c], row
+// rows[i], whose chunks are [first[i], first[i + 1]), in entry order; it
+// runs from entry chunk_start[c] to the next chunk's start (the row's end
+// for its last). Block b runs chunk order[b]. partials holds one
+// accumulator a chunk.
+struct Split {
+  int64_t n_chunks, long_row;
+  const int* rows;
+  const int* first;
+  const int* chunk_row;
+  const int64_t* chunk_start;
+  const int* order;
+  int* counters;
+  void* partials;
+};
+
+// Chunk order[blockIdx.x] of a long row: its partial, and y[row] from the
+// block that arrives last.
+template <typename V, typename A>
+__device__ __forceinline__ void long_row_chunk(const int* __restrict__ indptr,
+                                               const int* __restrict__ indices,
+                                               const V* __restrict__ vals,
+                                               const A* __restrict__ x, A* __restrict__ y,
+                                               const Split& s) {
+  __shared__ A sums[kThreads];
+  __shared__ bool last;
+  const int c = s.order[blockIdx.x];
+  const int i = s.chunk_row[c];
+  const int row = s.rows[i];
+  const int lo = s.first[i], hi = s.first[i + 1];
+  const int64_t end = c + 1 < hi ? s.chunk_start[c + 1] : static_cast<int64_t>(indptr[row + 1]);
+  A acc = A(0);
+#pragma unroll 4
+  for (int64_t k = s.chunk_start[c] + threadIdx.x; k < end; k += kThreads)
+    acc = madd(widen(vals[k]), __ldg(x + indices[k]), acc);
+  acc = group_sum<32>(acc);
+  if ((threadIdx.x & 31) == 0) sums[threadIdx.x / 32] = acc;
+  __syncthreads();
+  A* partials = static_cast<A*>(s.partials);
+  if (threadIdx.x == 0) {
+    A part = A(0);
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) part += sums[w];
+    partials[c] = part;
+    __threadfence();  // the partial is in L2 before the count says so
+    last = atomicAdd(s.counters + i, 1) == hi - lo - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // The row's partials, kThreads at a time through shared memory, summed in
+  // chunk order; __ldcg reads L2, where the other blocks wrote them.
+  A total = A(0);
+  for (int b = lo; b < hi; b += kThreads) {
+    const int m = min(kThreads, hi - b);
+    if (threadIdx.x < m) sums[threadIdx.x] = __ldcg(partials + b + threadIdx.x);
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int k = 0; k < m; ++k) total += sums[k];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    y[row] = total;
+    s.counters[i] = 0;
+  }
+}
+
+// B6, real values: y[r] = sum_{k in row r} vals[k] * x[indices[k]], a group
+// of G lanes a row. kSplit: blocks [0, s.n_chunks) are the long rows'
+// chunks, and the groups after them skip the long rows; without it (a pack
+// with no long row) the launch is the groups alone.
+template <typename V, typename A, int G, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 gell_real_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                  const V* __restrict__ vals, const A* __restrict__ x, int64_t n_rows,
-                 A* __restrict__ y) {
-  const int64_t row = group_row<G>();
+                 A* __restrict__ y, const Split s) {
+  int64_t block = blockIdx.x;
+  if constexpr (kSplit) {
+    if (block < s.n_chunks) {
+      long_row_chunk<V, A>(indptr, indices, vals, x, y, s);
+      return;
+    }
+    block -= s.n_chunks;
+  }
+  const int64_t row = block * (kThreads / G) + threadIdx.x / G;
   const int lane = threadIdx.x & (G - 1);
   A acc = A(0);
-  if (row < n_rows) {
-    const int64_t end = indptr[row + 1];
-    for (int64_t k = static_cast<int64_t>(indptr[row]) + lane; k < end; k += G)
-      acc = madd(widen(vals[k]), __ldg(x + indices[k]), acc);
+  bool mine = row < n_rows;
+  if (mine) {
+    const int64_t begin = indptr[row], end = indptr[row + 1];
+    if constexpr (kSplit) mine = end - begin <= s.long_row;
+    if (mine)
+      for (int64_t k = begin + lane; k < end; k += G)
+        acc = madd(widen(vals[k]), __ldg(x + indices[k]), acc);
   }
   acc = group_sum<G>(acc);
-  if (lane == 0 && row < n_rows) y[row] = acc;
+  if (lane == 0 && mine) y[row] = acc;
 }
 
 // B6 on complex values, four FMAs per entry. kPlanes: x is (2, n_cols) real
@@ -177,14 +284,20 @@ enum Mode { kModeReal = 0, kModeComplex = 1, kModePlanes = 2 };
 
 template <int G, typename V, typename A>
 int launch(int mode, const int* indptr, const int* indices, const void* vals, const void* x,
-           int64_t x_plane, int64_t n_rows, void* y, cudaStream_t s) {
+           int64_t x_plane, int64_t n_rows, void* y, const Split& split, cudaStream_t s) {
   const unsigned grid = static_cast<unsigned>((n_rows * G + kThreads - 1) / kThreads);
   const V* v = static_cast<const V*>(vals);
   const A* xa = static_cast<const A*>(x);
   A* ya = static_cast<A*>(y);
   switch (mode) {
     case kModeReal:
-      gell_real_kernel<V, A, G><<<grid, kThreads, 0, s>>>(indptr, indices, v, xa, n_rows, ya);
+      if (split.n_chunks > 0)
+        gell_real_kernel<V, A, G, true>
+            <<<grid + static_cast<unsigned>(split.n_chunks), kThreads, 0, s>>>(
+                indptr, indices, v, xa, n_rows, ya, split);
+      else
+        gell_real_kernel<V, A, G, false><<<grid, kThreads, 0, s>>>(indptr, indices, v, xa,
+                                                                   n_rows, ya, split);
       break;
     case kModeComplex:
       gell_complex_kernel<V, A, G, false><<<grid, kThreads, 0, s>>>(indptr, indices, v, xa, 0,
@@ -202,14 +315,17 @@ int launch(int mode, const int* indptr, const int* indices, const void* vals, co
 
 template <typename V, typename A>
 int launch_group(int group, int mode, const int* indptr, const int* indices, const void* vals,
-                 const void* x, int64_t x_plane, int64_t n_rows, void* y, cudaStream_t s) {
+                 const void* x, int64_t x_plane, int64_t n_rows, void* y, const Split& split,
+                 cudaStream_t s) {
+#define LAUNCH(G) launch<G, V, A>(mode, indptr, indices, vals, x, x_plane, n_rows, y, split, s)
   switch (group) {
-    case 4: return launch<4, V, A>(mode, indptr, indices, vals, x, x_plane, n_rows, y, s);
-    case 8: return launch<8, V, A>(mode, indptr, indices, vals, x, x_plane, n_rows, y, s);
-    case 16: return launch<16, V, A>(mode, indptr, indices, vals, x, x_plane, n_rows, y, s);
-    case 32: return launch<32, V, A>(mode, indptr, indices, vals, x, x_plane, n_rows, y, s);
+    case 4: return LAUNCH(4);
+    case 8: return LAUNCH(8);
+    case 16: return LAUNCH(16);
+    case 32: return LAUNCH(32);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef LAUNCH
 }
 
 // Value-type codes shared with ops/gell_spmv.py (those of csrc/dia_spmv.cu).
@@ -221,13 +337,23 @@ extern "C" {
 
 // What a pack's launches share, set once per pack and entry by
 // ops/gell_spmv.py (its _CSRArgs, the same fields in the same order), so that
-// a call passes five arguments through ctypes, not twelve.
+// a call passes five arguments through ctypes, not twenty. From n_chunks
+// on, the pack's long rows (Split; n_chunks = 0 and null pointers: none,
+// and always so outside real mode).
 struct GellCSRArgs {
   int dtype, device, mode, group;
   long long n_rows;
   const void* indptr;
   const void* indices;
   const void* values;
+  long long n_chunks, long_row;
+  const void* long_rows;
+  const void* long_first;
+  const void* chunk_row;
+  const void* chunk_start;
+  const void* chunk_order;
+  void* counters;
+  void* partials;
 };
 
 // General sparse SpMV (B6). dtype is the type of the stored values (of each
@@ -241,7 +367,14 @@ int gell_csr_spmv(const GellCSRArgs* a, const void* x, long long x_plane, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(a->indptr);
   const int* ix = static_cast<const int*>(a->indices);
-#define CSR_ARGS a->group, a->mode, ip, ix, a->values, x, x_plane, a->n_rows, y, s
+  Split split{0, 0, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  if (a->mode == kModeReal && a->n_chunks > 0)
+    split = Split{a->n_chunks, a->long_row, static_cast<const int*>(a->long_rows),
+                  static_cast<const int*>(a->long_first), static_cast<const int*>(a->chunk_row),
+                  static_cast<const int64_t*>(a->chunk_start),
+                  static_cast<const int*>(a->chunk_order), static_cast<int*>(a->counters),
+                  a->partials};
+#define CSR_ARGS a->group, a->mode, ip, ix, a->values, x, x_plane, a->n_rows, y, split, s
   switch (a->dtype) {
     case kF32: return launch_group<float, float>(CSR_ARGS);
     case kBF16: return launch_group<__nv_bfloat16, float>(CSR_ARGS);

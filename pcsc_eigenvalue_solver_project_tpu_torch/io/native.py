@@ -3,7 +3,7 @@
 
 The same library as the JAX package's ``io/native.py``:
 ``native/build/libfast_reader.so``, built with ``make -C native`` on first
-use. If the toolchain, the build or a symbol is missing, ``available()`` is
+use (``_open_library``). If the toolchain, the build or a symbol is missing, ``available()`` is
 False and reader.py parses with its pure-Python tokenizer, which implements
 the identical grammar and error messages; likewise ``writer_available()``
 and writer.py's Python formatter, which writes the same bytes.
@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -30,6 +32,30 @@ _lib = None
 _tried = False
 
 
+def _open_library() -> ctypes.CDLL:
+    """The library, loaded. Where it is absent, or does not load because
+    another process is writing it in place (the JAX package's loader runs
+    ``make`` on the same file), it is built in a fresh directory, loaded
+    from there and moved into place with one rename: processes that start
+    at once never load a half-written file of this loader's making."""
+    if os.path.exists(_SO_PATH):
+        try:
+            return ctypes.CDLL(_SO_PATH)
+        except OSError:
+            pass
+    os.makedirs(os.path.dirname(_SO_PATH), exist_ok=True)
+    build = tempfile.mkdtemp(prefix=".build-", dir=os.path.dirname(_SO_PATH))
+    try:
+        subprocess.run(["make", "-C", _NATIVE_DIR, f"BUILD={build}"], check=True,
+                       capture_output=True, timeout=120)
+        built = os.path.join(build, os.path.basename(_SO_PATH))
+        lib = ctypes.CDLL(built)
+        os.replace(built, _SO_PATH)
+        return lib
+    finally:
+        shutil.rmtree(build, ignore_errors=True)
+
+
 def _load():
     global _lib, _tried
     with _lock:
@@ -37,10 +63,7 @@ def _load():
             return _lib
         _tried = True
         try:
-            if not os.path.exists(_SO_PATH):
-                subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                               capture_output=True, timeout=120)
-            lib = ctypes.CDLL(_SO_PATH)
+            lib = _open_library()
             lib.eigsol_read_header.restype = ctypes.c_int
             lib.eigsol_read_header.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),

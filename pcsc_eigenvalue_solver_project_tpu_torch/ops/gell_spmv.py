@@ -10,6 +10,11 @@ same COO, each read by a kernel written by hand:
   pairs), duplicates kept, since the kernel sums them as the JAX run scan
   does. ``csrc/gell_spmv.cu`` gives each row a group of ``group`` lanes
   that gather x from L2 (one 32-byte sector per entry, two on planes).
+  On real values, rows of more than ``LONG_ROW`` entries are cut into
+  chunks of at most ``SPLIT_CHUNK`` entries within one window of
+  ``SPLIT_WINDOW`` columns, one block a chunk, in the same launch, window by
+  window (``GELLSplit``, built with the pack): a hub row no longer runs on
+  one group, and the blocks resident at once gather from one window of x.
 - **Windows** (``GELLWindows``, ``window_layout``): rows cut into ranges of
   ``R`` rows, about one range per SM that a launch holds at once, columns
   into windows of ``W`` columns (``W`` x the bytes of an x element <= 64 KB,
@@ -97,6 +102,16 @@ CLUSTER_SIZES = (1, 2, 4)
 NOMINAL_SMS = 132                 # a CPU pack's ranges: as on the H100's 132 SMs
 SECTOR_BYTES = 32                 # what one gather of x moves from L2
 PACK_CHUNK = 1 << 27              # entries a step of a device pack or of the window rule takes
+# A row is long above LONG_ROW entries, and split: on the H100 at Graph 500
+# SCALE 26, B6 took 35.9 ms a call split above 1024 (2^24-column windows),
+# 37.8 above 4096 (2^22) and 43.5 above 16384, against 53.1 unsplit
+LONG_ROW = 1024
+# The most entries a block of a long row takes: 16 a thread of 256; 8 a
+# thread measured the same there (37.7-37.8 ms against 37.8)
+SPLIT_CHUNK = 4096
+# Columns a window of a split (64 MB of f32 x): with 1024-entry rows split,
+# finer windows cut their chunks too small (PERF.md §6)
+SPLIT_WINDOW = 1 << 24
 
 
 def group_width(nnz: int, n_rows: int) -> int:
@@ -133,6 +148,83 @@ class GELLWindows:
 
 
 @dataclasses.dataclass(frozen=True)
+class GELLSplit:
+    """The rows of a pack longer than ``LONG_ROW`` entries, cut into chunks
+    that B6's CSR route runs one block each, in the same launch as the other
+    rows (``csrc/gell_spmv.cu``): a chunk holds at most ``SPLIT_CHUNK``
+    entries of one row within one window of ``SPLIT_WINDOW`` columns.
+
+    Long row ``i`` is row ``rows[i]``; its chunks are ``[first[i], first[i +
+    1])``, in entry order; chunk ``c`` belongs to long row ``chunk_row[c]``
+    and runs from entry ``chunk_start[c]`` to the next chunk's start (the
+    row's end for its last). Block ``b`` runs chunk ``order[b]``: window by
+    window, so the blocks resident at once gather from one window of x.
+    ``counters`` (one a long row, 0 between calls) and ``partials`` (8 bytes
+    a chunk, one accumulator) are the kernel's: see ``gell_kernel`` on
+    calls that share a split."""
+
+    long_row: int              # rows of more entries are long (``LONG_ROW`` when built)
+    rows: torch.Tensor         # (n_long,) int32, ascending
+    first: torch.Tensor        # (n_long + 1,) int32
+    chunk_row: torch.Tensor    # (n_chunks,) int32
+    chunk_start: torch.Tensor  # (n_chunks,) int64
+    order: torch.Tensor        # (n_chunks,) int32
+    counters: torch.Tensor     # (n_long,) int32
+    partials: torch.Tensor     # (n_chunks,) float64
+
+    @property
+    def n_chunks(self) -> int:
+        return int(self.chunk_row.shape[0])
+
+
+def split_long_rows(indptr: torch.Tensor, indices: torch.Tensor,
+                    n_cols: int) -> GELLSplit | None:
+    """The split of the rows of a CSR (int32 ``indptr`` and ``indices``, on
+    the pack's device) longer than ``LONG_ROW`` entries; None where there is
+    none. One pass over the rows in int32; the long rows' entries are counted
+    by window a piece of about ``PACK_CHUNK`` at a time, so what is int64
+    spans one piece, the long rows and their chunks."""
+    dev = indptr.device
+    long = torch.nonzero(indptr[1:] - indptr[:-1] > LONG_ROW).squeeze(1)
+    if long.numel() == 0:
+        return None
+    begin = indptr[long].long()
+    lengths = indptr[long + 1].long() - begin
+    n_windows = max(-(-n_cols // SPLIT_WINDOW), 1)
+    # seg[i, w]: entries of long row i in window w (columns ascend in a row)
+    seg = torch.zeros((long.numel(), n_windows), dtype=torch.int64, device=dev)
+    if n_windows == 1:
+        seg[:, 0] = lengths
+    else:
+        ends = torch.cumsum(lengths, 0)
+        cuts = _chunk_bounds(torch.cat([ends.new_zeros(1), ends]), PACK_CHUNK)
+        for a, b in zip(cuts, cuts[1:]):
+            n = lengths[a:b]
+            at = torch.repeat_interleave(begin[a:b] - (torch.cumsum(n, 0) - n), n)
+            at += torch.arange(at.numel(), device=dev)
+            key = indices[at].long()
+            del at
+            key //= SPLIT_WINDOW
+            key += torch.repeat_interleave(torch.arange(a, b, device=dev) * n_windows, n)
+            seg.view(-1).add_(torch.bincount(key, minlength=seg.numel()))
+            del key
+    chunks = (seg + SPLIT_CHUNK - 1) // SPLIT_CHUNK
+    seg_start = begin[:, None] + torch.cumsum(seg, 1) - seg
+    first = torch.zeros(long.numel() + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(chunks.sum(1), 0, out=first[1:])
+    flat = chunks.view(-1)
+    seg_of = torch.repeat_interleave(torch.arange(flat.numel(), device=dev), flat)
+    within = torch.arange(seg_of.numel(), device=dev) - (torch.cumsum(flat, 0) - flat)[seg_of]
+    chunk_start = seg_start.view(-1)[seg_of] + within * SPLIT_CHUNK
+    order = torch.argsort(seg_of % n_windows, stable=True)
+    return GELLSplit(long_row=LONG_ROW, rows=long.to(torch.int32), first=first.to(torch.int32),
+                     chunk_row=(seg_of // n_windows).to(torch.int32), chunk_start=chunk_start,
+                     order=order.to(torch.int32),
+                     counters=torch.zeros(long.numel(), dtype=torch.int32, device=dev),
+                     partials=torch.zeros(seg_of.numel(), dtype=torch.float64, device=dev))
+
+
+@dataclasses.dataclass(frozen=True)
 class GELLPack:
     """One general sparse operator as row-sorted CSR on one device, with its
     windowed layout in ``windows`` where the route rule picks it.
@@ -149,6 +241,7 @@ class GELLPack:
     tile_rows: int | None = None
     is_complex: bool = False
     windows: GELLWindows | None = None  # the windowed layout, when the rule picks it
+    split: GELLSplit | None = None      # real values' long rows, if any (``split_long_rows``)
     # (planes, route) -> the launch resolved for this pack (``_launcher``); a
     # replaced pack starts with none
     _launchers: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
@@ -305,9 +398,10 @@ def _device_pack(row: torch.Tensor, col: torch.Tensor, values: torch.Tensor, n_r
             indices[s:e] = col[src]
             vals[s:e] = values[src]
             del src
-    return GELLPack(indptr=indptr.to(torch.int32), indices=indices, values=vals,
-                    shape=(n_rows, n_cols), group=group_width(nnz, n_rows),
-                    tile_rows=tile_rows, is_complex=is_complex)
+    indptr = indptr.to(torch.int32)
+    return GELLPack(indptr=indptr, indices=indices, values=vals, shape=(n_rows, n_cols),
+                    group=group_width(nnz, n_rows), tile_rows=tile_rows, is_complex=is_complex,
+                    split=None if is_complex else split_long_rows(indptr, indices, n_cols))
 
 
 # --------------------------------------------------------------------------
@@ -620,7 +714,11 @@ class _CSRArgs(ctypes.Structure):
     _fields_ = [("dtype", ctypes.c_int), ("device", ctypes.c_int), ("mode", ctypes.c_int),
                 ("group", ctypes.c_int), ("n_rows", ctypes.c_longlong),
                 ("indptr", ctypes.c_void_p), ("indices", ctypes.c_void_p),
-                ("values", ctypes.c_void_p)]
+                ("values", ctypes.c_void_p), ("n_chunks", ctypes.c_longlong),
+                ("long_row", ctypes.c_longlong), ("long_rows", ctypes.c_void_p), ("long_first", ctypes.c_void_p),
+                ("chunk_row", ctypes.c_void_p), ("chunk_start", ctypes.c_void_p),
+                ("chunk_order", ctypes.c_void_p), ("counters", ctypes.c_void_p),
+                ("partials", ctypes.c_void_p)]
 
 
 class _WindowArgs(ctypes.Structure):
@@ -645,6 +743,7 @@ class _Launch:
     device: torch.device
     index: int
     dtype: torch.dtype      # of x and y (planes: of each plane)
+    split: tuple | None     # (long rows, chunk blocks) a launch splits; None: no split
 
 
 def _launcher(name: str, pack: GELLPack, planes: bool, route: str | None) -> _Launch:
@@ -669,6 +768,7 @@ def _launcher(name: str, pack: GELLPack, planes: bool, route: str | None) -> _La
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     code = _VALUE_CODES[pack.values.dtype]
     mode = _MODE_PLANES if planes else _MODE_COMPLEX if pack.is_complex else _MODE_REAL
+    split = pack.split if chosen == "csr" and mode == _MODE_REAL else None
     if chosen == "windows":
         win = pack.windows
         if win is None:
@@ -682,11 +782,16 @@ def _launcher(name: str, pack: GELLPack, planes: bool, route: str | None) -> _La
     elif chosen == "csr":
         fn, args = lib.gell_csr_spmv, _CSRArgs(
             code, index, mode, pack.group, pack.shape[0], pack.indptr.data_ptr(),
-            pack.indices.data_ptr(), pack.values.data_ptr())
+            pack.indices.data_ptr(), pack.values.data_ptr(),
+            *((split.n_chunks, split.long_row, split.rows.data_ptr(), split.first.data_ptr(),
+               split.chunk_row.data_ptr(), split.chunk_start.data_ptr(),
+               split.order.data_ptr(), split.counters.data_ptr(), split.partials.data_ptr())
+              if split is not None else (0, 0) + (None,) * 7))
     else:
         raise ValueError(f"{name}: route {chosen!r} is neither 'csr' nor 'windows'")
     dtype = pack.vector_dtype.to_real() if planes else pack.vector_dtype
-    hit = _Launch(chosen, fn, args, ctypes.addressof(args), dev, index, dtype)
+    hit = _Launch(chosen, fn, args, ctypes.addressof(args), dev, index, dtype,
+                  (len(split.rows), split.n_chunks) if split is not None else None)
     pack._launchers[(planes, route)] = hit
     return hit
 
@@ -711,13 +816,23 @@ def _launch(name: str, launch: _Launch, x: torch.Tensor, x_plane: int, y: torch.
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}): "
                            f"{_build.load().dia_cuda_error_string(rc).decode()}")
     ROUTE_LAUNCHES[launch.route] += 1
+    if launch.split is not None:
+        count("gell_split_rows", launch.split[0])
+        count("gell_split_blocks", launch.split[1])
 
 
 def gell_kernel(pack: GELLPack, x: torch.Tensor, route: str | None = None) -> torch.Tensor:
     """B6 on the card: ``A @ x`` with x an (n_cols,) contiguous vector of
     dtype ``pack.vector_dtype`` (complex64/complex128 for a complex pack),
     by ``route`` (``"csr"`` or ``"windows"``; default ``pick_route``).
-    A pack with no rows or no entries launches nothing: y is empty or zero."""
+    A pack with no rows or no entries launches nothing: y is empty or zero.
+
+    On the CSR route a pack with long rows (``pack.split``) is not
+    reentrant: the kernel writes the split's per-row counters and per-chunk
+    partials, which packs made from this one by ``with_values_dtype`` or
+    ``dataclasses.replace`` share. Calls on such packs must run in stream
+    order: two at once, from two streams or from overlapping CUDA graph
+    replays, give a wrong y without an error."""
     n_rows, n_cols = pack.shape
     if x.shape != (n_cols,):
         raise ValueError(f"gell_kernel: expected an ({n_cols},) vector, got {tuple(x.shape)}")

@@ -42,7 +42,9 @@ says which solve a span belongs to. The spans are named ``eigsol.*``:
 
 Counters: ``host_reads`` (``host_read`` calls, and B13's / B10's reads of
 their state, one a cooperative launch), ``host_writes`` (``host_write``
-calls). A run clears the record with ``reset()``; it keeps at most
+calls), ``gell_split_rows`` and ``gell_split_blocks`` (the long rows and
+their chunk blocks of each B6 launch that splits its long rows,
+``ops/gell_spmv.py``). A run clears the record with ``reset()``; it keeps at most
 ``MAX_SPANS`` spans and counts the rest in the counter ``dropped_spans``.
 """
 

@@ -79,7 +79,12 @@ The general sparse SpMV B6 (``gell_kernel`` on real and native complex
 vectors, ``gell_planes_kernel`` on re/im planes) is held to its plain version
 the same way, relative to ``max|y|`` (``TOL`` of the vector dtype), for every
 value type, at mean row lengths that give each group width, on rows of 0 to
-5000 entries, duplicates, a rectangle and planes x whose planes lie apart.
+5000 entries, duplicates, a rectangle and planes x whose planes lie apart;
+and on a power-law pack whose hub rows (one of ~2^21 entries, eight of
+~2^18) the CSR route splits over whole blocks: three calls bit for bit
+equal, the rows under ``LONG_ROW`` bit for bit those of a launch without the
+split, one device kernel a call, and the counters ``gell_split_rows`` and
+``gell_split_blocks``.
 """
 
 import numpy as np
@@ -827,6 +832,47 @@ def device_kernels(fn):
     return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def graph_kernels(fn):
+    """What one call of ``fn`` puts on the stream, read from the CUDA graph
+    it is captured into (driver API), one entry a node: a kernel's (mangled)
+    name, else ``"node type <n>"`` (a memset, a copy). Kernel counts are not
+    read from torch.profiler: on the H100 it lost a share of the kernel
+    records that grew as a process aged, wherever they lay in its window."""
+    import ctypes
+    fn()  # builds, caches, allocator
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+
+    def ok(rc):
+        assert rc == 0, f"CUDA driver error {rc}"
+
+    n = ctypes.c_size_t(0)
+    ok(drv.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(drv.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), nodes, ctypes.byref(n)))
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            out.append(f"node type {kind.value}")
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func first, kern eighth (of 72 bytes)
+        params = (ctypes.c_void_p * 16)()
+        ok(drv.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params))
+        name = ctypes.c_char_p()
+        if params[0]:
+            ok(drv.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params[0])))
+        else:
+            ok(drv.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params[7])))
+        out.append(name.value.decode())
+    graph.reset()
+    return out
+
+
 def q_phases(q, qp):
     """D with q = qp D, from the columns (q_j^H qp_j over |.|): the
     diagonal unitary that H and Q are unique up to, read where it is
@@ -1548,6 +1594,68 @@ def test_gell_kernels_reject_what_they_do_not_take(cuda):
         gs.gell_planes_kernel(cpack, torch.zeros((2, 100), dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError, match="unit stride"):
         gs.gell_planes_kernel(cpack, torch.zeros((100, 2), device=cuda).T)
+
+
+def hub_operands(vtype, device, n_cols=1 << 20):
+    """A power-law pack on 2^20 rows: one row of ~2^21 entries, eight of
+    ~2^18, the rest Zipf lengths up to 50,000 (some long, most short), uniform
+    columns; and an x of its vector dtype."""
+    n = 1 << 20
+    rng = np.random.default_rng(22)
+    lengths = np.minimum(rng.zipf(1.8, n), 50_000)
+    lengths[n // 3] = (1 << 21) + 3
+    lengths[rng.choice(n, 8, replace=False)] = (1 << 18) + rng.integers(0, 4096, 8)
+    r = np.repeat(np.arange(n), lengths)
+    c = rng.integers(0, n_cols, len(r))
+    v = rng.uniform(-1, 1, len(r)).astype(np.float32)
+    pack = gs.pack_gell(r, c, v, (n, n_cols), device=device).with_values_dtype(vtype)
+    x = torch.from_numpy(rng.uniform(-1, 1, n_cols)).to(device=device, dtype=pack.vector_dtype)
+    return pack, x, torch.from_numpy(lengths).to(device)
+
+
+# columns: one window of the split, and three and a bit (chunks run window by window)
+@pytest.mark.parametrize("n_cols", [1 << 20, 3 * gs.SPLIT_WINDOW + 5])
+@pytest.mark.parametrize("vtype", [torch.float32, torch.bfloat16])
+def test_gell_split_hub_rows_match_plain_and_repeat(cuda, vtype, n_cols):
+    import dataclasses
+    pack, x, lengths = hub_operands(vtype, cuda, n_cols)
+    long = lengths > gs.LONG_ROW
+    assert pack.split is not None and len(pack.split.rows) == int(long.sum()) >= 9
+    in_row_order = torch.equal(pack.split.order.cpu(),
+                               torch.arange(pack.split.n_chunks, dtype=torch.int32))
+    assert in_row_order == (n_cols <= gs.SPLIT_WINDOW)
+    ys = [gs.gell_kernel(pack, x, route="csr") for _ in range(3)]
+    torch.cuda.synchronize()
+    # the plain version in float64: its float32 sums of 2^21 terms would not do
+    want = gs.gell_matvec_plain(pack, x.double())
+    assert rel_err(ys[0].double(), want) <= TOL[pack.vector_dtype]
+    assert torch.equal(ys[0], ys[1]) and torch.equal(ys[0], ys[2])  # the counters reset
+    assert not pack.split.counters.any()
+    # rows at or under the threshold: bit for bit one group a row, as without a split
+    whole = gs.gell_kernel(dataclasses.replace(pack, split=None), x, route="csr")
+    assert torch.equal(ys[0][~long], whole[~long])
+
+
+def test_gell_split_is_one_kernel_a_call_and_counted(cuda, tmp_path):
+    from pcsc_eigenvalue_solver_project_tpu_torch.utils import timing
+    pack, x, _ = hub_operands(torch.float32, cuda)
+    plain, xp = gell_operands([33] * 100_000, 100_000, torch.float32, False, seed=5, device=cuda)
+    assert plain.split is None
+    gs.gell_kernel(pack, x, route="csr")
+    torch.cuda.synchronize()
+    kernels = graph_kernels(lambda: [gs.gell_kernel(pack, x, route="csr") for _ in range(3)])
+    assert len(kernels) == 3 and all("gell_real_kernel" in k for k in kernels), kernels
+    with timing.trace(str(tmp_path)):
+        gs.gell_kernel(pack, x, route="csr")
+        gs.gell_kernel(pack, x, route="csr")
+        torch.cuda.synchronize()
+    assert timing.counters() == {"gell_split_rows": 2 * len(pack.split.rows),
+                                 "gell_split_blocks": 2 * pack.split.n_chunks}
+    with timing.trace(str(tmp_path)):
+        gs.gell_kernel(plain, xp, route="csr")
+        torch.cuda.synchronize()
+    assert timing.counters() == {}
+    timing.reset()
 
 
 def test_gell_and_auto_paths_on_the_card(cuda):

@@ -285,7 +285,7 @@ def test_launch_arguments_match_the_c_structs(source, struct, args):
     # mirror must name the same fields, of the same types, in the same order
     import ctypes
     ctypes_of = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
-                 "const void*": ctypes.c_void_p}
+                 "const void*": ctypes.c_void_p, "void*": ctypes.c_void_p}
     want = [(name, ctypes_of[ctype]) for name, ctype in _c_struct_fields(source, struct)]
     assert args._fields_ == want
 

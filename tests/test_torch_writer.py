@@ -123,6 +123,20 @@ class TestNativeWriter:
     def test_availability_matches_jax(self):
         assert t_native.writer_available() == j_native.writer_available()
 
+    @pytest.mark.parametrize("found", ["absent", "half_written"])
+    def test_library_is_built_aside_and_moved_into_place(self, tmp_path, monkeypatch, found):
+        # a missing library, or one that does not load (being written in
+        # place by another process), is built in a fresh directory and
+        # renamed into place, which leaves nothing else behind
+        so = tmp_path / "build" / "libfast_reader.so"
+        if found == "half_written":
+            so.parent.mkdir()
+            so.write_bytes(b"\x7fELF\x02\x01\x01")
+        monkeypatch.setattr(t_native, "_SO_PATH", str(so))
+        lib = t_native._open_library()
+        assert lib.eigsol_read_header and lib.eigsol_write_dense
+        assert os.listdir(so.parent) == [so.name] and so.stat().st_size > 1000
+
     @needs_writer
     def test_native_output_matches_python_writer(self, tmp_path, monkeypatch):
         rng = np.random.default_rng(2)
